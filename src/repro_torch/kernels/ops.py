@@ -1,0 +1,27 @@
+"""Public kernel ops: what the model code calls.
+
+Every op takes its path from the device of its inputs alone: a CUDA tensor
+launches the hand-written kernel (or raises), a CPU tensor runs the plain
+version from ``kernels.ref``.  Nothing here catches a kernel failure and
+falls back.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.build import launch_counts, reset_launch_counts  # noqa: F401
+from repro_torch.kernels.decode_attention import decode_attention  # noqa: F401
+from repro_torch.kernels.expert_gemm import expert_gate_up, grouped_matmul  # noqa: F401
+
+
+def grouped_expert_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                       wd: torch.Tensor,
+                       counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Grouped gated expert FFN over an (E, C, D) capacity buffer:
+    ``silu(x@wg) * (x@wu) @ wd`` with h rounded to x's dtype in between
+    (K1 then K2 on the card).  ``counts`` (E,) int32 marks each expert's
+    routed rows; rows past it come back as zeros."""
+    h = expert_gate_up(x, wg, wu, counts)
+    return grouped_matmul(h, wd, counts)

@@ -1,0 +1,179 @@
+"""Attention: GQA with RoPE; full-sequence (prefill) and decode paths.
+
+* ``naive_attention``  -- materialized scores; the prefill mechanism of this
+  slice (prompts up to 1024 tokens, and sliding windows no shorter than the
+  prompt).  Longer prefill is the flash-attention kernel's slice.
+* ``attn_decode``      -- one new token per sequence against a preallocated
+  (possibly circular) cache, written in place; its mechanism is the
+  hand-written decode-attention kernel (``kernels.ops.decode_attention``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import torch_dtype
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope, dense_init
+
+NEG_INF = -1e30
+FLASH_SLICE = ("prefill beyond 1024 tokens (or beyond a sliding window) is "
+               "the flash-attention slice of the port")
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+def init_attn_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dt = torch_dtype(cfg.dtype)
+    p = {
+        "wq": dense_init((d, h * hd), gen, dtype=dt),
+        "wk": dense_init((d, kv * hd), gen, dtype=dt),
+        "wv": dense_init((d, kv * hd), gen, dtype=dt),
+        "wo": dense_init((h * hd, d), gen, in_dim=h * hd, dtype=dt),
+    }
+    if cfg.qkv_bias:
+        dev = gen.device
+        p["wq_bias"] = torch.zeros((h * hd,), dtype=dt, device=dev)
+        p["wk_bias"] = torch.zeros((kv * hd,), dtype=dt, device=dev)
+        p["wv_bias"] = torch.zeros((kv * hd,), dtype=dt, device=dev)
+    return p
+
+
+def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor):
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["wq_bias"]
+        k = k + p["wk_bias"]
+        v = v + p["wv_bias"]
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence attention math ((B, S, H, D) / (B, T, K, D))
+# ---------------------------------------------------------------------------
+def naive_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+    kv_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Reference attention.  q: (B, Sq, H, D); k, v: (B, Sk, K, D).
+    ``kv_mask`` (B, Sk) bool marks valid keys of a ragged batch."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = D ** -0.5
+    qg = q.reshape(B, Sq, K, G, D)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    dev = q.device
+    qpos = torch.arange(Sq, device=dev) + q_offset
+    kpos = torch.arange(Sk, device=dev)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    neg = torch.full_like(scores, NEG_INF)
+    scores = torch.where(mask, scores, neg)
+    if kv_mask is not None:
+        scores = torch.where(kv_mask[:, None, None, None, :], scores, neg)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    return out.reshape(B, Sq, H, D)
+
+
+def full_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int = 0,
+    kv_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Dispatcher for full-sequence passes (the naive mechanism only)."""
+    S = q.shape[1]
+    if (window and S > window) or S > 1024:
+        raise NotImplementedError(FLASH_SLICE)
+    return naive_attention(q, k, v, causal=True, window=window, kv_mask=kv_mask)
+
+
+# ---------------------------------------------------------------------------
+# Module-level forward passes
+# ---------------------------------------------------------------------------
+def attn_forward(
+    cfg: ModelConfig,
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    positions: Optional[torch.Tensor] = None,
+    lengths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence attention.  Returns (output, {"k", "v"}) so prefill
+    can cache.  ``lengths`` (B,) masks the keys at right-padded positions
+    (outputs at padded query positions are never read)."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(cfg, p, x)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    kv_mask = None
+    if lengths is not None:
+        kv_mask = torch.arange(S, device=x.device)[None, :] < lengths[:, None]
+    out = full_attention(q, k, v, window=cfg.sliding_window, kv_mask=kv_mask)
+    y = out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    return y, {"k": k, "v": v}
+
+
+def kv_span(cfg: ModelConfig, max_seq: int) -> int:
+    return min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+                  device="cpu") -> Dict[str, torch.Tensor]:
+    dtype = dtype or torch_dtype(cfg.dtype)
+    shape = (batch, kv_span(cfg, max_seq), cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_decode(
+    cfg: ModelConfig,
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,                       # (B, 1, D)
+    cache: Dict[str, torch.Tensor],        # (B, span, K, hd), written in place
+    pos,                                   # int or (B,) int: current position
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step against a preallocated (possibly circular) cache.
+
+    Each row writes its new K/V IN PLACE at slot ``pos`` (``pos % span``
+    under a sliding window, else clamped to the last slot) and attends its
+    own slots ``<= pos``; the mechanism is ``ops.decode_attention``.
+    Returns (y (B, 1, D), cache) -- the same cache tensors."""
+    B = x.shape[0]
+    q, k, v = _project_qkv(cfg, p, x)                       # (B, 1, ., hd)
+    posv = torch.as_tensor(pos, dtype=torch.long, device=x.device)
+    posv = posv.reshape(-1).expand(B)
+    posb = posv[:, None]
+    q = apply_rope(q, posb, cfg.rope_theta)
+    k = apply_rope(k, posb, cfg.rope_theta)
+    span = cache["k"].shape[1]
+    if cfg.sliding_window > 0:
+        slot = posv % span
+    else:
+        slot = torch.clamp(posv, max=span - 1)
+    rows = torch.arange(B, device=x.device)
+    cache["k"][rows, slot] = k[:, 0]
+    cache["v"][rows, slot] = v[:, 0]
+    o = ops.decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"], posv)
+    y = o.reshape(B, 1, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    return y, cache

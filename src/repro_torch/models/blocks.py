@@ -1,0 +1,116 @@
+"""Layer blocks: attention + (dense FFN | MoE) with pre-norm residuals.
+
+SSM and hybrid layers are the SSM slice of the port."""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import torch_dtype
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.layers import dense_init, rms_norm
+
+SSM_SLICE = "SSM and hybrid layers are the SSM slice of the port"
+
+
+def _require_attn(kind: str) -> None:
+    if kind != "attn":
+        raise NotImplementedError(SSM_SLICE)
+
+
+# ---------------------------------------------------------------------------
+# Dense FFN
+# ---------------------------------------------------------------------------
+def init_ffn_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    d, f = cfg.d_model, cfg.d_ff
+    dt = torch_dtype(cfg.dtype)
+    return {
+        "w_gate": dense_init((d, f), gen, dtype=dt),
+        "w_up": dense_init((d, f), gen, dtype=dt),
+        "w_down": dense_init((f, d), gen, dtype=dt),
+    }
+
+
+def ffn_apply(p, x: torch.Tensor) -> torch.Tensor:
+    g = x @ p["w_gate"]
+    u = x @ p["w_up"]
+    return (F.silu(g) * u) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# One layer
+# ---------------------------------------------------------------------------
+def init_layer_params(cfg: ModelConfig, kind: str, ffn_kind: str,
+                      gen: torch.Generator) -> Dict:
+    _require_attn(kind)
+    dt = torch_dtype(cfg.dtype)
+    dev = gen.device
+    p: Dict = {"norm1": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+               "attn": attn_mod.init_attn_params(cfg, gen)}
+    if ffn_kind == "moe":
+        p["norm2"] = torch.ones((cfg.d_model,), dtype=dt, device=dev)
+        p["moe"] = moe_mod.init_moe_params(cfg, gen)
+    elif cfg.d_ff > 0:
+        p["norm2"] = torch.ones((cfg.d_model,), dtype=dt, device=dev)
+        p["ffn"] = init_ffn_params(cfg, gen)
+    return p
+
+
+def ffn_stage(cfg: ModelConfig, ffn_kind: str, p: Dict,
+              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FFN half of a layer with its residual: norm2 -> (MoE | dense),
+    the MoE as the exact dense-combine reference (the engine runs its own
+    grouped dispatch)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn_kind == "moe":
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        y, aux = moe_mod.moe_apply_local(cfg, p["moe"], h)
+        x = x + y
+    elif cfg.d_ff > 0:
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        x = x + ffn_apply(p["ffn"], h)
+    return x, aux
+
+
+def layer_forward(
+    cfg: ModelConfig,
+    kind: str,
+    ffn_kind: str,
+    p: Dict,
+    x: torch.Tensor,
+    positions: Optional[torch.Tensor] = None,
+    lengths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+    """Full-sequence layer.  Returns (x, cache_entry, aux_loss); ``lengths``
+    (B,) masks right-padded positions of a ragged batch."""
+    _require_attn(kind)
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    y, cache = attn_mod.attn_forward(cfg, p["attn"], h, positions, lengths)
+    x, aux = ffn_stage(cfg, ffn_kind, p, x + y)
+    return x, cache, aux
+
+
+def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
+                     device="cpu") -> Dict[str, torch.Tensor]:
+    _require_attn(kind)
+    return attn_mod.init_kv_cache(cfg, batch, max_seq, device=device)
+
+
+def layer_decode(
+    cfg: ModelConfig,
+    kind: str,
+    ffn_kind: str,
+    p: Dict,
+    x: torch.Tensor,               # (B, 1, D)
+    cache: Dict,
+    pos,
+) -> Tuple[torch.Tensor, Dict]:
+    _require_attn(kind)
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    y, cache = attn_mod.attn_decode(cfg, p["attn"], h, cache, pos)
+    x, _ = ffn_stage(cfg, ffn_kind, p, x + y)
+    return x, cache

@@ -1,0 +1,704 @@
+"""Request-lifecycle serving: one step-driven core under both schedulers.
+
+``Server`` is the serving facade over ``ModuleBatchingEngine`` +
+``ParamStore``: requests are submitted (``submit(Request) ->
+RequestHandle``), become admissible at their ``arrival_s`` offset on a
+virtual clock keyed off wall time, and are driven by ``step()`` -- one
+module-batched decode tick that admits due arrivals, decodes every live
+slot, samples each slot, and evicts/recycles finished sequences.  ``run()``
+loops ``step()`` (sleeping through idle gaps until the next arrival) and
+returns the ``ServeReport``.
+
+The two scheduler modes are admission policies over that single core:
+
+* ``static`` -- the paper's offline protocol (§5.1): requests are admitted
+  in waves, a new wave only once the previous one has fully drained; every
+  wave slot keeps stepping until the wave's slowest member finishes (early
+  finishers are counted in ``wasted_slot_steps``).
+* ``continuous`` -- in-flight batching: a finished sequence's slot and KV
+  rows are evicted at once and the freed slot is recycled by prefilling the
+  next due request into it; with ``ServeConfig.hw`` set, admission is gated
+  by the Eq. 2 host KV budget (counted in ``admission_deferrals``).
+
+Both modes give identical tokens per request when the plan's expert
+capacity ``b_e`` admits every routed copy.  Per-request latencies
+(``queue_wait_s``, ``ttft_s``, ``tpot_s``) are measured on the virtual
+clock.  Fault injection, preemption, online capacity re-planning, paged and
+prefix-cached KV and replicas are later slices of the port.
+"""
+from __future__ import annotations
+
+import heapq
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Iterator, List, Optional
+
+import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import workload as W
+from repro_torch.core.dag_builder import Plan
+from repro_torch.core.hardware import HardwareProfile
+from repro_torch.device import resolve_device
+from repro_torch.serving.sampling import BatchSampler, SamplingParams
+from repro_torch.serving.weights import ParamStore
+
+
+# ---------------------------------------------------------------------------
+# Requests, configs, results
+# ---------------------------------------------------------------------------
+@dataclass
+class Request:
+    prompt: np.ndarray            # (S,) int32
+    decode_len: int
+    arrival_s: float = 0.0        # admissible-from offset on the virtual clock
+    sampling: Optional[SamplingParams] = None   # None = greedy
+
+
+_LATER_SLICES = {
+    "kv_page_tokens": "paged KV caches are the paging slice of the port",
+    "device_kv_gb": "paged KV caches are the paging slice of the port",
+    "prefix_cache": "the prefix cache is the paging slice of the port",
+    "replan_skew": "online capacity re-planning is a later slice of the port",
+    "faults": "fault injection is the faults slice of the port",
+}
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """Scheduling-side knobs, frozen.  ``decode_len`` is the fallback for
+    requests whose own field is zero/None; ``hw`` enables Eq. 2
+    memory-gated admission in the continuous scheduler.  ``from_plan``
+    sizes ``max_batch``/``max_seq`` with the planner up front.  The knobs
+    of later slices (paging, prefix cache, re-planning, faults) raise
+    ``NotImplementedError`` when set."""
+
+    scheduler: str = "static"
+    decode_len: int = 32
+    max_seq: Optional[int] = None
+    max_prompt_len: Optional[int] = None
+    pad_id: int = 0
+    eos_id: Optional[int] = None
+    expert_path: str = "grouped"
+    hw: Optional[HardwareProfile] = None
+    max_batch: Optional[int] = None      # engine slots (None = sized at the
+    #                                      first step from the submitted queue)
+    plan: Optional[Plan] = None          # planner-produced Plan (from_plan)
+    kv_page_tokens: int = 0
+    device_kv_gb: Optional[float] = None
+    prefix_cache: bool = False
+    replan_skew: Optional[float] = None
+    faults: Optional[object] = None
+
+    def __post_init__(self) -> None:
+        assert self.scheduler in ("static", "continuous"), self.scheduler
+        if self.max_batch is not None:
+            assert self.max_batch >= 1, self.max_batch
+        for name, why in _LATER_SLICES.items():
+            if getattr(self, name) not in (None, 0, False):
+                raise NotImplementedError(why)
+
+    @classmethod
+    def from_plan(cls, cfg: ModelConfig, hw: HardwareProfile, ctx: int = 512,
+                  scheduler: str = "continuous", B: Optional[int] = None,
+                  **overrides) -> "ServeConfig":
+        """Run ``planner.search_decode(cfg, hw, ctx)`` and pin ``max_batch``
+        to the plan's B, ``max_seq`` to ``ctx`` and ``hw`` for gated
+        admission; the Plan rides along in ``.plan``."""
+        from repro_torch.core.planner import search_decode
+
+        plan = search_decode(cfg, hw, ctx, B=B, scheduler=scheduler,
+                             decode_len=overrides.get("decode_len")).plan
+        kw = dict(scheduler=scheduler, max_seq=ctx, max_batch=plan.B,
+                  hw=hw, plan=plan)
+        kw.update(overrides)
+        return cls(**kw)
+
+
+@dataclass(frozen=True)
+class StreamConfig:
+    """Weight-residency knobs for the ``ParamStore`` the server builds;
+    anything but full residency is the weight-streaming slice."""
+
+    stream_weights: bool = False
+    resident_bytes: Optional[float] = None
+
+
+@dataclass
+class BatchResult:
+    tokens: np.ndarray            # (B, decode_len) raw batch tokens (static)
+    prefill_s: float
+    decode_s: float
+    expert_tokens_dropped: int = 0   # routed copies over the b_e capacity
+
+
+@dataclass
+class RequestResult:
+    index: int                    # position in the input request list
+    tokens: np.ndarray            # (n,) generated tokens (<= decode_len; EOS cut)
+    latency_s: float              # admission -> last token (incl. its prefill)
+    decode_steps: int             # decode steps while this request was live
+    arrival_s: float = 0.0        # admissible-from offset (virtual clock)
+    queue_wait_s: float = 0.0     # arrival -> admission
+    ttft_s: float = 0.0           # arrival -> first token
+    tpot_s: float = 0.0           # mean per-token latency after the first
+
+
+@dataclass
+class ServeReport:
+    results: List[BatchResult] = field(default_factory=list)
+    request_results: List[RequestResult] = field(default_factory=list)
+    scheduler: str = "static"
+    prefill_s: float = 0.0
+    decode_s: float = 0.0
+    decode_slot_steps: int = 0    # decode steps x batch slots executed
+    wasted_slot_steps: int = 0    # slot-steps spent on finished/empty slots
+    admission_deferrals: int = 0  # admissions blocked by the Eq. 2 KV budget
+    prefill_tokens: int = 0       # token-positions computed in prefill
+    _expert_dropped: int = 0      # drops counted outside BatchResults
+    expert_dropped_by_layer: Optional[np.ndarray] = None  # (n_moe,) drops
+    expert_load: Optional[np.ndarray] = None  # (n_moe, E) routed-copy hist
+
+    @property
+    def total_s(self) -> float:
+        return self.prefill_s + self.decode_s
+
+    @property
+    def decode_tokens(self) -> int:
+        """Valid generated tokens (per-request decode_len / EOS honored)."""
+        return sum(r.tokens.size for r in self.request_results)
+
+    @property
+    def expert_tokens_dropped(self) -> int:
+        return self._expert_dropped + sum(
+            r.expert_tokens_dropped for r in self.results
+        )
+
+    @property
+    def routing_skew(self) -> float:
+        """Hottest expert's share of routed copies as a multiple of the
+        balanced share ``1/E`` (0.0 when nothing was measured)."""
+        if self.expert_load is None:
+            return 0.0
+        per_expert = self.expert_load.sum(axis=0)
+        total = per_expert.sum()
+        if total <= 0:
+            return 0.0
+        return float(per_expert.max() / total * per_expert.size)
+
+    @property
+    def decode_throughput(self) -> float:
+        return self.decode_tokens / self.decode_s if self.decode_s > 0 else 0.0
+
+    @property
+    def prefill_throughput(self) -> float:
+        return self.prefill_tokens / self.prefill_s if self.prefill_s > 0 else 0.0
+
+    @property
+    def occupancy(self) -> float:
+        """Fraction of executed decode slot-steps that produced live tokens."""
+        if self.decode_slot_steps == 0:
+            return 1.0
+        return 1.0 - self.wasted_slot_steps / self.decode_slot_steps
+
+    @property
+    def mean_latency_s(self) -> float:
+        rr = self.request_results
+        return sum(r.latency_s for r in rr) / len(rr) if rr else 0.0
+
+    @property
+    def mean_queue_wait_s(self) -> float:
+        rr = self.request_results
+        return sum(r.queue_wait_s for r in rr) / len(rr) if rr else 0.0
+
+    def ttft_percentile(self, q: float) -> float:
+        rr = self.request_results
+        return float(np.percentile([r.ttft_s for r in rr], q)) if rr else 0.0
+
+    def tpot_percentile(self, q: float) -> float:
+        rr = self.request_results
+        return float(np.percentile([r.tpot_s for r in rr], q)) if rr else 0.0
+
+
+def pad_requests(requests, pad_id: int = 0,
+                 max_prompt_len: Optional[int] = None):
+    """Right-pad a request chunk to its longest prompt.  Returns
+    ``(tokens (B, S), lengths (B,))``; the lengths make padding exact."""
+    prompts = []
+    for r in requests:
+        p = np.asarray(r.prompt, np.int32).reshape(-1)
+        if max_prompt_len is not None:
+            p = p[:max_prompt_len]
+        prompts.append(p)
+    lengths = np.asarray([len(p) for p in prompts], np.int32)
+    S = max(1, int(lengths.max())) if prompts else 1
+    out = np.full((len(requests), S), pad_id, np.int32)
+    for i, p in enumerate(prompts):
+        out[i, : len(p)] = p
+    return out, lengths
+
+
+# ---------------------------------------------------------------------------
+# Request lifecycle
+# ---------------------------------------------------------------------------
+class RequestHandle:
+    """A submitted request's live view: status, the token stream as it is
+    produced, and the timing marks the metrics derive from.  Pass
+    ``on_token=`` to ``Server.submit`` for a per-token callback, or iterate
+    ``handle.stream()``, which drives ``Server.step()``."""
+
+    def __init__(self, server: "Server", index: int, request: Request,
+                 prompt: np.ndarray, decode_len: int,
+                 on_token: Optional[Callable] = None) -> None:
+        self._server = server
+        self.index = index
+        self.request = request
+        self.prompt = prompt              # truncated to max_prompt_len
+        self.decode_len = decode_len      # resolved fallback applied
+        self.sampling = request.sampling
+        self.arrival_s = float(request.arrival_s or 0.0)
+        self.on_token = on_token
+        self.status = "queued"            # queued -> running -> finished
+        self.tokens: List[int] = []
+        self.admit_s = float("nan")
+        self.first_token_s = float("nan")
+        self.finish_s = float("nan")
+        self.decode_steps = 0
+
+    @property
+    def finished(self) -> bool:
+        return self.status == "finished"
+
+    def _emit(self, token: int) -> None:
+        self.tokens.append(token)
+        if self.on_token is not None:
+            self.on_token(self, token)
+
+    def stream(self) -> Iterator[int]:
+        """Yield tokens as they are produced, driving the server forward."""
+        sent = 0
+        while True:
+            while sent < len(self.tokens):
+                yield self.tokens[sent]
+                sent += 1
+            if self.finished:
+                return
+            self._server._wait_for_arrival()
+            self._server.step()
+
+    def result(self) -> RequestResult:
+        assert self.finished, f"request {self.index} is {self.status}"
+        n = len(self.tokens)
+        return RequestResult(
+            index=self.index,
+            tokens=np.asarray(self.tokens, np.int32),
+            latency_s=self.finish_s - self.admit_s,
+            decode_steps=self.decode_steps,
+            arrival_s=self.arrival_s,
+            queue_wait_s=self.admit_s - self.arrival_s,
+            ttft_s=self.first_token_s - self.arrival_s,
+            tpot_s=(self.finish_s - self.first_token_s) / max(1, n - 1),
+        )
+
+
+# ---------------------------------------------------------------------------
+# The server
+# ---------------------------------------------------------------------------
+class Server:
+    """Facade over ``ModuleBatchingEngine`` + ``ParamStore``: submit
+    requests, drive them with ``step()`` / ``run()``, read the report.
+
+    The engine (and its ``plan.B``-slot cache) is built lazily at the first
+    step, sized ``min(plan.B, submitted requests)`` unless
+    ``ServeConfig.max_batch`` pins it.  ``device`` is where the engine runs
+    (``cuda`` by default; raises without CUDA)."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params: Dict,
+        plan: Optional[Plan] = None,
+        serve: ServeConfig = ServeConfig(),
+        stream: StreamConfig = StreamConfig(),
+        store: Optional[ParamStore] = None,
+        device="cuda",
+    ) -> None:
+        if plan is None:
+            plan = serve.plan
+        assert plan is not None, (
+            "pass a Plan, or a ServeConfig built by ServeConfig.from_plan"
+        )
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.plan = plan
+        self.serve = serve
+        self.stream = stream
+        self.report = ServeReport(scheduler=serve.scheduler)
+        self._store = store
+        self._engine = None               # ModuleBatchingEngine, built lazily
+        self._sampler: Optional[BatchSampler] = None
+        self._handles: List[RequestHandle] = []
+        self._pending: List = []          # heap of (arrival_s, index, handle)
+        self._t0: Optional[float] = None
+        self._max_seq: Optional[int] = serve.max_seq
+        self._seen_drop = 0               # engine drops already drained
+        # Eq. 2 admission budget (continuous): every in-flight sequence's
+        # offloaded KV at its FULL prompt+decode extent must fit m_c - S_Model
+        self._kv_budget = (
+            None if serve.hw is None or serve.scheduler != "continuous"
+            else _host_kv_budget(cfg, serve.hw)
+        )
+        self._kv_need: Dict[int, float] = {}
+        self._live_kv = 0.0
+        # slot state (allocated with the engine)
+        self._b = 0
+        self._free: deque = deque()
+        self._slot_handle: List[Optional[RequestHandle]] = []
+        self._cur: Optional[np.ndarray] = None
+        self._pos: Optional[np.ndarray] = None
+        self._wave: Optional[Dict] = None     # static policy's in-flight wave
+
+    # -- lifecycle: submit -------------------------------------------------
+    def submit(self, request: Request,
+               on_token: Optional[Callable] = None) -> RequestHandle:
+        """Queue a request; it becomes admissible at ``request.arrival_s``.
+
+        Raises ``ValueError`` for a request that could never be served
+        (prompt+decode beyond ``max_seq``, or KV beyond the Eq. 2 budget)
+        before touching any server state."""
+        serve = self.serve
+        prompt = np.asarray(request.prompt, np.int32).reshape(-1)
+        if serve.max_prompt_len is not None:
+            prompt = prompt[: serve.max_prompt_len]
+        dec = max(1, int(request.decode_len or serve.decode_len))
+        i = len(self._handles)
+        arrival = float(request.arrival_s or 0.0)
+        if not np.isfinite(arrival) or arrival < 0:
+            raise ValueError(
+                f"request {i}: arrival_s must be finite and >= 0, "
+                f"got {request.arrival_s!r}"
+            )
+        limit = self._max_seq
+        if limit is not None and len(prompt) + dec > limit:
+            raise ValueError(
+                f"request {i}: prompt length {len(prompt)} + decode_len "
+                f"{dec} exceeds the engine's max_seq={limit}; pass "
+                f"max_prompt_len to truncate long prompts"
+            )
+        if self._kv_budget is not None:
+            need = W.kv_bytes_per_seq(self.cfg, len(prompt) + dec)
+            if need > self._kv_budget:
+                raise ValueError(
+                    f"request {i}: KV bytes {need:.3e} can never fit the "
+                    f"Eq. 2 host budget {self._kv_budget:.3e}"
+                )
+            self._kv_need[i] = need
+        if request.sampling is not None and not request.sampling.is_greedy:
+            from repro_torch.serving.sampling import SAMPLING_SLICE
+
+            raise NotImplementedError(SAMPLING_SLICE)
+        h = RequestHandle(self, i, request, prompt, dec, on_token)
+        self._handles.append(h)
+        heapq.heappush(self._pending, (h.arrival_s, i, h))
+        return h
+
+    # -- clock -------------------------------------------------------------
+    def _now(self) -> float:
+        """Virtual clock: seconds since the first step."""
+        if self._t0 is None:
+            self._t0 = time.perf_counter()
+        return time.perf_counter() - self._t0
+
+    @property
+    def next_arrival_s(self) -> Optional[float]:
+        return self._pending[0][0] if self._pending else None
+
+    def _wait_for_arrival(self) -> None:
+        """Sleep until the next queued arrival when nothing is live."""
+        if self._any_live() or not self._pending:
+            return
+        dt = self.next_arrival_s - self._now()
+        if dt > 0:
+            time.sleep(min(dt, 0.05))
+
+    # -- engine ------------------------------------------------------------
+    def _ensure_engine(self) -> None:
+        if self._engine is not None:
+            return
+        from repro_torch.core.engine import ModuleBatchingEngine
+
+        if self._store is None:
+            self._store = ParamStore.build(
+                self.cfg, self.params, self.plan,
+                stream_weights=self.stream.stream_weights,
+                resident_bytes=self.stream.resident_bytes, device=self.device,
+            )
+        if self.serve.max_batch is not None:
+            self._b = max(1, min(self.plan.B, int(self.serve.max_batch)))
+        else:
+            self._b = max(1, min(self.plan.B, len(self._handles) or 1))
+        if self._max_seq is None:
+            self._max_seq = max(
+                len(h.prompt) + h.decode_len for h in self._handles
+            )
+        self._engine = ModuleBatchingEngine(
+            self.cfg, self.params, self.plan, max_seq=self._max_seq,
+            expert_path=self.serve.expert_path,
+            store=self._store,
+            device=self.device,
+        )
+        self._engine.init_cache(self._b)
+        self._sampler = BatchSampler(self._b)
+        self._free = deque(range(self._b))
+        self._slot_handle = [None] * self._b
+        self._cur = np.zeros(self._b, np.int32)
+        self._pos = np.zeros(self._b, np.int64)
+
+    def _drain_engine_stats(self) -> int:
+        """Fold the engine's cumulative counters into the report; returns
+        the expert-drop delta since the last drain."""
+        if self._engine is None:
+            return 0
+        st = self._engine.sync_stats()
+        d_drop = st.expert_tokens_dropped - self._seen_drop
+        self._seen_drop = st.expert_tokens_dropped
+        if st.expert_tokens_dropped_by_layer is not None:
+            self.report.expert_dropped_by_layer = (
+                st.expert_tokens_dropped_by_layer.copy()
+            )
+            self.report.expert_load = st.expert_load.copy()
+        return d_drop
+
+    # -- the step-driven core ---------------------------------------------
+    def _any_live(self) -> bool:
+        return any(h is not None for h in self._slot_handle)
+
+    def has_work(self) -> bool:
+        return self._any_live() or bool(self._pending)
+
+    def step(self) -> bool:
+        """One scheduler tick: admit due arrivals (policy-dependent), run
+        one module-batched decode step over every slot, sample each live
+        slot, finish/evict/recycle.  Returns True while work remains."""
+        if not self.has_work():
+            return False
+        self._ensure_engine()
+        self._admit()
+        if self._any_live():
+            self._decode_tick(self._chunk_T())
+        return self.has_work()
+
+    def run(self, until_idle: bool = True) -> ServeReport:
+        """Drive ``step()`` to completion and return the report.
+        ``until_idle=False`` stops at the first moment nothing is live or
+        due instead of sleeping for future arrivals."""
+        while self.step():
+            if not self._any_live() and self._pending:
+                if not until_idle and self.next_arrival_s > self._now():
+                    break
+                self._wait_for_arrival()
+        return self.finalize()
+
+    def finalize(self) -> ServeReport:
+        """Drain engine counters and order results; idempotent."""
+        self.report._expert_dropped += self._drain_engine_stats()
+        self.report.request_results.sort(key=lambda r: r.index)
+        return self.report
+
+    # -- admission policies ------------------------------------------------
+    def _pop_due(self, now: float) -> Optional[RequestHandle]:
+        """Pop the queue head if it has arrived (FIFO in arrival order)."""
+        if self._pending and self._pending[0][0] <= now:
+            return heapq.heappop(self._pending)[2]
+        return None
+
+    def _admit(self) -> None:
+        if self.serve.scheduler == "static":
+            self._admit_static()
+        else:
+            self._admit_continuous()
+
+    def _admit_static(self) -> None:
+        """Admit-in-waves: a new wave only once the previous wave has fully
+        drained; the wave takes every due request up to B slots."""
+        if self._wave is not None:
+            return
+        now = self._now()
+        handles: List[RequestHandle] = []
+        while len(handles) < self._b:
+            h = self._pop_due(now)
+            if h is None:
+                break
+            handles.append(h)
+        if not handles:
+            return
+        slots = list(range(len(handles)))
+        self._wave = {
+            "slots": slots, "handles": handles,
+            "rows": [[] for _ in slots], "done": [False] * len(slots),
+            "ticks": 0, "prefill_s": 0.0, "decode_s": 0.0,
+        }
+        self._prefill_wave(handles, slots)
+        if all(self._wave["done"]):
+            self._close_wave()
+
+    def _admit_continuous(self) -> None:
+        """Admit/evict: prefill due requests into freed slots (one batched
+        prefill per admission wave; loop until stable).  With an Eq. 2
+        budget the queue head WAITS while its KV bytes don't fit (FIFO)."""
+        now = self._now()
+        while self._free and self._pending and self._pending[0][0] <= now:
+            slots, handles = [], []
+            while self._free and self._pending and self._pending[0][0] <= now:
+                i = self._pending[0][1]
+                if (self._kv_budget is not None
+                        and self._live_kv + self._kv_need[i] > self._kv_budget):
+                    break              # head waits for an eviction
+                h = heapq.heappop(self._pending)[2]
+                slots.append(self._free.popleft())
+                handles.append(h)
+                if self._kv_budget is not None:
+                    self._live_kv += self._kv_need[i]
+            if not handles:
+                break
+            self._prefill_wave(handles, slots)
+        # counted once per admission attempt: the head is due but blocked by
+        # memory despite a free slot
+        if (self._kv_budget is not None and self._free and self._pending
+                and self._pending[0][0] <= now
+                and self._live_kv + self._kv_need[self._pending[0][1]]
+                > self._kv_budget):
+            self.report.admission_deferrals += 1
+
+    # -- shared prefill / decode / finish ----------------------------------
+    def _prefill_wave(self, handles: List[RequestHandle],
+                      slots: List[int]) -> None:
+        """One batched prefill of ``handles`` into ``slots``: writes their
+        KV rows, arms their sampler slots, and emits each request's FIRST
+        token (sampled from the prefill logits)."""
+        engine, sampler = self._engine, self._sampler
+        t0 = self._now()
+        for h, s in zip(handles, slots):
+            sampler.set_slot(s, h.sampling)
+        self.report.prefill_tokens += sum(len(h.prompt) for h in handles)
+        ptoks, lens = pad_requests(handles, self.serve.pad_id)
+        lg = engine.prefill_slots(ptoks, slots, lengths=lens)
+        tok0 = sampler.sample(lg, slots).cpu().numpy()
+        now = self._now()
+        self.report.prefill_s += now - t0
+        if self._wave is not None:
+            self._wave["prefill_s"] += now - t0
+        eos = self.serve.eos_id
+        for h, s, tk in zip(handles, slots, tok0):
+            tk = int(tk)
+            self._slot_handle[s] = h
+            self._pos[s] = len(h.prompt)
+            self._cur[s] = tk
+            h.status = "running"
+            h.admit_s = t0
+            h.first_token_s = now
+            h._emit(tk)
+            if self._wave is not None:
+                self._wave["rows"][s] = [tk]
+            if h.decode_len <= 1 or (eos is not None and tk == eos):
+                self._finish_slot(s, now)
+
+    def _chunk_T(self) -> int:
+        """Decode ticks to run this step as one chunk.  More than one needs
+        the engine's fused decode path, which is the fused-decode slice;
+        until then every step is a single per-module tick."""
+        return 1
+
+    def _decode_tick(self, T: int = 1) -> None:
+        """``T`` module-batched decode ticks over the full engine batch;
+        live slots emit their tokens tick by tick, finishers are handed to
+        the policy's finish path."""
+        engine, sampler = self._engine, self._sampler
+        wave = self._wave
+        # rows the scheduler advances each tick: wave slots (finished members
+        # keep stepping until the drain) or handle-owning slots
+        live = np.zeros(self._b, bool)
+        if wave is not None:
+            live[wave["slots"]] = True
+        else:
+            live[[s for s in range(self._b)
+                  if self._slot_handle[s] is not None]] = True
+        t0 = self._now()
+        toks = engine.decode_chunk(self._cur, self._pos, sampler, T, live=live)
+        mat = toks.cpu().numpy()              # the one d2h sync per tick
+        now = self._now()
+        self.report.decode_s += now - t0
+        if wave is not None:
+            wave["decode_s"] += now - t0
+        counted = len(wave["slots"]) if wave is not None else self._b
+        eos = self.serve.eos_id
+        for t in range(T):
+            nxt = mat[:, t]
+            live_s = [s for s in range(self._b)
+                      if self._slot_handle[s] is not None
+                      and not self._slot_handle[s].finished]
+            self.report.decode_slot_steps += counted
+            self.report.wasted_slot_steps += counted - len(live_s)
+            for s in live_s:
+                h = self._slot_handle[s]
+                tk = int(nxt[s])
+                h._emit(tk)
+                if len(h.tokens) >= h.decode_len or (
+                        eos is not None and tk == eos):
+                    self._finish_slot(s, now)
+            if wave is not None:
+                wave["ticks"] += 1
+                for s in wave["slots"]:
+                    wave["rows"][s].append(int(nxt[s]))
+                    self._cur[s] = nxt[s]
+                    self._pos[s] += 1
+                if all(wave["done"]):
+                    self._close_wave()
+                    break
+            else:
+                for s in range(self._b):
+                    if self._slot_handle[s] is not None:
+                        self._cur[s] = nxt[s]
+                        self._pos[s] += 1
+
+    def _finish_slot(self, s: int, now: float) -> None:
+        h = self._slot_handle[s]
+        h.status = "finished"
+        h.finish_s = now
+        if self._wave is not None:                      # static: keep the
+            self._wave["done"][self._wave["slots"].index(s)] = True
+            return                                      # slot until drain
+        h.decode_steps = len(h.tokens) - 1
+        self.report.request_results.append(h.result())
+        if self._kv_budget is not None:
+            self._live_kv -= self._kv_need[h.index]
+        self._slot_handle[s] = None
+        self._sampler.clear_slot(s)
+        self._engine.evict_slots([s])
+        self._free.append(s)
+
+    def _close_wave(self) -> None:
+        """Static wave drained: record its BatchResult and per-request
+        results, then free the slots."""
+        wave, self._wave = self._wave, None
+        ticks = wave["ticks"]
+        for h, s in zip(wave["handles"], wave["slots"]):
+            h.decode_steps = ticks
+            self.report.request_results.append(h.result())
+            self._slot_handle[s] = None
+            self._sampler.clear_slot(s)
+        self._engine.evict_slots(wave["slots"])
+        self._free = deque(range(self._b))
+        mat = np.asarray([wave["rows"][s] for s in wave["slots"]], np.int64)
+        self.report.results.append(BatchResult(
+            mat, wave["prefill_s"], wave["decode_s"],
+            self._drain_engine_stats(),
+        ))
+
+
+def _host_kv_budget(cfg: ModelConfig, hw: HardwareProfile) -> float:
+    from repro_torch.core.planner import host_kv_budget
+
+    return host_kv_budget(cfg, hw)

@@ -1,0 +1,129 @@
+"""Port engine vs ``repro.core.engine.ModuleBatchingEngine`` on the CPU, in
+f32, with the same Plan and the JAX init's weights."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from dataclasses import replace  # noqa: E402
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config as jget  # noqa: E402
+from repro.core.dag_builder import Plan as JPlan  # noqa: E402
+from repro.core.engine import ModuleBatchingEngine as JEngine  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro_torch.bridge import from_numpy_params  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.dag_builder import Plan  # noqa: E402
+from repro_torch.core.engine import ModuleBatchingEngine  # noqa: E402
+
+B, S, DEC = 6, 16, 6
+REL = 1e-4          # logits bound of tests/test_engine.py:47-54
+
+
+def _setup(arch):
+    jcfg = replace(jget(arch, smoke=True), dtype="float32")
+    cfg = replace(get_config(arch, smoke=True), dtype="float32")
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = from_numpy_params(cfg, jax.tree.map(np.asarray, jp), "cpu")
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    return jcfg, cfg, jp, tp, toks
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b"])
+def test_engine_logits_match_reference_engine(arch):
+    jcfg, cfg, jp, tp, toks = _setup(arch)
+    kw = dict(B=B, b_a=2, b_e=B, omega=0.0)
+    je = JEngine(jcfg, jp, JPlan(**kw), max_seq=S + DEC)
+    te = ModuleBatchingEngine(cfg, tp, Plan(**kw), max_seq=S + DEC, device="cpu")
+    lj = np.asarray(je.prefill(jnp.asarray(toks)))
+    lt = te.prefill(toks).numpy()
+    scale = float(np.abs(lj).max())
+    assert np.abs(lt - lj).max() / scale < REL
+    nxt = lj.argmax(-1)
+    for t in range(2):
+        lj = np.asarray(je.decode_step(jnp.asarray(nxt), S + t))
+        lt = te.decode_step(nxt, S + t).numpy()
+        assert np.abs(lt - lj).max() / scale < REL
+        assert np.array_equal(lt.argmax(-1), lj.argmax(-1))
+        nxt = lj.argmax(-1)
+    je.sync_stats()
+    te.sync_stats()
+    assert te.stats.expert_launches == je.stats.expert_launches
+    assert te.stats.attn_microbatches == je.stats.attn_microbatches
+    assert te.stats.expert_tokens == je.stats.expert_tokens
+
+
+@pytest.mark.parametrize("arch,b_e", [("olmoe-1b-7b", 2), ("mixtral-8x7b", 3)])
+def test_engine_ragged_generate_tokens_and_counters_match(arch, b_e):
+    """Ragged lengths, a capacity that drops copies: tokens, per-layer drops
+    and the per-expert load histogram equal the JAX engine's exactly."""
+    jcfg, cfg, jp, tp, toks = _setup(arch)
+    lens = np.array([16, 11, 7, 16, 9, 3])
+    kw = dict(B=B, b_a=4, b_e=b_e, omega=0.0)
+    je = JEngine(jcfg, jp, JPlan(**kw), max_seq=S + DEC)
+    te = ModuleBatchingEngine(cfg, tp, Plan(**kw), max_seq=S + DEC, device="cpu")
+    a = np.asarray(je.generate(jnp.asarray(toks), DEC, lengths=lens))
+    b = te.generate(toks, DEC, lengths=lens).numpy()
+    assert np.array_equal(a, b)
+    assert np.array_equal(te.stats.expert_tokens_dropped_by_layer,
+                          je.stats.expert_tokens_dropped_by_layer)
+    assert np.array_equal(te.stats.expert_load, je.stats.expert_load)
+    assert te.stats.expert_tokens_dropped == je.stats.expert_tokens_dropped
+    assert te.stats.expert_tokens_dropped > 0         # the capacity did bite
+
+
+def test_ragged_batch_matches_each_sequence_alone():
+    jcfg, cfg, jp, tp, toks = _setup("olmoe-1b-7b")
+    lens = [16, 9, 5]
+    plan = Plan(B=3, b_a=3, b_e=3, omega=0.0)
+    te = ModuleBatchingEngine(cfg, tp, plan, max_seq=S + DEC, device="cpu")
+    batch = te.generate(toks[:3], DEC, lengths=np.array(lens)).numpy()
+    for i, n in enumerate(lens):
+        alone = ModuleBatchingEngine(cfg, tp, Plan(B=1, b_a=1, b_e=1, omega=0.0),
+                                     max_seq=S + DEC, device="cpu")
+        assert np.array_equal(alone.generate(toks[i:i + 1, :n], DEC).numpy()[0],
+                              batch[i])
+
+
+def test_cache_tensors_are_written_in_place():
+    """The engine owns preallocated KV buffers: prefill-slot insertion,
+    decode ticks and evictions never reallocate them."""
+    _, cfg, _, tp, toks = _setup("mixtral-8x7b")
+    te = ModuleBatchingEngine(cfg, tp, Plan(B=B, b_a=2, b_e=B, omega=0.0),
+                              max_seq=S + DEC, device="cpu")
+    te.init_cache(B)
+    ptrs = [(c["k"].data_ptr(), c["v"].data_ptr()) for c in te.cache]
+    lg = te.prefill_slots(toks, np.arange(B))
+    nxt = lg.argmax(-1)
+    for t in range(3):
+        nxt = te.decode_step(nxt, S + t).argmax(-1)
+    te.evict_slots([1, 4])
+    te.prefill_slots(toks[:2, :8], [1, 4])
+    assert [(c["k"].data_ptr(), c["v"].data_ptr()) for c in te.cache] == ptrs
+    assert torch.count_nonzero(te.cache[0]["k"][1, 8:]) == 0   # row overwritten
+
+
+def test_default_device_is_cuda_and_never_falls_back():
+    _, cfg, _, tp, _ = _setup("olmoe-1b-7b")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ModuleBatchingEngine(cfg, tp, Plan(B=2, b_a=2, b_e=2))
+
+
+def test_later_slices_raise():
+    _, cfg, _, tp, _ = _setup("olmoe-1b-7b")
+    with pytest.raises(NotImplementedError, match="host-attention"):
+        ModuleBatchingEngine(cfg, tp, Plan(B=2, b_a=2, b_e=2, omega=0.5), device="cpu")
+    with pytest.raises(NotImplementedError, match="weight-streaming"):
+        ModuleBatchingEngine(cfg, tp, Plan(B=2, b_a=2, b_e=2), stream_weights=True,
+                             device="cpu")
+    with pytest.raises(NotImplementedError, match="sampling"):
+        from repro_torch.serving.sampling import SamplingParams
+
+        te = ModuleBatchingEngine(cfg, tp, Plan(B=2, b_a=2, b_e=2), device="cpu")
+        te.generate(np.zeros((2, 4), np.int32), 2,
+                    sampling=SamplingParams(temperature=1.0))
