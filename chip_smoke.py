@@ -17,7 +17,8 @@ Phases, in order (any failure exits non-zero with its traceback):
                (kernels) against CPU (plain versions).
 
 ``--phases kernels,serve,parity,profile`` adds a torch.profiler breakdown of
-the decode step and a prefill wave (not part of the default run).
+the server's decode tick and of one prefill wave of the served prompts (not
+part of the default run).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name and
 power limit, then ``{"ok": true, "device": {...}}``.  ``--phases`` runs a
@@ -27,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import subprocess
 import sys
@@ -40,9 +40,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 PEAK_F32 = 67e12          # H100 SXM f32 FLOP/s outside the tensor cores
 PEAK_BW = 3.35e12         # H100 SXM HBM3 bytes/s
-# tests/test_kernels.py TOL: f32 2e-5, bf16 0.05; grouped_matmul scaled by
-# sqrt(contraction depth) as that file scales it, the FFN and attention not
-TOL = {torch.float32: 2e-5, torch.bfloat16: 0.05}
+# Tolerances.  f32: tests/test_kernels.py's TOL, 2e-5 absolute, on outputs
+# of order 0.1.  bf16: that file's 0.05 is absolute on unscaled inputs whose
+# outputs grow with depth; the inputs here are at the models' scale (outputs
+# of order 0.05), where 0.05 would pass a kernel that writes zeros.  So each
+# output row (an expert's row of h or y, one head's attention output) must
+# stay within 0.02 of that row's largest reference value: one bf16 rounding
+# flip is at most 2**-7 (0.0078) of it, and a dead capacity row (all zero in
+# the reference) must be exactly zero.
+TOL_F32 = 2e-5
+REL_BF16 = 0.02
 REPLACES = {
     "expert_gate_up": "src/repro/kernels/expert_gemm.py:124",
     "grouped_matmul": "src/repro/kernels/expert_gemm.py:64",
@@ -91,8 +98,23 @@ def bound(nbytes: float, flops: float, peak: float):
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
-def max_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+def errors(got, want):
+    """(largest absolute error, largest error of a row of the last axis over
+    that row's largest |reference| value)."""
+    d = (got.float() - want.float()).abs()
+    peak = want.float().abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    return float(d.max()), float((d.amax(-1) / peak).max())
+
+
+def tolerance(dtype) -> dict:
+    if dtype == torch.float32:
+        return {"abs": TOL_F32}
+    return {"rel_per_row": REL_BF16}
+
+
+def within(err, tol: dict) -> bool:
+    abs_err, rel_err = err
+    return abs_err < tol["abs"] if "abs" in tol else rel_err < tol["rel_per_row"]
 
 
 def host_ms(fn) -> float:
@@ -169,7 +191,7 @@ def ffn_inputs(gen, E, C, D, F, dtype, dev, counts=None):
         live = torch.arange(C, device=dev)[None, :] < counts[:, None]
         x = x * live[..., None]
     # weights at the models' dense_init scale (in_dim ** -0.5), so outputs
-    # stay O(x) at every width and the fixed TOL means the same everywhere
+    # keep the same scale at every width
     wg = torch.randn((E, D, F), generator=gen, device=dev) * D ** -0.5
     wu = torch.randn((E, D, F), generator=gen, device=dev) * D ** -0.5
     wd = torch.randn((E, F, D), generator=gen, device=dev) * F ** -0.5
@@ -187,17 +209,20 @@ def check_ffn(name, gen, E, C, D, F, dtype, dev, counts=None, timing=False):
     down = ops.grouped_matmul(h_ref, wd, counts)
     down_ref = ref.grouped_matmul_ref(h_ref, wd, counts)
     torch.cuda.synchronize()
-    tol = TOL[dtype]
-    errs = {"ffn": max_err(got, want), "gate_up": max_err(h, h_ref),
-            "grouped_matmul": max_err(down, down_ref)}
-    tols = {"ffn": tol, "gate_up": tol, "grouped_matmul": tol * math.sqrt(F)}
+    tol = tolerance(dtype)
+    errs = {"ffn": errors(got, want), "gate_up": errors(h, h_ref),
+            "grouped_matmul": errors(down, down_ref)}
+    peaks = {"ffn": want, "gate_up": h_ref, "grouped_matmul": down_ref}
     case = {"case": name, "E": E, "C": C, "D": D, "F": F,
-            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": errs,
-            "tolerance": tols}
+            "dtype": str(dtype).replace("torch.", ""),
+            "max_abs_err": {k: e[0] for k, e in errs.items()},
+            "rel_err": {k: e[1] for k, e in errs.items()},
+            "ref_peak": {k: float(t.float().abs().max()) for k, t in peaks.items()},
+            "tolerance": tol}
     emit(case)
-    for key in errs:
-        if not errs[key] < tols[key]:
-            raise AssertionError(f"{name}: {key} error {errs[key]} >= {tols[key]}")
+    for key, err in errs.items():
+        if not within(err, tol):
+            raise AssertionError(f"{name}: {key} error {err} outside {tol}")
     if not timing:
         return case, None
     es = x.element_size()
@@ -215,18 +240,19 @@ def check_ffn(name, gen, E, C, D, F, dtype, dev, counts=None, timing=False):
         return torch.nn.functional.silu(torch.bmm(x, wg)) * torch.bmm(x, wu)
 
     rows = []
-    for kname, kern, plain, lib, nbytes, flops, err, tol_k in (
+    for kname, kern, plain, lib, nbytes, flops, err in (
         ("expert_gate_up", lambda: ops.expert_gate_up(x, wg, wu, counts),
          lambda: ref.expert_gate_up_ref(x, wg, wu, counts), lib_gate_up,
-         k1_bytes, k1_flops, errs["gate_up"], tols["gate_up"]),
+         k1_bytes, k1_flops, errs["gate_up"]),
         ("grouped_matmul", lambda: ops.grouped_matmul(h_ref, wd, counts),
          lambda: ref.grouped_matmul_ref(h_ref, wd, counts),
          lambda: torch.bmm(h_ref, wd), k2_bytes, k2_flops,
-         errs["grouped_matmul"], tols["grouped_matmul"]),
+         errs["grouped_matmul"]),
     ):
         b_ms, b_by = bound(nbytes, flops, peak)
         rows.append({
-            "name": kname, "case": name, "max_abs_err": err, "tolerance": tol_k,
+            "name": kname, "case": name, "max_abs_err": err[0],
+            "rel_err": err[1], "tolerance": tol,
             "ms": time_ms(kern), "plain_ms": time_ms(plain),
             "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
         })
@@ -254,13 +280,14 @@ def check_attention(name, gen, B, H, K, hd, S, dtype, dev, timing=False):
     v2 = torch.where(dead, torch.full_like(v, -1e4), v)
     poisoned = ops.decode_attention(q, k2, v2, pos)
     torch.cuda.synchronize()
-    err, err_p = max_err(got, want), max_err(got, poisoned)
-    tol = TOL[dtype]
+    err, err_p = errors(got, want), errors(got, poisoned)[0]
+    tol = tolerance(dtype)
     emit({"case": name, "B": B, "H": H, "K": K, "hd": hd, "S": S,
-          "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+          "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err[0],
+          "rel_err": err[1], "ref_peak": float(want.float().abs().max()),
           "poisoned_diff": err_p, "tolerance": tol})
-    if not err < tol:
-        raise AssertionError(f"{name}: error {err} >= {tol}")
+    if not within(err, tol):
+        raise AssertionError(f"{name}: error {err} outside {tol}")
     if not err_p < 1e-5:
         raise AssertionError(f"{name}: poisoned slots changed the output by {err_p}")
     if not timing:
@@ -281,8 +308,8 @@ def check_attention(name, gen, B, H, K, hd, S, dtype, dev, timing=False):
             qs, ks, vs, attn_mask=mask, enable_gqa=H != K)
 
     return {
-        "name": "decode_attention", "case": name, "max_abs_err": err,
-        "tolerance": tol, "ms": time_ms(lambda: ops.decode_attention(q, k, v, pos)),
+        "name": "decode_attention", "case": name, "max_abs_err": err[0],
+        "rel_err": err[1], "tolerance": tol, "ms": time_ms(lambda: ops.decode_attention(q, k, v, pos)),
         "plain_ms": time_ms(lambda: ref.decode_attention_ref(q, k, v, pos)),
         "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
     }
@@ -407,44 +434,56 @@ def phase_serve(dev, setup, profile=False):
     flat = np.concatenate(tokens["static"])
     if flat.min() < 0 or flat.max() >= cfg.vocab_size:
         raise AssertionError("token ids out of range")
-    # where the time goes in the served engine's decode step: host wall
-    # per step against the device time of the same queued work
+    # where the time goes in a served decode tick: the server's own tick (one
+    # per-module decode_chunk tick, then one device-to-host read of the
+    # tokens), from the served prompts' own positions, on a fresh engine
     from repro_torch.core.engine import ModuleBatchingEngine
+    from repro_torch.serving.sampling import BatchSampler
 
+    tick_ms = {s: rep.decode_s * 1e3 / (rep.decode_slot_steps / plan.B)
+               for s, rep in reports.items()}
     eng = ModuleBatchingEngine(cfg, params, plan, max_seq=max(lens) + decode_len,
                                device=dev)
-    prompts = np.stack([r.prompt[:64] for r in requests])
-    lg = eng.prefill(prompts)
-    B, steps = len(prompts), 4
-    tok0 = lg.argmax(-1)
-    pos = [torch.full((B,), 64 + t, dtype=torch.long, device=dev)
-           for t in range(steps)]
+    lengths = np.array([len(r.prompt) for r in requests], np.int64)
+    prompts = np.zeros((n_requests, int(lengths.max())), np.int64)
+    for i, r in enumerate(requests):
+        prompts[i, :lengths[i]] = r.prompt
+    sampler = BatchSampler.uniform(n_requests, None)
+    lg = eng.prefill(prompts, lengths=lengths)
+    tok0 = sampler.sample(lg)
+    steps = 4
 
-    def decode_steps():
+    def decode_ticks():
         tok = tok0
         for t in range(steps):
-            out = eng.decode_step(tok, pos[t])
-            tok = out.argmax(-1)
-        return out
+            tok = eng.decode_chunk(tok, lengths + t, sampler, 1)[:, 0]
+            tok.cpu()
+        return tok
 
-    lg2 = decode_steps()                                   # warm
+    decode_ticks()                                          # warm
+    wall = host_ms(decode_ticks) / steps
+    lg2 = eng.decode_step(tok0, lengths)
     if not (torch.isfinite(lg).all() and torch.isfinite(lg2).all()):
         raise AssertionError("non-finite logits")
-    wall = host_ms(decode_steps) / steps
-    emit({"phase": "decode_step", "B": B, "wall_ms_per_step": wall})
+    emit({"phase": "decode_tick", "B": n_requests, "wall_ms_per_tick": wall,
+          "server_ms_per_tick": tick_ms})
     if profile:
-        # device busy from the profiler; wall from the unprofiled run above
-        prof, _ = profile_region(decode_steps)
+        # device busy from the profiler; walls from unprofiled runs
+        prof, _ = profile_region(decode_ticks)
         busy = prof["device_busy_ms"] / steps
-        emit({"phase": "profile", "what": f"decode B={B}, per step",
+        emit({"phase": "profile", "what": f"decode tick B={n_requests}, per tick",
               "wall_ms": wall, "device_busy_ms": busy,
-              "idle_share": 1.0 - busy / wall, "sync_sites": sync_sites(decode_steps),
+              "idle_share": 1.0 - busy / wall,
+              "idle_share_vs_server": {s: 1.0 - busy / ms for s, ms in tick_ms.items()},
+              "sync_sites": sync_sites(decode_ticks),
               "top_over_steps": prof["top"]})
-        wall_p = host_ms(lambda: eng.prefill(prompts))
-        prof, _ = profile_region(lambda: eng.prefill(prompts))
-        emit({"phase": "profile", "what": f"prefill B={B} S=64, one wave",
+        wall_p = host_ms(lambda: eng.prefill(prompts, lengths=lengths))
+        prof, _ = profile_region(lambda: eng.prefill(prompts, lengths=lengths))
+        emit({"phase": "profile",
+              "what": f"prefill of the {n_requests} served prompts, one wave",
               "wall_ms": wall_p, "device_busy_ms": prof["device_busy_ms"],
               "idle_share": 1.0 - prof["device_busy_ms"] / wall_p,
+              "server_prefill_ms": {s: rep.prefill_s * 1e3 for s, rep in reports.items()},
               "top": prof["top"]})
     del eng, params
     torch.cuda.empty_cache()
@@ -536,7 +575,8 @@ def main() -> int:
                 "name": r["name"], "route": "cuda", "source": SOURCE[r["name"]],
                 "replaces": REPLACES[r["name"]],
                 "launches": None if launches is None else launches[r["name"]],
-                "max_abs_err": r["max_abs_err"], "tolerance": r["tolerance"],
+                "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"],
+                "tolerance": r["tolerance"],
                 "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "case": r["case"],

@@ -3,8 +3,7 @@
 Each source in ``csrc/`` is compiled by its own ``nvcc`` process (all started
 together) into a shared library with a plain C interface, loaded with
 ``ctypes``.  Libraries are cached under ``build/kernels/<hash>/`` at the repo
-root (override with ``REPRO_TORCH_BUILD_DIR``), keyed by a hash of the
-sources and the flags, so a changed source rebuilds and an unchanged one is
+root, keyed by a hash of the sources and the flags, so a changed source rebuilds and an unchanged one is
 loaded as it is.  The build runs at first use, never at import.
 """
 from __future__ import annotations
@@ -48,9 +47,6 @@ def launch_counts() -> Dict[str, int]:
 
 
 def build_dir() -> Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
     return Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 

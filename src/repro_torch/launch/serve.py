@@ -4,7 +4,7 @@
         --requests 64 --prompt-lens 64,128,256 --decode-len 32
 
 Runs the FULL-size model (seeded random weights, every weight resident on
-the device) unless ``--layers`` cuts its depth.  The planner searches the
+the device).  The planner searches the
 plan on the full config with the ``H100-SXM-80GB`` profile; the launcher
 then pins omega = 0 and full residency, which this slice of the port
 serves, and says so.
@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import argparse
 import time
-from dataclasses import replace
 
 import numpy as np
 
@@ -64,9 +63,6 @@ def main(argv=None) -> None:
                     help="per-expert decode capacity (default: the plan's)")
     ap.add_argument("--scheduler", default="static",
                     choices=("static", "continuous"))
-    ap.add_argument("--layers", type=int, default=None,
-                    help="cut the depth to this many layers (widths stay)")
-    ap.add_argument("--dtype", default=None, help="override the config dtype")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -77,14 +73,8 @@ def main(argv=None) -> None:
     from repro_torch.models import model as M
     from repro_torch.serving.scheduler import serve_dataset
 
-    full = get_config(args.arch)
-    hw = PROFILES[args.profile]
-    plan = build_plan(full, hw, args)
-    cfg = full
-    if args.layers:
-        cfg = replace(cfg, num_layers=args.layers)
-    if args.dtype:
-        cfg = replace(cfg, dtype=args.dtype)
+    cfg = get_config(args.arch)
+    plan = build_plan(cfg, PROFILES[args.profile], args)
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=args.seed, device=args.device)
     if torch.device(args.device).type == "cuda":

@@ -13,6 +13,20 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 
+def assert_close(got, want):
+    """f32: within 2e-5 absolute (tests/test_kernels.py's TOL), on outputs of
+    order 0.1.  bf16: every row of the last axis within 0.02 of that row's
+    largest reference value (one bf16 rounding flip is at most 2**-7 of it;
+    an all-zero reference row must be matched exactly)."""
+    d = (got.float() - want.float()).abs()
+    if want.dtype == torch.float32:
+        assert d.max() < 2e-5, float(d.max())
+    else:
+        peak = want.float().abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+        rel = (d.amax(-1) / peak).max()
+        assert rel < 0.02, float(rel)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -23,10 +37,10 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 0.05)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("E,C,D,F", [(4, 64, 256, 128), (3, 100, 256, 200),
                                      (2, 70, 100, 60)])      # no 16-byte vectors
-def test_cuda_expert_ffn_matches_plain(cuda, dtype, tol, E, C, D, F):
+def test_cuda_expert_ffn_matches_plain(cuda, dtype, E, C, D, F):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = (torch.randn((E, C, D), generator=g, device=cuda) * 0.3).to(dtype)
     ws = [(torch.randn(s, generator=g, device=cuda) * s[1] ** -0.5).to(dtype)
@@ -34,14 +48,14 @@ def test_cuda_expert_ffn_matches_plain(cuda, dtype, tol, E, C, D, F):
     counts = torch.tensor([C, 0, 7, 63][:E], dtype=torch.int32, device=cuda)
     got = ops.grouped_expert_ffn(x, *ws, counts)
     want = ref.expert_ffn_ref(x, *ws, counts)
-    assert (got.float() - want.float()).abs().max() < tol
+    assert_close(got, want)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 0.05)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,K,hd,S", [(4, 16, 16, 128, 512), (4, 32, 8, 128, 300),
                                         (2, 4, 2, 32, 64)])
-def test_cuda_decode_attention_matches_plain(cuda, dtype, tol, B, H, K, hd, S):
+def test_cuda_decode_attention_matches_plain(cuda, dtype, B, H, K, hd, S):
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn((B, H, hd), generator=g, device=cuda).to(dtype)
     k = torch.randn((B, S, K, hd), generator=g, device=cuda).to(dtype)
@@ -49,7 +63,7 @@ def test_cuda_decode_attention_matches_plain(cuda, dtype, tol, B, H, K, hd, S):
     pos = torch.randint(0, S, (B,), generator=g, device=cuda, dtype=torch.int32)
     got = ops.decode_attention(q, k, v, pos)
     want = ref.decode_attention_ref(q, k, v, pos)
-    assert (got.float() - want.float()).abs().max() < tol
+    assert_close(got, want)
 
 
 @pytest.mark.cuda
