@@ -10,15 +10,24 @@ Phases, in order (any failure exits non-zero with its traceback):
                the main path's shapes (and time kernel, plain version and the
                closest single PyTorch library call);
 4. serve    -- the port's ``Server`` on full-width, full-depth OLMoE-1B-7B
-               (bf16, seeded random weights, all resident, omega = 0): 64
-               ragged requests, static then continuous; the kernels' launch
-               counts are read around this phase;
-5. parity   -- the same engine at full width but 2 layers, f32: card
-               (kernels) against CPU (plain versions).
+               (bf16, seeded random weights, all resident, omega = 0, the
+               planner's b_a): 64 ragged requests, static then continuous;
+               the kernels' launch counts are read around each run;
+5. serve_long -- the same server and weights on 32 long prompts (1024..3584
+               tokens, decode 64, max_seq 3648): prefill through K4 at every
+               layer, decode through K3 at spans up to 3648; its own launch
+               counts;
+6. parity   -- the same engine at full width but 2 layers, f32: card
+               (kernels) against CPU (plain versions), at 32 tokens and at a
+               ragged 1536-token prompt.
 
-``--phases kernels,serve,parity,profile`` adds a torch.profiler breakdown of
-the server's decode tick and of one prefill wave of the served prompts (not
-part of the default run).
+After each serve phase a fresh engine prefills the same prompts and runs a
+few decode ticks with the kernels' largest calls captured, and every kernel
+is held to its plain version on those inputs (the path's own shapes: the
+prefill capacity buffer, K4's micro-batch, a decode tick's FFN and K3).
+``--phases kernels,serve,serve_long,parity,profile`` adds a torch.profiler
+breakdown of that decode tick and of one prefill wave (not part of the
+default run).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name and
 power limit, then ``{"ok": true, "device": {...}}``.  ``--phases`` runs a
@@ -27,6 +36,8 @@ subset (for debugging); the default runs all.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -54,12 +65,17 @@ REPLACES = {
     "expert_gate_up": "src/repro/kernels/expert_gemm.py:124",
     "grouped_matmul": "src/repro/kernels/expert_gemm.py:64",
     "decode_attention": "src/repro/kernels/decode_attention.py:77",
+    "flash_attention": "src/repro/kernels/flash_attention.py:80",
 }
 SOURCE = {
     "expert_gate_up": "src/repro_torch/kernels/csrc/expert_gemm.cu",
     "grouped_matmul": "src/repro_torch/kernels/csrc/expert_gemm.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
+# the long-prompt path: 32 prompts even-spread over 1024..3584, decode 64
+# (max_seq 3648, within OLMoE's 4096 context), at the planner's b_a
+LONG_REQUESTS, LONG_MIN, LONG_MAX, LONG_DECODE = 32, 1024, 3584, 64
 
 
 def emit(obj) -> None:
@@ -100,10 +116,17 @@ def bound(nbytes: float, flops: float, peak: float):
 
 def errors(got, want):
     """(largest absolute error, largest error of a row of the last axis over
-    that row's largest |reference| value)."""
-    d = (got.float() - want.float()).abs()
-    peak = want.float().abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
-    return float(d.max()), float((d.amax(-1) / peak).max())
+    that row's largest |reference| value), over slices of the first axis so
+    that the f32 copies of a prefill-sized buffer stay small."""
+    n = max(1, (1 << 28) // max(1, got[0].numel()))
+    abs_err = rel_err = 0.0
+    for lo in range(0, got.shape[0], n):
+        w = want[lo:lo + n].float()
+        d = (got[lo:lo + n].float() - w).abs()
+        peak = w.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+        abs_err = max(abs_err, float(d.max()))
+        rel_err = max(rel_err, float((d.amax(-1) / peak).max()))
+    return abs_err, rel_err
 
 
 def tolerance(dtype) -> dict:
@@ -149,8 +172,9 @@ def sync_sites(fn):
 
 def profile_region(fn, top: int = 12):
     """Run ``fn`` under torch.profiler: device-busy ms (sum of kernel times
-    on the one stream) and the kernels that took the most device time.
-    Returns (summary, fn())."""
+    on the one stream), the kernels that took the most device time, and
+    every kernel's ms (``by_kernel``, not printed).  Returns (summary,
+    fn())."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -171,7 +195,52 @@ def profile_region(fn, top: int = 12):
     rows.sort(reverse=True)
     return ({"device_busy_ms": sum(r[0] for r in rows),
              "top": [{"kernel": k[:80], "ms": ms, "calls": n}
-                     for ms, k, n in rows[:top]]}, out)
+                     for ms, k, n in rows[:top]],
+             "by_kernel": {k: ms for ms, k, _ in rows}}, out)
+
+
+# the work of one call of a kernel wrapper, to pick the largest call of a
+# run: (capacity, routed rows) of the grouped FFN, visible pairs of K4's
+# rows, rows x span of K3
+WORK = {
+    "grouped_expert_ffn": lambda x, *a: (x.shape[1], int(a[3].sum())),
+    "flash_attention": lambda q, *a, lengths=None, **kw: (
+        q.shape[0] * q.shape[1] ** 2 if lengths is None
+        else int((lengths.long() ** 2).sum())),
+    "decode_attention": lambda q, k, *a: q.shape[0] * k.shape[1],
+}
+
+
+@contextlib.contextmanager
+def capture_calls(names):
+    """Wrap the kernel ops ``names`` so that a copy of the arguments of each
+    one's largest call (by ``WORK``) is kept: the shapes and data the path
+    gives the kernel.  Yields {name: (args, kwargs)}."""
+    from repro_torch.kernels import ops
+
+    best, saved = {}, {n: getattr(ops, n) for n in names}
+
+    def copy(v):
+        return v.clone() if torch.is_tensor(v) else v
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            work = WORK[name](*args, **kw)
+            if name not in best or work > best[name][0]:
+                best[name] = (work, [copy(a) for a in args],
+                              {k: copy(v) for k, v in kw.items()})
+            return fn(*args, **kw)
+        return call
+
+    for n in names:
+        setattr(ops, n, wrap(n, saved[n]))
+    calls = {}
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+        calls.update({n: (a, kw) for n, (_, a, kw) in best.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -198,26 +267,60 @@ def ffn_inputs(gen, E, C, D, F, dtype, dev, counts=None):
     return [t.to(dtype) for t in (x, wg, wu, wd)]
 
 
+def by_experts(fn, x, *ws, counts=None):
+    """A plain version over groups of experts, so that its f32 copies stay
+    near 2 GB at the long path's prefill capacity (tens of thousands of
+    rows); an expert's rows never depend on another expert's."""
+    E, C, D = x.shape
+    g = max(1, (1 << 31) // (C * D * 4))
+    if g >= E:
+        return fn(x, *ws, counts)
+    out = None
+    for e in range(0, E, g):
+        part = fn(x[e:e + g], *(w[e:e + g] for w in ws),
+                  None if counts is None else counts[e:e + g])
+        if out is None:
+            out = torch.empty((E,) + part.shape[1:], dtype=part.dtype,
+                              device=part.device)
+        out[e:e + g] = part
+    return out
+
+
 def check_ffn(name, gen, E, C, D, F, dtype, dev, counts=None, timing=False):
+    x, wg, wu, wd = ffn_inputs(gen, E, C, D, F, dtype, dev, counts)
+    return check_ffn_on(name, x, wg, wu, wd, counts, timing)
+
+
+def check_ffn_on(name, x, wg, wu, wd, counts=None, timing=False):
+    """K1, K2 and the grouped FFN against their plain versions on these
+    inputs; with ``timing``, the K1 and K2 rows of the kernels line."""
     from repro_torch.kernels import ops, ref
 
-    x, wg, wu, wd = ffn_inputs(gen, E, C, D, F, dtype, dev, counts)
-    got = ops.grouped_expert_ffn(x, wg, wu, wd, counts)
-    want = ref.expert_ffn_ref(x, wg, wu, wd, counts)
-    h = ops.expert_gate_up(x, wg, wu, counts)
-    h_ref = ref.expert_gate_up_ref(x, wg, wu, counts)
-    down = ops.grouped_matmul(h_ref, wd, counts)
-    down_ref = ref.grouped_matmul_ref(h_ref, wd, counts)
-    torch.cuda.synchronize()
+    E, C, D = x.shape
+    F, dtype = wg.shape[-1], x.dtype
     tol = tolerance(dtype)
-    errs = {"ffn": errors(got, want), "gate_up": errors(h, h_ref),
-            "grouped_matmul": errors(down, down_ref)}
-    peaks = {"ffn": want, "gate_up": h_ref, "grouped_matmul": down_ref}
+    errs, ref_peak = {}, {}
+    # one pair at a time: at the long path's prefill capacity each output
+    # is several GB
+    got = ops.grouped_expert_ffn(x, wg, wu, wd, counts)
+    want = by_experts(ref.expert_ffn_ref, x, wg, wu, wd, counts=counts)
+    errs["ffn"], ref_peak["ffn"] = errors(got, want), float(want.abs().max())
+    del got, want
+    h = ops.expert_gate_up(x, wg, wu, counts)
+    h_ref = by_experts(ref.expert_gate_up_ref, x, wg, wu, counts=counts)
+    errs["gate_up"], ref_peak["gate_up"] = errors(h, h_ref), float(h_ref.abs().max())
+    del h
+    down = ops.grouped_matmul(h_ref, wd, counts)
+    down_ref = by_experts(ref.grouped_matmul_ref, h_ref, wd, counts=counts)
+    errs["grouped_matmul"] = errors(down, down_ref)
+    ref_peak["grouped_matmul"] = float(down_ref.abs().max())
+    del down, down_ref
     case = {"case": name, "E": E, "C": C, "D": D, "F": F,
+            "routed_rows": None if counts is None else int(counts.sum()),
             "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": {k: e[0] for k, e in errs.items()},
             "rel_err": {k: e[1] for k, e in errs.items()},
-            "ref_peak": {k: float(t.float().abs().max()) for k, t in peaks.items()},
+            "ref_peak": ref_peak,
             "tolerance": tol}
     emit(case)
     for key, err in errs.items():
@@ -228,8 +331,7 @@ def check_ffn(name, gen, E, C, D, F, dtype, dev, counts=None, timing=False):
     es = x.element_size()
     n_live = int(counts.sum()) if counts is not None else E * C
     e_live = int((counts > 0).sum()) if counts is not None else E
-    bf = dtype == torch.bfloat16
-    peak = PEAK_BF16 if bf else PEAK_F32
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
     # K1: live experts' wg+wu, live x rows read once; all of h written
     k1_bytes = e_live * 2 * D * F * es + n_live * D * es + E * C * F * es
     k1_flops = 4.0 * n_live * D * F
@@ -240,12 +342,14 @@ def check_ffn(name, gen, E, C, D, F, dtype, dev, counts=None, timing=False):
         return torch.nn.functional.silu(torch.bmm(x, wg)) * torch.bmm(x, wu)
 
     rows = []
+    big = E * C > 1 << 18                     # the long path's prefill buffer
+    iters, plain_iters = (5, 2) if big else (20, 20)
     for kname, kern, plain, lib, nbytes, flops, err in (
         ("expert_gate_up", lambda: ops.expert_gate_up(x, wg, wu, counts),
-         lambda: ref.expert_gate_up_ref(x, wg, wu, counts), lib_gate_up,
-         k1_bytes, k1_flops, errs["gate_up"]),
+         lambda: by_experts(ref.expert_gate_up_ref, x, wg, wu, counts=counts),
+         lib_gate_up, k1_bytes, k1_flops, errs["gate_up"]),
         ("grouped_matmul", lambda: ops.grouped_matmul(h_ref, wd, counts),
-         lambda: ref.grouped_matmul_ref(h_ref, wd, counts),
+         lambda: by_experts(ref.grouped_matmul_ref, h_ref, wd, counts=counts),
          lambda: torch.bmm(h_ref, wd), k2_bytes, k2_flops,
          errs["grouped_matmul"]),
     ):
@@ -253,24 +357,31 @@ def check_ffn(name, gen, E, C, D, F, dtype, dev, counts=None, timing=False):
         rows.append({
             "name": kname, "case": name, "max_abs_err": err[0],
             "rel_err": err[1], "tolerance": tol,
-            "ms": time_ms(kern), "plain_ms": time_ms(plain),
-            "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
+            "ms": time_ms(kern, iters), "plain_ms": time_ms(plain, plain_iters, 1),
+            "library_ms": time_ms(lib, iters), "bound_ms": b_ms, "bound_by": b_by,
         })
+    emit({"case": name, "timing": rows})
     return case, rows
 
 
-def attn_inputs(gen, B, H, K, hd, S, dtype, dev, pos):
+def check_attention(name, gen, B, H, K, hd, S, dtype, dev, timing=False, pos=None):
+    if pos is None:
+        pos = torch.randint(0, S, (B,), generator=gen, device=dev, dtype=torch.int32)
+    else:
+        pos = torch.tensor(pos, device=dev, dtype=torch.int32)
     q = torch.randn((B, H, hd), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, S, K, hd), generator=gen, device=dev).to(dtype)
     v = torch.randn((B, S, K, hd), generator=gen, device=dev).to(dtype)
-    return q, k, v, pos
+    return check_attention_on(name, q, k, v, pos, timing)
 
 
-def check_attention(name, gen, B, H, K, hd, S, dtype, dev, timing=False):
+def check_attention_on(name, q, k, v, pos, timing=False):
+    """K3 against its plain version on these inputs (and keys and values
+    past ``pos`` poisoned); with ``timing``, its row of the kernels line."""
     from repro_torch.kernels import ops, ref
 
-    pos = torch.randint(0, S, (B,), generator=gen, device=dev, dtype=torch.int32)
-    q, k, v, pos = attn_inputs(gen, B, H, K, hd, S, dtype, dev, pos)
+    B, H, hd = q.shape
+    S, K, dtype, dev = k.shape[1], k.shape[2], q.dtype, q.device
     got = ops.decode_attention(q, k, v, pos)
     want = ref.decode_attention_ref(q, k, v, pos)
     # poisoned slots past pos must not change the output
@@ -315,10 +426,136 @@ def check_attention(name, gen, B, H, K, hd, S, dtype, dev, timing=False):
     }
 
 
-def phase_kernels(dev, plan, span: int, prompt_len: int):
-    """The serve phase's shapes: decode capacity min(b_e, B), prefill
+def long_lengths(n: int = LONG_REQUESTS):
+    return [LONG_MIN + ((LONG_MAX - LONG_MIN) * i) // (n - 1) for i in range(n)]
+
+
+def naive_bf16_probs(q, k, v, window: int, n: int):
+    """The reference's naive attention numerics on batch row 0's first ``n``
+    rows: f32 softmax, probabilities rounded to v's dtype before a bf16 PV
+    product (K4 rounds the unnormalised ones)."""
+    H, hd = q.shape[2], q.shape[3]
+    G = H // k.shape[2]
+    kb = k[0, :n].repeat_interleave(G, dim=1).transpose(0, 1)     # (H, n, hd)
+    vb = v[0, :n].repeat_interleave(G, dim=1).transpose(0, 1)
+    out = torch.empty((n, H, hd), dtype=q.dtype, device=q.device)
+    kpos = torch.arange(n, device=q.device)
+    for lo in range(0, n, 512):
+        hi = min(n, lo + 512)
+        s = torch.einsum("qhd,hkd->hqk", q[0, lo:hi].float(), kb.float()) * hd ** -0.5
+        qpos = torch.arange(lo, hi, device=q.device)[:, None]
+        mask = kpos[None, :] <= qpos
+        if window:
+            mask &= qpos - kpos[None, :] < window
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1).to(v.dtype)
+        out[lo:hi] = torch.einsum("hqk,hkd->qhd", p, vb)
+    return out
+
+
+def check_flash(name, gen, B, S, H, K, hd, dtype, dev, window=0, lengths=None):
+    q, k, v = [torch.randn(s, generator=gen, device=dev).to(dtype)
+               for s in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd))]
+    lens = (None if lengths is None
+            else torch.tensor(lengths, device=dev, dtype=torch.int32))
+    return check_flash_on(name, q, k, v, window, lens)
+
+
+def check_flash_on(name, q, k, v, window=0, lens=None):
+    """K4 against its plain version (and timed) on these inputs; with
+    ``lens``, rows past them must be zeros and keys past them set to 1e4
+    must change nothing."""
+    from repro_torch.kernels import ops, ref
+
+    B, S, H, hd = q.shape
+    K, dtype, dev = k.shape[2], q.dtype, q.device
+    lengths = None if lens is None else [int(n) for n in lens.tolist()]
+
+    def kern():
+        return ops.flash_attention(q, k, v, window=window, lengths=lens)
+
+    def plain():
+        return ref.flash_attention_ref(q, k, v, window=window, lengths=lens)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err, tol = errors(got, want), tolerance(dtype)
+    live = [S] * B if lengths is None else list(lengths)
+    zero_rows = all(int(torch.count_nonzero(got[b, n:])) == 0
+                    for b, n in enumerate(live))
+    poisoned_diff = 0.0
+    if lengths is not None:
+        dead = torch.arange(S, device=dev)[None, :, None, None] >= lens[:, None, None, None]
+        k2 = torch.where(dead, torch.full_like(k, 1e4), k)
+        v2 = torch.where(dead, torch.full_like(v, 1e4), v)
+        poisoned_diff = float((ops.flash_attention(q, k2, v2, window=window, lengths=lens)
+                               - got).abs().max())
+    case = {"case": name, "B": B, "S": S, "H": H, "K": K, "hd": hd,
+            "window": window, "lengths": None if lengths is None else
+            [min(live), max(live)], "dtype": str(dtype).replace("torch.", ""),
+            "max_abs_err": err[0], "rel_err": err[1],
+            "ref_peak": float(want.float().abs().max()),
+            "zero_rows_past_lengths": zero_rows, "poisoned_diff": poisoned_diff,
+            "tolerance": tol}
+    if dtype == torch.bfloat16:
+        # the size of the reference's own bf16 rounding of the probabilities
+        twin = naive_bf16_probs(q, k, v, window, live[0])
+        case["vs_naive_bf16_probs_rel"] = errors(got[0, :live[0]], twin)[1]
+    if not (within(err, tol) and zero_rows and poisoned_diff == 0.0):
+        emit(case)
+        raise AssertionError(f"{name}: K4 error {err} outside {tol}, zero rows "
+                             f"{zero_rows}, poisoned diff {poisoned_diff}")
+    # operations: QK^T and PV over every visible (query, key) pair
+    pairs = 0
+    for n in live:
+        i = torch.arange(n, dtype=torch.float64)
+        lo = torch.clamp(i - window + 1, min=0) if window else torch.zeros_like(i)
+        pairs += float((i - lo + 1).sum())
+    es = q.element_size()
+    nbytes = sum(live) * (H + 2 * K) * hd * es + B * S * H * hd * es
+    flops = 4.0 * H * hd * pairs
+    b_ms, b_by = bound(nbytes, flops,
+                       PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if lengths is None and not window:
+        mask = None                              # is_causal is the same function
+    else:                                        # the same function on live rows
+        i = torch.arange(S, device=dev)
+        m = i[None, :] <= i[:, None]
+        if window:
+            m &= i[:, None] - i[None, :] < window
+        klive = i[None, :] < torch.tensor(live, device=dev)[:, None]     # (B, S)
+        mask = (m[None] & klive[:, None, :])[:, None]                     # (B,1,S,S)
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=H != K)
+
+    iters = 10 if S * B > 8192 else 20
+    case.update({"ms": time_ms(kern, iters), "plain_ms": time_ms(plain, 3, 1),
+                 "library_ms": time_ms(lib, iters),
+                 # is_causal over the whole S (no lengths, no window)
+                 "sdpa_causal_ms": time_ms(
+                     lambda: torch.nn.functional.scaled_dot_product_attention(
+                         qt, kt, vt, is_causal=True, enable_gqa=H != K), iters),
+                 "bound_ms": b_ms, "bound_by": b_by})
+    case["tflops"] = flops / case["ms"] / 1e9
+    emit(case)
+    row = {"name": "flash_attention", "case": name, "max_abs_err": err[0],
+           "rel_err": err[1], "tolerance": tol, "ms": case["ms"],
+           "plain_ms": case["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": case["library_ms"]}
+    return row
+
+
+def phase_kernels(dev, plan, span: int, prompt_len: int, long_b_a: int):
+    """The serve phases' shapes: decode capacity min(b_e, B), prefill
     capacity next_pow2(max expert load) of a b_a x prompt_len micro-batch
-    (the engine's probe), attention over b_a rows of a span-slot cache."""
+    (the engine's probe), decode attention over b_a rows of a span-slot
+    cache and over the long path's 32 rows at span 3648, and K4 at the
+    long path's prefill micro-batch (its ``long_b_a`` longest prompts) plus
+    GQA, window and f32 cases.  Each serve phase also holds every kernel to
+    its plain version on the inputs its own path gave it
+    (``check_path_kernels``)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -348,55 +585,85 @@ def phase_kernels(dev, plan, span: int, prompt_len: int):
     check_attention("olmoe-B64-S512-f32", gen, 64, 16, 16, 128, 512, f32, dev)
     check_attention("gqa-32-8", gen, 64, 32, 8, 128, 512, bf, dev)
     check_attention("gqa-32-8-f32", gen, 8, 32, 8, 128, 512, f32, dev)
+    # K3 at the long path's span: ragged positions 1024..3647
+    long_span = LONG_MAX + LONG_DECODE
+    long_pos = [LONG_MIN + ((long_span - 1 - LONG_MIN) * i) // (LONG_REQUESTS - 1)
+                for i in range(LONG_REQUESTS)]
+    rows.append(check_attention("olmoe-decode-long", gen, LONG_REQUESTS, 16, 16, 128,
+                                long_span, bf, dev, timing=True, pos=long_pos))
+    # K4: the long path's prefill micro-batch, a Mixtral-shaped GQA case, a
+    # sliding window, and f32 (the parity shape)
+    lens = long_lengths()
+    rows.append(check_flash("olmoe-long-prefill", gen, long_b_a, LONG_MAX, 16, 16,
+                            128, bf, dev, lengths=lens[-long_b_a:]))
+    rows.append(check_flash("mixtral-gqa-S4096", gen, 2, 4096, 32, 8, 128, bf, dev))
+    rows.append(check_flash("window-1024-S4096", gen, 2, 4096, 16, 16, 128, bf, dev,
+                            window=1024))
+    rows.append(check_flash("olmoe-f32-S1536", gen, 2, 1536, 16, 16, 128, f32, dev,
+                            lengths=[1536, 1100]))
     return rows
 
 
 # ---------------------------------------------------------------------------
 # Phase 4: full-width serving through the port's Server
 # ---------------------------------------------------------------------------
-def serve_setup(n_requests: int = 64, decode_len: int = 32):
-    """The served cell: full OLMoE-1B-7B, ragged prompts 64..256, the
-    planner's plan on the H100 profile with b_e raised to B (one expert can
-    take every token of a step, so no copy drops and both schedulers must
-    give identical tokens)."""
+def serve_setup(lens, decode_len: int):
+    """A served path on full OLMoE-1B-7B: the planner's plan on the H100
+    profile for these prompts, with b_e raised to B (one expert can take
+    every token of a step, so no copy drops and both schedulers must give
+    identical tokens)."""
     from repro_torch.configs import get_config
     from repro_torch.core.hardware import H100_SXM_80GB
     from repro_torch.launch.serve import build_plan
 
     cfg = get_config("olmoe-1b-7b")
-    lens = [64 + (192 * i) // (n_requests - 1) for i in range(n_requests)]
+    n = len(lens)
     args = argparse.Namespace(prompt_lens=lens, decode_len=decode_len,
-                              scheduler="static", batch=n_requests,
-                              requests=n_requests, b_e=n_requests)
+                              scheduler="static", batch=n, requests=n, b_e=n)
     return cfg, build_plan(cfg, H100_SXM_80GB, args), lens, decode_len
 
 
-def phase_serve(dev, setup, profile=False):
-    import numpy as np
+def short_lengths(n: int = 64):
+    return [64 + (192 * i) // (n - 1) for i in range(n)]
 
-    from repro_torch.data.datasets import DatasetSpec, synthetic_requests
-    from repro_torch.kernels import ops
+
+def init_weights(dev):
+    """Full OLMoE-1B-7B in bf16, seeded, on the card (shared by both serve
+    phases)."""
+    from repro_torch.configs import get_config
     from repro_torch.models import model as M
-    from repro_torch.serving.server import ServeConfig, Server
     from repro_torch.serving.weights import tree_bytes
 
-    cfg, plan, lens, decode_len = setup
-    n_requests = len(lens)
     t0 = time.perf_counter()
-    params = M.init_params(cfg, seed=0, device=dev)
+    params = M.init_params(get_config("olmoe-1b-7b"), seed=0, device=dev)
     torch.cuda.synchronize()
-    emit({"phase": "serve", "init_s": time.perf_counter() - t0,
+    emit({"phase": "weights", "init_s": time.perf_counter() - t0,
           "weights_gb": tree_bytes(params) / 1e9})
-    requests = synthetic_requests(
-        DatasetSpec("smoke", n_requests, max(lens), decode_len),
-        cfg.vocab_size, seed=0, prompt_lens=lens)
+    return params
+
+
+def serve_both(dev, cfg, params, plan, requests, decode_len: int, phase: str):
+    """Serve ``requests`` through the port's ``Server`` under the static and
+    then the continuous scheduler, the launch counts set to 0 just before
+    each run and read just after.  Fails unless every request gets its
+    ``decode_len`` tokens, every kernel was launched, no routed copy
+    dropped and both schedulers give identical tokens."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.server import ServeConfig, Server
+
+    n_requests = len(requests)
     # warm-up pass (cuBLAS handles, allocator, kernel libraries) so both
     # timed schedulers run warm; its launches are not counted
     warm = Server(cfg, params, plan, serve=ServeConfig(decode_len=2), device=dev)
     for r in requests[:2]:
         warm.submit(r)
     warm.run()
+    # a Server and its RequestHandles reference each other: collect the
+    # cycle so a finished server's KV cache is freed before the next one
     del warm
+    gc.collect()
     tokens, reports, counts = {}, {}, {}
     for sched in ("static", "continuous"):
         server = Server(cfg, params, plan,
@@ -404,6 +671,7 @@ def phase_serve(dev, setup, profile=False):
                         device=dev)
         for r in requests:
             server.submit(r)
+        torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -413,20 +681,25 @@ def phase_serve(dev, setup, profile=False):
         counts[sched] = ops.launch_counts()
         reports[sched] = rep
         tokens[sched] = [r.tokens for r in rep.request_results]
-        emit({"phase": "serve", "scheduler": sched, "wall_s": wall,
+        emit({"phase": phase, "scheduler": sched, "wall_s": wall,
               "prefill_tokens": rep.prefill_tokens, "prefill_s": rep.prefill_s,
               "prefill_tok_s": rep.prefill_throughput,
               "decode_tokens": rep.decode_tokens, "decode_s": rep.decode_s,
               "decode_tok_s": rep.decode_throughput,
+              "server_ms_per_tick": rep.decode_s * 1e3 / (rep.decode_slot_steps / plan.B),
               "dropped": rep.expert_tokens_dropped,
               "decode_slot_steps": rep.decode_slot_steps,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
               "launches": counts[sched]})
         if dev.type == "cuda" and not all(v > 0 for v in counts[sched].values()):
             raise AssertionError(f"{sched}: a kernel was never launched: {counts[sched]}")
         if len(rep.request_results) != n_requests or any(
                 r.tokens.size != decode_len for r in rep.request_results):
             raise AssertionError(f"{sched}: wrong number of tokens served")
+        if rep.expert_tokens_dropped != 0:
+            raise AssertionError(f"{sched}: {rep.expert_tokens_dropped} copies dropped")
         del server
+        gc.collect()
     same = all(np.array_equal(a, b)
                for a, b in zip(tokens["static"], tokens["continuous"]))
     if not same:
@@ -434,24 +707,53 @@ def phase_serve(dev, setup, profile=False):
     flat = np.concatenate(tokens["static"])
     if flat.min() < 0 or flat.max() >= cfg.vocab_size:
         raise AssertionError("token ids out of range")
-    # where the time goes in a served decode tick: the server's own tick (one
-    # per-module decode_chunk tick, then one device-to-host read of the
-    # tokens), from the served prompts' own positions, on a fresh engine
+    return tokens, reports, counts
+
+
+def check_path_kernels(phase: str, calls) -> list:
+    """Hold every kernel to its plain version, timed, on the inputs of the
+    largest call its path made (``capture_calls``)."""
+    rows = []
+    for where, name in sorted(calls):
+        args, kw = calls.pop((where, name))
+        case = f"{phase}-{where}"
+        if name == "grouped_expert_ffn":
+            rows += check_ffn_on(case, *args, timing=True)[1]
+        elif name == "flash_attention":
+            rows.append(check_flash_on(case, *args, window=kw.get("window", 0),
+                                       lens=kw.get("lengths")))
+        else:
+            rows.append(check_attention_on(case, *args, timing=True))
+        del args, kw
+    emit({"phase": phase, "path_kernel_cases": rows})
+    return rows
+
+
+def profile_path(dev, phase, cfg, params, plan, requests, max_seq, reports,
+                 profile=False, steps: int = 4):
+    """A fresh engine on a served path's prompts: one prefill wave and
+    ``steps`` decode ticks (one ``decode_chunk`` tick and one token read
+    each, as the server ticks) with the kernels' largest calls captured,
+    the bare tick's wall, and under ``profile`` a torch.profiler breakdown
+    of the ticks and of one prefill wave.  Then every captured kernel is
+    held to its plain version (``check_path_kernels``)."""
+    import numpy as np
+
     from repro_torch.core.engine import ModuleBatchingEngine
     from repro_torch.serving.sampling import BatchSampler
 
+    n = len(requests)
     tick_ms = {s: rep.decode_s * 1e3 / (rep.decode_slot_steps / plan.B)
                for s, rep in reports.items()}
-    eng = ModuleBatchingEngine(cfg, params, plan, max_seq=max(lens) + decode_len,
-                               device=dev)
+    eng = ModuleBatchingEngine(cfg, params, plan, max_seq=max_seq, device=dev)
     lengths = np.array([len(r.prompt) for r in requests], np.int64)
-    prompts = np.zeros((n_requests, int(lengths.max())), np.int64)
+    prompts = np.zeros((n, int(lengths.max())), np.int64)
     for i, r in enumerate(requests):
         prompts[i, :lengths[i]] = r.prompt
-    sampler = BatchSampler.uniform(n_requests, None)
-    lg = eng.prefill(prompts, lengths=lengths)
+    sampler = BatchSampler.uniform(n, None)
+    with capture_calls(("grouped_expert_ffn", "flash_attention")) as pre:
+        lg = eng.prefill(prompts, lengths=lengths)
     tok0 = sampler.sample(lg)
-    steps = 4
 
     def decode_ticks():
         tok = tok0
@@ -460,18 +762,20 @@ def phase_serve(dev, setup, profile=False):
             tok.cpu()
         return tok
 
-    decode_ticks()                                          # warm
+    with capture_calls(("grouped_expert_ffn", "decode_attention")) as dec:
+        decode_ticks()                                      # warm
     wall = host_ms(decode_ticks) / steps
     lg2 = eng.decode_step(tok0, lengths)
     if not (torch.isfinite(lg).all() and torch.isfinite(lg2).all()):
-        raise AssertionError("non-finite logits")
-    emit({"phase": "decode_tick", "B": n_requests, "wall_ms_per_tick": wall,
-          "server_ms_per_tick": tick_ms})
+        raise AssertionError(f"{phase}: non-finite logits")
+    emit({"phase": phase, "what": "decode_tick", "B": n,
+          "positions": [int(lengths.min()), int(lengths.max())],
+          "wall_ms_per_tick": wall, "server_ms_per_tick": tick_ms})
     if profile:
         # device busy from the profiler; walls from unprofiled runs
         prof, _ = profile_region(decode_ticks)
         busy = prof["device_busy_ms"] / steps
-        emit({"phase": "profile", "what": f"decode tick B={n_requests}, per tick",
+        emit({"phase": "profile", "what": f"{phase} decode tick B={n}, per tick",
               "wall_ms": wall, "device_busy_ms": busy,
               "idle_share": 1.0 - busy / wall,
               "idle_share_vs_server": {s: 1.0 - busy / ms for s, ms in tick_ms.items()},
@@ -479,19 +783,80 @@ def phase_serve(dev, setup, profile=False):
               "top_over_steps": prof["top"]})
         wall_p = host_ms(lambda: eng.prefill(prompts, lengths=lengths))
         prof, _ = profile_region(lambda: eng.prefill(prompts, lengths=lengths))
-        emit({"phase": "profile",
-              "what": f"prefill of the {n_requests} served prompts, one wave",
-              "wall_ms": wall_p, "device_busy_ms": prof["device_busy_ms"],
-              "idle_share": 1.0 - prof["device_busy_ms"] / wall_p,
+        busy = prof["device_busy_ms"]
+        k4 = sum(ms for k, ms in prof["by_kernel"].items() if "flash_" in k)
+        emit({"phase": "profile", "what": f"{phase} prefill of the {n} prompts, one wave",
+              "wall_ms": wall_p, "device_busy_ms": busy,
+              "idle_share": 1.0 - busy / wall_p, "k4_ms": k4,
+              "k4_share_of_busy": k4 / busy,
               "server_prefill_ms": {s: rep.prefill_s * 1e3 for s, rep in reports.items()},
               "top": prof["top"]})
-    del eng, params
+    del eng, lg, lg2
+    gc.collect()
     torch.cuda.empty_cache()
+    calls = {("prefill", k): v for k, v in pre.items()}
+    calls.update({("decode", k): v for k, v in dec.items()})
+    return check_path_kernels(phase, calls)
+
+
+def phase_serve(dev, params, profile=False):
+    """64 requests of 64..256 tokens, decode 32, through the port's
+    ``Server`` (both schedulers), then the path's kernels on its own
+    inputs."""
+    from repro_torch.data.datasets import DatasetSpec, synthetic_requests
+
+    cfg, plan, lens, decode_len = serve_setup(short_lengths(), 32)
+    n_requests = len(lens)
+    requests = synthetic_requests(
+        DatasetSpec("smoke", n_requests, max(lens), decode_len),
+        cfg.vocab_size, seed=0, prompt_lens=lens)
+    _, reports, counts = serve_both(dev, cfg, params, plan, requests,
+                                    decode_len, "serve")
+    profile_path(dev, "serve", cfg, params, plan, requests,
+                 max(lens) + decode_len, reports, profile)
     return counts["static"], reports
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: full width, 2 layers, f32: card against CPU
+# Phase 5: long prompts through K4 at every prefill layer
+# ---------------------------------------------------------------------------
+def phase_serve_long(dev, params, profile=False):
+    """32 prompts of 1024..3584 tokens, decode 64, through the port's
+    ``Server`` (both schedulers) at the planner's plan, b_e = B so nothing
+    drops.  K4's launches must equal layers x prefill micro-batches x waves
+    (all 32 requests form one wave under both schedulers).  Then the path's
+    kernels on its own inputs: the largest prefill capacity buffer of the
+    wave, K4's largest micro-batch, a decode tick's FFN and K3."""
+    from repro_torch.data.datasets import DatasetSpec, synthetic_requests
+    from repro_torch.serving.weights import tree_bytes
+
+    cfg, plan, lens, decode_len = serve_setup(long_lengths(), LONG_DECODE)
+    n = len(lens)
+    max_seq = LONG_MAX + LONG_DECODE
+    kv_bytes = (n * max_seq * cfg.num_layers * 2 * cfg.num_kv_heads
+                * cfg.head_dim * 2)
+    emit({"phase": "serve_long", "requests": n, "prompt_lens": [min(lens), max(lens)],
+          "prompt_tokens": sum(lens), "decode_len": decode_len, "max_seq": max_seq,
+          "plan": {"B": plan.B, "b_a": plan.b_a, "b_e": plan.b_e},
+          "weights_gb": tree_bytes(params) / 1e9, "kv_gb": kv_bytes / 1e9})
+    requests = synthetic_requests(DatasetSpec("long", n, LONG_MAX, decode_len),
+                                  cfg.vocab_size, seed=0, prompt_lens=lens)
+    _, reports, counts = serve_both(dev, cfg, params, plan, requests, decode_len,
+                                    "serve_long")
+    want = cfg.num_layers * -(-n // plan.b_a) * 1
+    for sched, c in counts.items():
+        emit({"phase": "serve_long", "scheduler": sched,
+              "k4_launches": c["flash_attention"], "k4_expected": want})
+        if dev.type == "cuda" and (c["flash_attention"] != want or want <= 0):
+            raise AssertionError(f"{sched}: K4 launched {c['flash_attention']} "
+                                 f"times, expected {want}")
+    profile_path(dev, "serve_long", cfg, params, plan, requests, max_seq, reports,
+                 profile)
+    return counts["static"], reports
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: full width, 2 layers, f32: card against CPU
 # ---------------------------------------------------------------------------
 def _to_cpu(tree):
     if isinstance(tree, dict):
@@ -502,6 +867,10 @@ def _to_cpu(tree):
 
 
 def phase_parity(dev):
+    """Card (kernels) against CPU (plain versions) at full width, 2 layers,
+    f32: 4 prompts of 32 tokens, then a 1536-token prompt (past the naive
+    limit of 1024) beside a ragged 1100-token one.  Logits within 1e-3 of
+    their scale over prefill and 3 decode steps, identical greedy tokens."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -511,30 +880,41 @@ def phase_parity(dev):
 
     cfg = replace(get_config("olmoe-1b-7b"), num_layers=2, dtype="float32")
     params = M.init_params(cfg, seed=1, device=dev)
-    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 32))
-    plan = Plan(B=4, b_a=4, b_e=4, omega=0.0)
-    out = {}
-    for where, p in (("cuda", params), ("cpu", _to_cpu(params))):
-        eng = ModuleBatchingEngine(cfg, p, plan, max_seq=40, device=where)
-        lg = [eng.prefill(prompts).float().cpu()]
-        toks = [lg[0].argmax(-1)]
-        for t in range(3):
-            lg.append(eng.decode_step(toks[-1], 32 + t).float().cpu())
-            toks.append(lg[-1].argmax(-1))
-        out[where] = (lg, toks)
-    scale = float(out["cpu"][0][0].abs().max())
-    errs = [float((a - b).abs().max()) / scale
-            for a, b in zip(out["cuda"][0], out["cpu"][0])]
-    same = all(torch.equal(a, b) for a, b in zip(out["cuda"][1], out["cpu"][1]))
-    emit({"phase": "parity", "rel_err_per_step": errs, "tolerance": 1e-3,
-          "tokens_match": same})
-    if not (max(errs) < 1e-3 and same):
-        raise AssertionError(f"card vs CPU: errors {errs}, tokens match {same}")
+    cpu_params = _to_cpu(params)
+    rng = np.random.default_rng(1)
+    for name, shape, lengths in (("short", (4, 32), None),
+                                 ("long", (2, 1536), np.array([1536, 1100]))):
+        B, S = shape
+        prompts = rng.integers(0, cfg.vocab_size, shape)
+        pos = np.full(B, S) if lengths is None else lengths
+        plan = Plan(B=B, b_a=B, b_e=B, omega=0.0)
+        out = {}
+        for where, p in (("cuda", params), ("cpu", cpu_params)):
+            eng = ModuleBatchingEngine(cfg, p, plan, max_seq=S + 8, device=where)
+            t0 = time.perf_counter()
+            lg = [eng.prefill(prompts, lengths=lengths).float().cpu()]
+            toks = [lg[0].argmax(-1)]
+            for t in range(3):
+                lg.append(eng.decode_step(toks[-1], pos + t).float().cpu())
+                toks.append(lg[-1].argmax(-1))
+            out[where] = (lg, toks, time.perf_counter() - t0)
+            del eng
+        scale = float(out["cpu"][0][0].abs().max())
+        errs = [float((a - b).abs().max()) / scale
+                for a, b in zip(out["cuda"][0], out["cpu"][0])]
+        same = all(torch.equal(a, b) for a, b in zip(out["cuda"][1], out["cpu"][1]))
+        emit({"phase": "parity", "case": name, "B": B, "S": S,
+              "lengths": None if lengths is None else lengths.tolist(),
+              "rel_err_per_step": errs, "tolerance": 1e-3, "tokens_match": same,
+              "cpu_s": out["cpu"][2], "cuda_s": out["cuda"][2]})
+        if not (max(errs) < 1e-3 and same):
+            raise AssertionError(f"card vs CPU ({name}): errors {errs}, "
+                                 f"tokens match {same}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="kernels,serve,parity")
+    ap.add_argument("--phases", default="kernels,serve,serve_long,parity")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -553,28 +933,42 @@ def main() -> int:
     emit({"phase": "build", "seconds": t_build,
           "ptxas": {n: build.ptxas_log(n).strip().splitlines()[-6:]
                     for n in build.SOURCES}})
-    setup = serve_setup()
-    _, plan, lens, decode_len = setup
     rows = []
     if "kernels" in phases:
+        _, plan, lens, decode_len = serve_setup(short_lengths(), 32)
+        long_plan = serve_setup(long_lengths(), LONG_DECODE)[1]
         rows = phase_kernels(dev, plan, span=max(lens) + decode_len,
-                             prompt_len=max(lens))
+                             prompt_len=max(lens), long_b_a=long_plan.b_a)
         emit({"kernel_cases": rows})
-    launches = None
-    if "serve" in phases:
-        launches, _ = phase_serve(dev, setup, profile="profile" in phases)
+    launches = {}                           # per path: counts from its static run
+    if phases & {"serve", "serve_long"}:
+        params = init_weights(dev)
+        if "serve" in phases:
+            launches["serve"], _ = phase_serve(dev, params,
+                                               profile="profile" in phases)
+        if "serve_long" in phases:
+            launches["serve_long"], _ = phase_serve_long(dev, params,
+                                                         profile="profile" in phases)
+        del params
+        torch.cuda.empty_cache()
     if "parity" in phases:
         phase_parity(dev)
     if rows:
+        # one entry per kernel, at the shape of the path it serves most:
+        # K1-K3 the short serve path, K4 the long one; "launches" is that
+        # path's count, "launches_by_path" every path's
+        home = {"flash_attention": "serve_long"}
         seen, line_rows = set(), []
-        for r in rows:                      # one entry per kernel: decode shape
+        for r in rows:
             if r["name"] in seen:
                 continue
             seen.add(r["name"])
+            by_path = {k: c[r["name"]] for k, c in launches.items()}
             line_rows.append({
                 "name": r["name"], "route": "cuda", "source": SOURCE[r["name"]],
                 "replaces": REPLACES[r["name"]],
-                "launches": None if launches is None else launches[r["name"]],
+                "launches": by_path.get(home.get(r["name"], "serve")),
+                "launches_by_path": by_path,
                 "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"],
                 "tolerance": r["tolerance"],
                 "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -19,6 +19,7 @@ by every ``b_a`` micro-batch, and a grouped-prefill MoE layer is split into
 a mixer+route launch and a grouped-FFN launch whose capacity is the next
 power of two over the micro-batch's measured max expert load (one planned
 host read per layer and micro-batch), so no routed copy drops at prefill.
+Only positions below each row's length are routed there.
 
 Cache ownership: the engine owns the per-layer KV buffers; decode, prefill
 insertion and eviction write them in place and their ``data_ptr()``s never
@@ -184,21 +185,30 @@ class ModuleBatchingEngine:
         n, S = tokens.shape
         assert S <= self.max_seq
         if cfg.sliding_window and S > cfg.sliding_window:
-            raise NotImplementedError(attn_mod.FLASH_SLICE)
+            # the reference engine asserts the same; models.model.prefill
+            # takes prompts beyond the window
+            raise NotImplementedError(
+                f"engine prefill requires prompt <= window ({S} > "
+                f"{cfg.sliding_window}); models.model.prefill takes longer prompts")
         rows = np.asarray(rows).reshape(-1)
-        lengths = None if lengths is None else self._tensor(lengths)
         b_a = max(1, min(plan.b_a, n))
         spans = [(lo, min(n, lo + b_a)) for lo in range(0, n, b_a)]
+        live = [None] * len(spans)
+        if lengths is not None:
+            lens_np = np.asarray(lengths.cpu() if torch.is_tensor(lengths)
+                                 else lengths, np.int64).reshape(-1)
+            live = [self._live_index(lens_np[lo:hi], S) for lo, hi in spans]
+            lengths = self._tensor(lens_np)
         positions = torch.arange(S, device=self.device)[None, :]
         embed = self.store.base["embed"]
         xs = [embed[tokens[lo:hi]] for lo, hi in spans]
         for li, (kind, ffn) in enumerate(self.schema):
             p = self.store.acquire(li)
             outs = []
-            for (lo, hi), x in zip(spans, xs):
+            for j, ((lo, hi), x) in enumerate(zip(spans, xs)):
                 ln = None if lengths is None else lengths[lo:hi]
                 if ffn == "moe":
-                    x, entry = self._prefill_moe_layer(p, x, positions, ln)
+                    x, entry = self._prefill_moe_layer(p, x, positions, ln, live[j])
                 else:
                     x, entry, _ = layer_forward(cfg, kind, ffn, p, x, positions, ln)
                 insert_prefill_rows(cfg, self.cache[li], entry, rows[lo:hi])
@@ -212,16 +222,31 @@ class ModuleBatchingEngine:
             h_last = x_full[torch.arange(n, device=self.device), lengths - 1]
         return head(cfg, self.store.base, h_last)
 
-    def _prefill_moe_layer(self, p, x, positions, lengths):
+    def _live_index(self, lens: np.ndarray, S: int) -> Optional[torch.Tensor]:
+        """Flat (row * S + position) indices of a micro-batch's positions
+        below its ``lens``; None when no position is padding."""
+        if (lens >= S).all():
+            return None
+        mask = np.arange(S)[None, :] < lens[:, None]
+        return self._tensor(np.flatnonzero(mask))
+
+    def _prefill_moe_layer(self, p, x, positions, lengths, live=None):
         """A grouped-prefill MoE layer as two launches: mixer + route, then
         the grouped FFN at capacity ``next_pow2(max expert load)`` -- zero
-        drops, and the same output as any capacity >= that load."""
+        drops, and the same output as any capacity >= that load.
+
+        Only the positions in ``live`` (those below ``lengths``) are routed:
+        padded positions are never read, and since their attention rows are
+        zeros they would all route to the same experts and inflate the
+        capacity probe.  Their MoE output is zero."""
         cfg = self.cfg
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         y, entry = attn_mod.attn_forward(cfg, p["attn"], h, positions, lengths)
         x = x + y
         B, S, D = x.shape
         xt = rms_norm(x, p["norm2"], cfg.norm_eps).reshape(-1, D)
+        if live is not None:
+            xt = xt.index_select(0, live)
         moe = p["moe"]
         gates, idx, _ = moe_mod.route(cfg, moe["router"], xt)
         load = torch.bincount(idx.reshape(-1), minlength=cfg.num_experts)
@@ -230,6 +255,9 @@ class ModuleBatchingEngine:
             cfg, xt, gates, idx, moe["experts_w_gate"], moe["experts_w_up"],
             moe["experts_w_down"], cap,
         )
+        if live is not None:
+            y = torch.zeros((B * S, D), dtype=y.dtype,
+                            device=y.device).index_copy_(0, live, y)
         return x + y.reshape(B, S, D).to(x.dtype), entry
 
     # -- path selection ---------------------------------------------------

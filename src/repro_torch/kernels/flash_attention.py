@@ -1,0 +1,57 @@
+"""Causal GQA flash-attention wrapper (kernel K4, ``csrc/flash_attention.cu``).
+
+The prefill attention of every layer: q (B, S, H, hd) against k/v
+(B, S, K, hd), query head h reading KV head h // (H // K), with an optional
+sliding window and per-row ``lengths`` of a right-padded batch.  On a CUDA
+tensor the wrapper launches the kernel (or raises); on a CPU tensor it runs
+``kernels.ref.flash_attention_ref``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.expert_gemm import _check_cuda, _is_cpu
+
+SUPPORTED_G = (1, 2, 4, 8)
+SUPPORTED_HD = (32, 64, 128)        # 32: the smoke configs
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0,
+                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B, S, H, hd), k/v (B, S, K, hd) -> (B, S, H, hd) in q's dtype.
+
+    Query i sees key j iff ``j <= i``, ``i - window < j`` (when ``window``
+    > 0) and ``j < lengths[b]`` (when ``lengths``); rows ``i >= lengths[b]``
+    come back as zeros."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    if k.shape != (B, S, K, hd) or v.shape != k.shape or H % K:
+        raise ValueError(f"flash_attention: shapes {q.shape} {k.shape} {v.shape}")
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
+    if _is_cpu(q):
+        return ref.flash_attention_ref(q, k, v, window=window, lengths=lengths)
+    _check_cuda("flash_attention", (q, k, v), None)
+    if H // K not in SUPPORTED_G or hd not in SUPPORTED_HD:
+        raise ValueError(
+            f"flash_attention: G={H // K}, hd={hd} not built "
+            f"(G in {SUPPORTED_G}, hd in {SUPPORTED_HD})"
+        )
+    lens = None
+    if lengths is not None:
+        lens = torch.as_tensor(lengths, device=q.device).to(torch.int32)
+        lens = lens.reshape(-1).expand(B).contiguous()
+    out = torch.empty_like(q)
+    lib = build.library("flash_attention")
+    err = lib.repro_flash_attention(
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(lens), build.ptr(out),
+        B, S, H, K, hd, int(window), int(q.dtype == torch.bfloat16),
+        build.stream_of(q),
+    )
+    build.check(err, "flash_attention")
+    build.LAUNCHES["flash_attention"] += 1
+    return out

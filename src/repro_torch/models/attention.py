@@ -1,9 +1,10 @@
 """Attention: GQA with RoPE; full-sequence (prefill) and decode paths.
 
-* ``naive_attention``  -- materialized scores; the prefill mechanism of this
-  slice (prompts up to 1024 tokens, and sliding windows no shorter than the
-  prompt).  Longer prefill is the flash-attention kernel's slice.
-* ``attn_decode``      -- one new token per sequence against a preallocated
+* ``full_attention`` -- every prefill: causal GQA attention with an optional
+  sliding window and per-row ``lengths`` of a right-padded batch; its
+  mechanism is the hand-written flash-attention kernel
+  (``kernels.ops.flash_attention``), whose plain version runs on the CPU.
+* ``attn_decode``    -- one new token per sequence against a preallocated
   (possibly circular) cache, written in place; its mechanism is the
   hand-written decode-attention kernel (``kernels.ops.decode_attention``).
 """
@@ -14,13 +15,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import torch_dtype
+from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense_init
-
-NEG_INF = -1e30
-FLASH_SLICE = ("prefill beyond 1024 tokens (or beyond a sliding window) is "
-               "the flash-attention slice of the port")
 
 
 # ---------------------------------------------------------------------------
@@ -59,52 +56,19 @@ def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# Full-sequence attention math ((B, S, H, D) / (B, T, K, D))
+# Full-sequence attention ((B, S, H, D) / (B, S, K, D))
 # ---------------------------------------------------------------------------
-def naive_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = True,
-    window: int = 0,
-    q_offset: int = 0,
-    kv_mask: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Reference attention.  q: (B, Sq, H, D); k, v: (B, Sk, K, D).
-    ``kv_mask`` (B, Sk) bool marks valid keys of a ragged batch."""
-    B, Sq, H, D = q.shape
-    Sk, K = k.shape[1], k.shape[2]
-    G = H // K
-    scale = D ** -0.5
-    qg = q.reshape(B, Sq, K, G, D)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
-    dev = q.device
-    qpos = torch.arange(Sq, device=dev) + q_offset
-    kpos = torch.arange(Sk, device=dev)
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
-    if causal:
-        mask &= qpos[:, None] >= kpos[None, :]
-    if window:
-        mask &= qpos[:, None] - kpos[None, :] < window
-    neg = torch.full_like(scores, NEG_INF)
-    scores = torch.where(mask, scores, neg)
-    if kv_mask is not None:
-        scores = torch.where(kv_mask[:, None, None, None, :], scores, neg)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
-    return out.reshape(B, Sq, H, D)
-
-
 def full_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int = 0,
-    kv_mask: Optional[torch.Tensor] = None,
+    lengths: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Dispatcher for full-sequence passes (the naive mechanism only)."""
-    S = q.shape[1]
-    if (window and S > window) or S > 1024:
-        raise NotImplementedError(FLASH_SLICE)
-    return naive_attention(q, k, v, causal=True, window=window, kv_mask=kv_mask)
+    """Causal attention of every prefill, at any length: query i sees keys
+    ``i - window < j <= i`` (no lower limit when ``window`` is 0) and
+    ``j < lengths[b]``.  Output rows at or past ``lengths[b]`` are zeros
+    (they are never read).  K4 on a CUDA tensor, its plain version on the
+    CPU -- the reference's naive, blocked and sliding-window dispatch."""
+    return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               window=window, lengths=lengths)
 
 
 # ---------------------------------------------------------------------------
@@ -118,18 +82,16 @@ def attn_forward(
     lengths: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence attention.  Returns (output, {"k", "v"}) so prefill
-    can cache.  ``lengths`` (B,) masks the keys at right-padded positions
-    (outputs at padded query positions are never read)."""
+    can cache.  ``lengths`` (B,) masks the keys at right-padded positions;
+    outputs at padded query positions are never read (the attention writes
+    them as zeros)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    kv_mask = None
-    if lengths is not None:
-        kv_mask = torch.arange(S, device=x.device)[None, :] < lengths[:, None]
-    out = full_attention(q, k, v, window=cfg.sliding_window, kv_mask=kv_mask)
+    out = full_attention(q, k, v, window=cfg.sliding_window, lengths=lengths)
     y = out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"]
     return y, {"k": k, "v": v}
 
@@ -139,7 +101,10 @@ def kv_span(cfg: ModelConfig, max_seq: int) -> int:
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
-                  device="cpu") -> Dict[str, torch.Tensor]:
+                  device="cuda") -> Dict[str, torch.Tensor]:
+    """Zeroed (batch, span, K, hd) K and V buffers on ``device`` (``cuda``
+    by default; raises without CUDA)."""
+    device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
     shape = (batch, kv_span(cfg, max_seq), cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),

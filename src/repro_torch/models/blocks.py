@@ -95,7 +95,7 @@ def layer_forward(
 
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
-                     device="cpu") -> Dict[str, torch.Tensor]:
+                     device="cuda") -> Dict[str, torch.Tensor]:
     _require_attn(kind)
     return attn_mod.init_kv_cache(cfg, batch, max_seq, device=device)
 

@@ -96,8 +96,11 @@ def prefill(
     return head(cfg, params, last), caches
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cpu") -> List:
-    return [init_layer_cache(cfg, kind, batch, max_seq, device)
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> List:
+    """Zeroed decode caches of every layer on ``device`` (``cuda`` by
+    default, like ``init_params``; raises without CUDA)."""
+    dev = resolve_device(device)
+    return [init_layer_cache(cfg, kind, batch, max_seq, dev)
             for kind, _ in layer_schema(cfg)]
 
 

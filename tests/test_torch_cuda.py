@@ -66,6 +66,45 @@ def test_cuda_decode_attention_matches_plain(cuda, dtype, B, H, K, hd, S):
     assert_close(got, want)
 
 
+def _flash_inputs(cuda, B, S, H, K, hd, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    return [torch.randn(s, generator=g, device=cuda).to(dtype)
+            for s in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,hd,window,lengths", [
+    (2, 300, 4, 4, 128, 0, [300, 131]),        # ragged, lengths % 64 != 0
+    (4, 200, 8, 2, 64, 0, [200, 1, 64, 129]),  # lengths[b] == 1, a tile edge
+    (2, 513, 8, 1, 128, 100, [513, 260]),      # window + lengths + G = 8
+    (1, 256, 4, 1, 64, 0, None),               # no lengths, S a tile multiple
+])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, B, S, H, K, hd, window, lengths):
+    q, k, v = _flash_inputs(cuda, B, S, H, K, hd, dtype)
+    lens = None if lengths is None else torch.tensor(lengths, device=cuda,
+                                                     dtype=torch.int32)
+    got = ops.flash_attention(q, k, v, window=window, lengths=lens)
+    want = ref.flash_attention_ref(q, k, v, window=window, lengths=lens)
+    assert_close(got, want)
+    if lengths is not None:                    # rows past lengths are zeros
+        for b, n in enumerate(lengths):
+            assert torch.count_nonzero(got[b, n:]) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_poisoned_keys(cuda):
+    """Keys and values past lengths[b] set to 1e4 change no valid row."""
+    B, S, H, K, hd = 3, 333, 8, 2, 128
+    q, k, v = _flash_inputs(cuda, B, S, H, K, hd, torch.bfloat16)
+    lens = torch.tensor([333, 100, 7], device=cuda, dtype=torch.int32)
+    base = ops.flash_attention(q, k, v, lengths=lens)
+    dead = torch.arange(S, device=cuda)[None, :, None, None] >= lens[:, None, None, None]
+    k2 = torch.where(dead, torch.full_like(k, 1e4), k)
+    v2 = torch.where(dead, torch.full_like(v, 1e4), v)
+    assert torch.equal(ops.flash_attention(q, k2, v2, lengths=lens), base)
+
+
 @pytest.mark.cuda
 def test_cuda_engine_matches_cpu_engine(cuda):
     """The engine on the card (kernels) against the same engine on the CPU

@@ -75,6 +75,57 @@ def test_engine_ragged_generate_tokens_and_counters_match(arch, b_e):
     assert te.stats.expert_tokens_dropped > 0         # the capacity did bite
 
 
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b"])
+def test_engine_long_ragged_prompts_match_reference_engine(arch):
+    """Prompts of 1024..1280 tokens (past the naive limit), ragged, then 3
+    decode steps at a capacity that drops: tokens, per-layer drops and the
+    per-expert load histogram equal the JAX engine's exactly."""
+    jcfg = replace(jget(arch, smoke=True), dtype="float32")
+    cfg = replace(get_config(arch, smoke=True), dtype="float32")
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = from_numpy_params(cfg, jax.tree.map(np.asarray, jp), "cpu")
+    n, S_long, dec = 4, 1280, 4
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (n, S_long)).astype(np.int32)
+    lens = np.array([1280, 1024, 1187, 1093])
+    kw = dict(B=n, b_a=2, b_e=2, omega=0.0)
+    je = JEngine(jcfg, jp, JPlan(**kw), max_seq=S_long + dec)
+    te = ModuleBatchingEngine(cfg, tp, Plan(**kw), max_seq=S_long + dec, device="cpu")
+    a = np.asarray(je.generate(jnp.asarray(toks), dec, lengths=lens))
+    b = te.generate(toks, dec, lengths=lens).numpy()
+    assert np.array_equal(a, b)
+    assert np.array_equal(te.stats.expert_tokens_dropped_by_layer,
+                          je.stats.expert_tokens_dropped_by_layer)
+    assert np.array_equal(te.stats.expert_load, je.stats.expert_load)
+    assert te.stats.expert_tokens_dropped == je.stats.expert_tokens_dropped
+    assert te.stats.expert_tokens_dropped > 0         # the capacity did bite
+
+
+def test_engine_prefill_routes_only_live_positions(monkeypatch):
+    """A ragged prefill routes only the positions below each row's length:
+    every MoE layer of each micro-batch dispatches sum(lengths) tokens, and
+    the capacity probe sees no padded token."""
+    from repro_torch.models import moe as tmoe
+
+    _, cfg, _, tp, toks = _setup("olmoe-1b-7b")
+    lens = np.array([16, 3, 5, 16, 1, 9])
+    routed = []
+    dispatch = tmoe.grouped_dispatch
+
+    def spy(cfg_, xt, *a, **kw):
+        routed.append(xt.shape[0])
+        return dispatch(cfg_, xt, *a, **kw)
+
+    monkeypatch.setattr(tmoe, "grouped_dispatch", spy)
+    te = ModuleBatchingEngine(cfg, tp, Plan(B=B, b_a=4, b_e=B, omega=0.0),
+                              max_seq=S + DEC, device="cpu")
+    te.prefill(toks, lengths=lens)
+    per_layer = [int(lens[:4].sum()), int(lens[4:].sum())]
+    assert routed == per_layer * cfg.num_layers
+    routed.clear()
+    te.prefill(toks)                                  # no lengths: every position
+    assert routed == [4 * S, 2 * S] * cfg.num_layers
+
+
 def test_ragged_batch_matches_each_sequence_alone():
     jcfg, cfg, jp, tp, toks = _setup("olmoe-1b-7b")
     lens = [16, 9, 5]

@@ -92,10 +92,69 @@ def test_attn_forward_and_decode_match(arch):
     assert ct["k"].data_ptr() == ptr          # written in place
 
 
+def test_full_attention_past_1024_tokens_goes_through():
+    """Prefill attention takes any length (K4's slice): 1025 tokens, which
+    the first slice refused, give finite outputs of the input's shape."""
+    q = torch.from_numpy(RNG.standard_normal((1, 1025, 2, 32)).astype(np.float32))
+    out = attn.full_attention(q, q, q)
+    assert out.shape == q.shape and torch.isfinite(out).all()
+
+
 def test_full_attention_beyond_its_slice_raises():
-    q = torch.zeros((1, 1025, 2, 32))
-    with pytest.raises(NotImplementedError, match="flash-attention"):
-        attn.full_attention(q, q, q)
+    """What stays beyond the slice is the engine's prompt beyond a sliding
+    window, which the reference engine refuses too."""
+    from repro_torch.core.dag_builder import Plan
+    from repro_torch.core.engine import ModuleBatchingEngine
+
+    cfg = replace(get_config("h2o-danube-1.8b", smoke=True), dtype="float32")
+    eng = ModuleBatchingEngine(cfg, M.init_params(cfg, seed=0, device="cpu"),
+                               Plan(B=1, b_a=1, b_e=1), max_seq=80, device="cpu")
+    with pytest.raises(NotImplementedError, match="window"):
+        eng.prefill(np.zeros((1, cfg.sliding_window + 1), np.int64))
+
+
+def test_init_cache_defaults_to_cuda_and_never_falls_back():
+    cfg = get_config("olmoe-1b-7b", smoke=True)
+    cache = M.init_cache(cfg, 2, 16, device="cpu")
+    assert len(cache) == cfg.num_layers
+    assert cache[0]["k"].shape == (2, 16, cfg.num_kv_heads, cfg.head_dim)
+    assert cache[0]["k"].device.type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    for make in (lambda: M.init_cache(cfg, 2, 16),
+                 lambda: attn.init_kv_cache(cfg, 2, 16)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+
+
+def _prefill_and_decode_match(arch, B, S, DEC, lengths=None):
+    """Reference ``M.prefill`` + ``decode_step`` against the port's, f32:
+    logits within REL of their scale, identical greedy tokens."""
+    jcfg, cfg, jp, tp = _params(arch)
+    toks = RNG.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    lg_j, caches = JM.prefill(jcfg, jp, jnp.asarray(toks))
+    lg_t, tcaches = M.prefill(cfg, tp, torch.from_numpy(toks).long())
+    scale = float(np.abs(_np(lg_j)).max())
+    assert np.abs(lg_t.numpy() - _np(lg_j)).max() / scale < REL
+    nxt = np.array(jnp.argmax(lg_j[:, 0], -1))
+    assert np.array_equal(lg_t[:, 0].argmax(-1).numpy(), nxt)
+    cj = jcache(jcfg, caches, S, max_seq=S + DEC)
+    ct = cache_from_prefill(cfg, tcaches, S + DEC)
+    for t in range(DEC):
+        lj, cj = JM.decode_step(jcfg, jp, cj, jnp.asarray(nxt), jnp.int32(S + t))
+        lt, ct = M.decode_step(cfg, tp, ct, torch.from_numpy(nxt).long(), S + t)
+        assert np.abs(lt.numpy() - _np(lj)).max() / scale < REL
+        nxt = np.array(jnp.argmax(lj, -1))
+        assert np.array_equal(lt.argmax(-1).numpy(), nxt)
+
+
+@pytest.mark.parametrize("arch,S", [("olmoe-1b-7b", 1280), ("mixtral-8x7b", 1280),
+                                    ("h2o-danube-1.8b", 192)])
+def test_model_prefill_long_prompt_matches(arch, S):
+    """Prompts past the naive limit of 1024 tokens (olmoe, mixtral: G = 4),
+    and past the sliding window (h2o-danube smoke: window 64, G = 4, then
+    decode through the ring cache)."""
+    _prefill_and_decode_match(arch, B=2, S=S, DEC=2)
 
 
 def test_route_topk_ties_take_lower_index():
