@@ -17,17 +17,25 @@ Phases, in order (any failure exits non-zero with its traceback):
                tokens, decode 64, max_seq 3648): prefill through K4 at every
                layer, decode through K3 at spans up to 3648; its own launch
                counts;
-6. parity   -- the same engine at full width but 2 layers, f32: card
-               (kernels) against CPU (plain versions), at 32 tokens and at a
-               ragged 1536-token prompt.
+6. serve_ssm -- the server on full-width, full-depth Mamba2-370M (bf16,
+               seeded, the planner's b_a): 128 prompts of 200..1800 tokens,
+               decode 64, both schedulers; prefill through K5 at every layer,
+               decode through the plain recurrent step;
+7. parity   -- card (kernels) against CPU (plain versions), f32: OLMoE at
+               full width but 2 layers (32 tokens, a ragged 1536-token
+               prompt), Mamba2 at full width but 2 layers (600 and 300
+               tokens), and the Jamba smoke config (one interleave period,
+               lengths 100 and 77), which runs K1-K5 in one model.
 
 After each serve phase a fresh engine prefills the same prompts and runs a
 few decode ticks with the kernels' largest calls captured, and every kernel
 is held to its plain version on those inputs (the path's own shapes: the
-prefill capacity buffer, K4's micro-batch, a decode tick's FFN and K3).
-``--phases kernels,serve,serve_long,parity,profile`` adds a torch.profiler
-breakdown of that decode tick and of one prefill wave (not part of the
-default run).
+prefill capacity buffer, K4's and K5's micro-batch, a decode tick's FFN and
+K3).  Every server is deleted without a ``gc.collect()``, and
+``torch.cuda.memory_allocated()`` must fall back to what it was before the
+server was built.  ``--phases kernels,serve,serve_long,serve_ssm,parity,
+profile`` adds a torch.profiler breakdown of that decode tick and of one
+prefill wave (not part of the default run).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name and
 power limit, then ``{"ok": true, "device": {...}}``.  ``--phases`` runs a
@@ -37,7 +45,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import gc
 import json
 import os
 import subprocess
@@ -61,21 +68,38 @@ PEAK_BW = 3.35e12         # H100 SXM HBM3 bytes/s
 # the reference) must be exactly zero.
 TOL_F32 = 2e-5
 REL_BF16 = 0.02
+# K5 (the SSD scan): y in f32 within tests/test_kernels.py's 4 x TOL for
+# this kernel; y in bf16 per row as above; the f32 state within 1e-4 of its
+# (row, head) slice's largest value (the state update stays in f32).
+TOL_SSD_F32 = 8e-5
+REL_SSD_STATE = 1e-4
 REPLACES = {
     "expert_gate_up": "src/repro/kernels/expert_gemm.py:124",
     "grouped_matmul": "src/repro/kernels/expert_gemm.py:64",
     "decode_attention": "src/repro/kernels/decode_attention.py:77",
     "flash_attention": "src/repro/kernels/flash_attention.py:80",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:85",
 }
 SOURCE = {
     "expert_gate_up": "src/repro_torch/kernels/csrc/expert_gemm.cu",
     "grouped_matmul": "src/repro_torch/kernels/csrc/expert_gemm.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+}
+# the kernels each served path must launch
+PATH_KERNELS = {
+    "serve": ("expert_gate_up", "grouped_matmul", "decode_attention", "flash_attention"),
+    "serve_long": ("expert_gate_up", "grouped_matmul", "decode_attention",
+                   "flash_attention"),
+    "serve_ssm": ("ssd_scan",),
 }
 # the long-prompt path: 32 prompts even-spread over 1024..3584, decode 64
 # (max_seq 3648, within OLMoE's 4096 context), at the planner's b_a
 LONG_REQUESTS, LONG_MIN, LONG_MAX, LONG_DECODE = 32, 1024, 3584, 64
+# the SSM path: 128 prompts even-spread over 200..1800 on Mamba2-370M, decode
+# 64 (max_seq 1864, within its 2048-token training context)
+SSM_ARCH, SSM_REQUESTS, SSM_MIN, SSM_MAX, SSM_DECODE = "mamba2-370m", 128, 200, 1800, 64
 
 
 def emit(obj) -> None:
@@ -88,6 +112,41 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<ints..., type>`` of a mangled kernel template instantiation."""
+    import re
+
+    end = mangled.find("_kernelI") + len("_kernel")
+    if end < len("_kernel"):
+        return mangled[-60:]
+    name = mangled[:end]
+    for k in range(end - 1, 0, -1):             # the length-prefixed identifier
+        j = k
+        while j > 0 and mangled[j - 1].isdigit():
+            j -= 1
+        if any(int(mangled[i:k]) == end - k for i in range(j, k)):
+            name = mangled[k:end]
+            break
+    tmpl = mangled[end:]
+    args = re.findall(r"Li(\d+)E", tmpl) + (["bf16"] if "bfloat16" in tmpl else [])
+    return f"{name}<{','.join(args)}>"
+
+
+def ptxas_summary(log: str) -> list:
+    """Registers and spill bytes of each kernel instantiation, from
+    ``nvcc -Xptxas -v``'s log: [[function, registers, spill store bytes]]."""
+    out, fn, spill = [], None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn, spill = _kernel_name(line.split("'")[1]), 0
+        elif "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used" in line and "registers" in line and fn is not None:
+            out.append([fn, int(line.split("Used")[1].split()[0]), spill])
+            fn = None
+    return out
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -170,11 +229,15 @@ def sync_sites(fn):
     return sites
 
 
+RANGES = ("ssm_decode",)     # profiler ranges whose device time is read
+
+
 def profile_region(fn, top: int = 12):
     """Run ``fn`` under torch.profiler: device-busy ms (sum of kernel times
-    on the one stream), the kernels that took the most device time, and
-    every kernel's ms (``by_kernel``, not printed).  Returns (summary,
-    fn())."""
+    on the one stream), the kernels that took the most device time, every
+    kernel's ms (``by_kernel``, not printed) and, for each profiler range of
+    ``RANGES``, the device ms of the kernels launched inside it (``ranges``,
+    from the range's host-side event).  Returns (summary, fn())."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -183,20 +246,25 @@ def profile_region(fn, top: int = 12):
         torch.cuda.synchronize()
     from torch.autograd import DeviceType
 
-    rows = []
+    rows, ranges = [], {}
     for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) != DeviceType.CUDA:
-            continue                         # host-side op, not a kernel
         dev_us = getattr(evt, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "cuda_time_total", 0.0)
+        if evt.key in RANGES:                # a range: its host-side event sums
+            if getattr(evt, "device_type", None) == DeviceType.CPU:   # its kernels
+                ranges[evt.key] = dev_us / 1e3
+            continue                         # (the device-side one spans gaps too)
+        if getattr(evt, "device_type", None) != DeviceType.CUDA:
+            continue                         # host-side op, not a kernel
         if dev_us > 0:
             rows.append((dev_us / 1e3, evt.key, evt.count))
     rows.sort(reverse=True)
     return ({"device_busy_ms": sum(r[0] for r in rows),
              "top": [{"kernel": k[:80], "ms": ms, "calls": n}
                      for ms, k, n in rows[:top]],
-             "by_kernel": {k: ms for ms, k, _ in rows}}, out)
+             "by_kernel": {k: ms for ms, k, _ in rows},
+             "ranges": ranges}, out)
 
 
 # the work of one call of a kernel wrapper, to pick the largest call of a
@@ -208,6 +276,8 @@ WORK = {
         q.shape[0] * q.shape[1] ** 2 if lengths is None
         else int((lengths.long() ** 2).sum())),
     "decode_attention": lambda q, k, *a: q.shape[0] * k.shape[1],
+    "ssd_scan": lambda x, *a, lengths=None, **kw: (
+        x.shape[0] * x.shape[1] if lengths is None else int(lengths.long().sum())),
 }
 
 
@@ -547,7 +617,107 @@ def check_flash_on(name, q, k, v, window=0, lens=None):
     return row
 
 
-def phase_kernels(dev, plan, span: int, prompt_len: int, long_b_a: int):
+def ssm_lengths(n: int = SSM_REQUESTS):
+    return [SSM_MIN + ((SSM_MAX - SSM_MIN) * i) // (n - 1) for i in range(n)]
+
+
+def ssd_inputs(gen, Bt, S, nh, hp, ns, dtype, dev):
+    """x, B and C at scale 0.5, dt = softplus(normal) and A = -uniform(1, 16)
+    (Mamba2's A_log init): the decay reaches |cum| in the thousands over a
+    256-long chunk, as on the served path."""
+    x, B, C = [(torch.randn(s, generator=gen, device=dev) * 0.5).to(dtype)
+               for s in ((Bt, S, nh, hp), (Bt, S, ns), (Bt, S, ns))]
+    dt = torch.nn.functional.softplus(torch.randn((Bt, S, nh), generator=gen, device=dev))
+    A = -(1.0 + 15.0 * torch.rand((nh,), generator=gen, device=dev))
+    return x, B, C, dt, A
+
+
+def check_ssd(name, gen, Bt, S, nh, hp, ns, chunk, dtype, dev, lengths=None):
+    x, B, C, dt, A = ssd_inputs(gen, Bt, S, nh, hp, ns, dtype, dev)
+    lens = (None if lengths is None
+            else torch.tensor(lengths, device=dev, dtype=torch.int32))
+    return check_ssd_on(name, x, B, C, dt, A, chunk, lens)
+
+
+def ssd_work(Bt, S, nh, hp, ns, chunk, lengths, es):
+    """(bytes, operations) the SSD scan needs on these inputs: x, B, C and dt
+    of the live positions read once, y and the state written once; per chunk
+    of q live positions, q^2 ns for C B^T (its causal half, shared by the
+    heads) and per head q^2 hp for M x plus 4 q ns hp for C H and the state
+    update."""
+    live = [S] * Bt if lengths is None else [min(S, max(0, int(n))) for n in lengths]
+    n_live = sum(live)
+    nbytes = (n_live * (nh * hp + 2 * ns) * es + n_live * nh * 4 + nh * 4
+              + Bt * S * nh * hp * es + Bt * nh * ns * hp * 4)
+    flops = 0.0
+    for n in live:
+        for lo in range(0, n, chunk):
+            q = min(chunk, n - lo)
+            flops += q * q * ns + nh * (q * q * hp + 4.0 * q * ns * hp)
+    return nbytes, flops
+
+
+def check_ssd_on(name, x, B, C, dt, A, chunk, lens=None):
+    """K5 against its plain version on these inputs, timed: y (f32 within
+    TOL_SSD_F32, bf16 rows within REL_BF16 of their peak), every y row past
+    ``lens`` exactly zero, the f32 state per (row, head) slice within
+    REL_SSD_STATE of its peak.  No single PyTorch call computes the SSD
+    scan, so the library column is null."""
+    from repro_torch.kernels import ops, ref
+
+    Bt, S, nh, hp = x.shape
+    ns, dtype, dev = B.shape[-1], x.dtype, x.device
+
+    def kern():
+        return ops.ssd_scan(x, B, C, dt, A, chunk, lengths=lens)
+
+    def plain():
+        return ref.ssd_scan_ref(x, B, C, dt, A, chunk, lengths=lens)
+
+    (y, h), (y_ref, h_ref) = kern(), plain()
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        y_err = errors(y, y_ref)
+        y_ok = y_err[0] < TOL_SSD_F32
+        tol = {"abs": TOL_SSD_F32, "state_rel_per_slice": REL_SSD_STATE}
+    else:
+        y_err = errors(y, y_ref)
+        y_ok = y_err[1] < REL_BF16
+        tol = {"rel_per_row": REL_BF16, "state_rel_per_slice": REL_SSD_STATE}
+    d = (h - h_ref).abs().amax((-2, -1))
+    state_rel = float((d / h_ref.abs().amax((-2, -1)).clamp_min(
+        torch.finfo(torch.float32).tiny)).max())
+    live = [S] * Bt if lens is None else [int(n) for n in lens.tolist()]
+    zero_rows = all(int(torch.count_nonzero(y[b, n:])) == 0 for b, n in enumerate(live))
+    case = {"case": name, "B": Bt, "S": S, "nh": nh, "hp": hp, "ns": ns, "chunk": chunk,
+            "lengths": None if lens is None else [min(live), max(live)],
+            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": y_err[0],
+            "rel_err": y_err[1], "ref_peak": float(y_ref.float().abs().max()),
+            "state_rel_err": state_rel, "state_peak": float(h_ref.abs().max()),
+            "zero_rows_past_lengths": zero_rows, "tolerance": tol}
+    if not (y_ok and state_rel < REL_SSD_STATE and zero_rows):
+        emit(case)
+        raise AssertionError(f"{name}: K5 y error {y_err}, state {state_rel}, "
+                             f"zero rows {zero_rows} outside {tol}")
+    nbytes, flops = ssd_work(Bt, S, nh, hp, ns, chunk, None if lens is None else live,
+                             x.element_size())
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+    big = Bt * S * nh > 1 << 20
+    case.update({"ms": time_ms(kern, 5 if big else 20),
+                 "plain_ms": time_ms(plain, 2 if big else 5, 1),
+                 "library_ms": None,
+                 "library": "none: no single PyTorch call computes the SSD scan",
+                 "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+                 "gbytes": nbytes / 1e9})
+    emit(case)
+    return {"name": "ssd_scan", "case": name, "max_abs_err": y_err[0],
+            "rel_err": y_err[1], "state_rel_err": state_rel, "tolerance": tol,
+            "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
+def phase_kernels(dev, plan, span: int, prompt_len: int, long_b_a: int,
+                  ssm_b_a: int):
     """The serve phases' shapes: decode capacity min(b_e, B), prefill
     capacity next_pow2(max expert load) of a b_a x prompt_len micro-batch
     (the engine's probe), decode attention over b_a rows of a span-slot
@@ -601,14 +771,29 @@ def phase_kernels(dev, plan, span: int, prompt_len: int, long_b_a: int):
                             window=1024))
     rows.append(check_flash("olmoe-f32-S1536", gen, 2, 1536, 16, 16, 128, f32, dev,
                             lengths=[1536, 1100]))
+    # K5: the SSM path's heaviest prefill micro-batch (its b_a longest
+    # prompts, padded to the wave's 1800), the same in f32 at 4 rows, the
+    # Jamba/Mamba2 smoke shape (hp 32, ns 16, chunk 32), lengths of 1 and of
+    # exactly one chunk, and no lengths
+    lens = ssm_lengths()
+    rows.append(check_ssd("mamba2-ssm-prefill", gen, ssm_b_a, SSM_MAX, 32, 64, 128, 256,
+                          bf, dev, lengths=lens[-ssm_b_a:]))
+    rows.append(check_ssd("mamba2-ssm-prefill-f32", gen, 4, SSM_MAX, 32, 64, 128, 256,
+                          f32, dev, lengths=lens[-4:]))
+    for dtype in (f32, bf):
+        rows.append(check_ssd(f"smoke-hp32-ns16-{str(dtype)[6:]}", gen, 4, 100, 16, 32, 16,
+                              32, dtype, dev, lengths=[100, 77, 32, 1]))
+    rows.append(check_ssd("mamba2-len-1-256", gen, 3, 600, 32, 64, 128, 256, bf, dev,
+                          lengths=[1, 256, 600]))
+    rows.append(check_ssd("mamba2-no-lengths", gen, 2, 512, 32, 64, 128, 256, bf, dev))
     return rows
 
 
 # ---------------------------------------------------------------------------
 # Phase 4: full-width serving through the port's Server
 # ---------------------------------------------------------------------------
-def serve_setup(lens, decode_len: int):
-    """A served path on full OLMoE-1B-7B: the planner's plan on the H100
+def serve_setup(lens, decode_len: int, arch: str = "olmoe-1b-7b"):
+    """A served path on a full-size config: the planner's plan on the H100
     profile for these prompts, with b_e raised to B (one expert can take
     every token of a step, so no copy drops and both schedulers must give
     identical tokens)."""
@@ -616,7 +801,7 @@ def serve_setup(lens, decode_len: int):
     from repro_torch.core.hardware import H100_SXM_80GB
     from repro_torch.launch.serve import build_plan
 
-    cfg = get_config("olmoe-1b-7b")
+    cfg = get_config(arch)
     n = len(lens)
     args = argparse.Namespace(prompt_lens=lens, decode_len=decode_len,
                               scheduler="static", batch=n, requests=n, b_e=n)
@@ -627,27 +812,39 @@ def short_lengths(n: int = 64):
     return [64 + (192 * i) // (n - 1) for i in range(n)]
 
 
-def init_weights(dev):
-    """Full OLMoE-1B-7B in bf16, seeded, on the card (shared by both serve
-    phases)."""
+def init_weights(dev, arch: str = "olmoe-1b-7b"):
+    """A full-size config in bf16, seeded, on the card (OLMoE's weights are
+    shared by both of its serve phases)."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.serving.weights import tree_bytes
 
     t0 = time.perf_counter()
-    params = M.init_params(get_config("olmoe-1b-7b"), seed=0, device=dev)
+    params = M.init_params(get_config(arch), seed=0, device=dev)
     torch.cuda.synchronize()
-    emit({"phase": "weights", "init_s": time.perf_counter() - t0,
+    emit({"phase": "weights", "arch": arch, "init_s": time.perf_counter() - t0,
           "weights_gb": tree_bytes(params) / 1e9})
     return params
+
+
+def freed(phase: str, what: str, before: int) -> None:
+    """After ``del server`` alone (no ``gc.collect()``), the card's allocated
+    bytes must fall back to what they were before the server was built."""
+    now = torch.cuda.memory_allocated()
+    emit({"phase": phase, "freed": what, "allocated_before": before,
+          "allocated_after_del": now})
+    if now != before:
+        raise AssertionError(f"{phase}: {what} left {now - before} bytes allocated "
+                             f"after del")
 
 
 def serve_both(dev, cfg, params, plan, requests, decode_len: int, phase: str):
     """Serve ``requests`` through the port's ``Server`` under the static and
     then the continuous scheduler, the launch counts set to 0 just before
     each run and read just after.  Fails unless every request gets its
-    ``decode_len`` tokens, every kernel was launched, no routed copy
-    dropped and both schedulers give identical tokens."""
+    ``decode_len`` tokens, every kernel of the path (``PATH_KERNELS``) was
+    launched, no routed copy dropped, both schedulers give identical tokens
+    and each deleted server frees its cache by reference counting."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -656,16 +853,16 @@ def serve_both(dev, cfg, params, plan, requests, decode_len: int, phase: str):
     n_requests = len(requests)
     # warm-up pass (cuBLAS handles, allocator, kernel libraries) so both
     # timed schedulers run warm; its launches are not counted
+    before = torch.cuda.memory_allocated()
     warm = Server(cfg, params, plan, serve=ServeConfig(decode_len=2), device=dev)
     for r in requests[:2]:
         warm.submit(r)
     warm.run()
-    # a Server and its RequestHandles reference each other: collect the
-    # cycle so a finished server's KV cache is freed before the next one
     del warm
-    gc.collect()
+    freed(phase, "warm-up server", before)
     tokens, reports, counts = {}, {}, {}
     for sched in ("static", "continuous"):
+        before = torch.cuda.memory_allocated()
         server = Server(cfg, params, plan,
                         serve=ServeConfig(scheduler=sched, decode_len=decode_len),
                         device=dev)
@@ -691,19 +888,21 @@ def serve_both(dev, cfg, params, plan, requests, decode_len: int, phase: str):
               "decode_slot_steps": rep.decode_slot_steps,
               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
               "launches": counts[sched]})
-        if dev.type == "cuda" and not all(v > 0 for v in counts[sched].values()):
-            raise AssertionError(f"{sched}: a kernel was never launched: {counts[sched]}")
+        if dev.type == "cuda" and not all(counts[sched][k] > 0 for k in PATH_KERNELS[phase]):
+            raise AssertionError(f"{sched}: a kernel of the path was never launched: "
+                                 f"{counts[sched]}")
         if len(rep.request_results) != n_requests or any(
                 r.tokens.size != decode_len for r in rep.request_results):
             raise AssertionError(f"{sched}: wrong number of tokens served")
         if rep.expert_tokens_dropped != 0:
             raise AssertionError(f"{sched}: {rep.expert_tokens_dropped} copies dropped")
         del server
-        gc.collect()
-    same = all(np.array_equal(a, b)
-               for a, b in zip(tokens["static"], tokens["continuous"]))
-    if not same:
-        raise AssertionError("static and continuous schedulers gave different tokens")
+        freed(phase, f"{sched} server", before)
+    for i, (a, b) in enumerate(zip(tokens["static"], tokens["continuous"])):
+        if not np.array_equal(a, b):
+            step = int(np.flatnonzero(a != b)[0]) if a.shape == b.shape else -1
+            raise AssertionError(f"static and continuous schedulers gave different "
+                                 f"tokens: request {i}, first at step {step}")
     flat = np.concatenate(tokens["static"])
     if flat.min() < 0 or flat.max() >= cfg.vocab_size:
         raise AssertionError("token ids out of range")
@@ -719,6 +918,8 @@ def check_path_kernels(phase: str, calls) -> list:
         case = f"{phase}-{where}"
         if name == "grouped_expert_ffn":
             rows += check_ffn_on(case, *args, timing=True)[1]
+        elif name == "ssd_scan":
+            rows.append(check_ssd_on(case, *args, lens=kw.get("lengths")))
         elif name == "flash_attention":
             rows.append(check_flash_on(case, *args, window=kw.get("window", 0),
                                        lens=kw.get("lengths")))
@@ -727,6 +928,55 @@ def check_path_kernels(phase: str, calls) -> list:
         del args, kw
     emit({"phase": phase, "path_kernel_cases": rows})
     return rows
+
+
+# the kernel ops whose largest call each path captures, at prefill and decode
+PREFILL_CAPTURE = {"serve": ("grouped_expert_ffn", "flash_attention"),
+                   "serve_long": ("grouped_expert_ffn", "flash_attention"),
+                   "serve_ssm": ("ssd_scan",)}
+DECODE_CAPTURE = {"serve": ("grouped_expert_ffn", "decode_attention"),
+                  "serve_long": ("grouped_expert_ffn", "decode_attention"),
+                  "serve_ssm": ()}               # Mamba2's decode is plain PyTorch
+# device kernels by what issued them, first match wins: the port's own
+# kernels by name (K1/K2 share gemm_*_kernel), then library matrix products
+KERNEL_CLASSES = (("K5", ("ssd_scan_kernel",)), ("K4", ("flash_bf16", "flash_f32")),
+                  ("K3", ("decode_attn_kernel",)),
+                  ("K1+K2", ("gemm_bf16_kernel", "gemm_f32_kernel")),
+                  ("library GEMM (projections, LM head, einsums)",
+                   ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitK")))
+
+
+def kernel_shares(by_kernel: dict, busy: float) -> dict:
+    """Device ms and share of ``busy`` of each KERNEL_CLASSES class, and of
+    the rest (elementwise glue, copies, reductions)."""
+    out = {}
+    for name, ms in by_kernel.items():
+        cls = next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)),
+                   "other (elementwise, copies, reductions)")
+        out[cls] = out.get(cls, 0.0) + ms
+    return {c: {"ms": ms, "share_of_busy": ms / busy} for c, ms in out.items()}
+
+
+@contextlib.contextmanager
+def ssm_decode_range():
+    """Run every ``models.ssm.ssm_decode`` call inside a profiler range, so
+    that the device time of the plain recurrent step (its projections
+    included) can be read from the trace."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import ssm as ssm_mod
+
+    orig = ssm_mod.ssm_decode
+
+    def wrapped(*a, **kw):
+        with record_function("ssm_decode"):
+            return orig(*a, **kw)
+
+    ssm_mod.ssm_decode = wrapped
+    try:
+        yield
+    finally:
+        ssm_mod.ssm_decode = orig
 
 
 def profile_path(dev, phase, cfg, params, plan, requests, max_seq, reports,
@@ -751,7 +1001,7 @@ def profile_path(dev, phase, cfg, params, plan, requests, max_seq, reports,
     for i, r in enumerate(requests):
         prompts[i, :lengths[i]] = r.prompt
     sampler = BatchSampler.uniform(n, None)
-    with capture_calls(("grouped_expert_ffn", "flash_attention")) as pre:
+    with capture_calls(PREFILL_CAPTURE[phase]) as pre:
         lg = eng.prefill(prompts, lengths=lengths)
     tok0 = sampler.sample(lg)
 
@@ -762,7 +1012,7 @@ def profile_path(dev, phase, cfg, params, plan, requests, max_seq, reports,
             tok.cpu()
         return tok
 
-    with capture_calls(("grouped_expert_ffn", "decode_attention")) as dec:
+    with capture_calls(DECODE_CAPTURE[phase]) as dec:
         decode_ticks()                                      # warm
     wall = host_ms(decode_ticks) / steps
     lg2 = eng.decode_step(tok0, lengths)
@@ -773,26 +1023,29 @@ def profile_path(dev, phase, cfg, params, plan, requests, max_seq, reports,
           "wall_ms_per_tick": wall, "server_ms_per_tick": tick_ms})
     if profile:
         # device busy from the profiler; walls from unprofiled runs
-        prof, _ = profile_region(decode_ticks)
+        with ssm_decode_range():
+            prof, _ = profile_region(decode_ticks)
         busy = prof["device_busy_ms"] / steps
+        per_tick = {c: {"ms": v["ms"] / steps, "share_of_busy": v["share_of_busy"]}
+                    for c, v in kernel_shares(prof["by_kernel"], prof["device_busy_ms"]).items()}
         emit({"phase": "profile", "what": f"{phase} decode tick B={n}, per tick",
               "wall_ms": wall, "device_busy_ms": busy,
               "idle_share": 1.0 - busy / wall,
               "idle_share_vs_server": {s: 1.0 - busy / ms for s, ms in tick_ms.items()},
+              "by_class": per_tick,
+              "ranges_ms_per_tick": {k: v / steps for k, v in prof["ranges"].items()},
               "sync_sites": sync_sites(decode_ticks),
               "top_over_steps": prof["top"]})
         wall_p = host_ms(lambda: eng.prefill(prompts, lengths=lengths))
         prof, _ = profile_region(lambda: eng.prefill(prompts, lengths=lengths))
         busy = prof["device_busy_ms"]
-        k4 = sum(ms for k, ms in prof["by_kernel"].items() if "flash_" in k)
         emit({"phase": "profile", "what": f"{phase} prefill of the {n} prompts, one wave",
               "wall_ms": wall_p, "device_busy_ms": busy,
-              "idle_share": 1.0 - busy / wall_p, "k4_ms": k4,
-              "k4_share_of_busy": k4 / busy,
+              "idle_share": 1.0 - busy / wall_p,
+              "by_class": kernel_shares(prof["by_kernel"], busy),
               "server_prefill_ms": {s: rep.prefill_s * 1e3 for s, rep in reports.items()},
               "top": prof["top"]})
     del eng, lg, lg2
-    gc.collect()
     torch.cuda.empty_cache()
     calls = {("prefill", k): v for k, v in pre.items()}
     calls.update({("decode", k): v for k, v in dec.items()})
@@ -856,7 +1109,61 @@ def phase_serve_long(dev, params, profile=False):
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: full width, 2 layers, f32: card against CPU
+# Phase 6: Mamba2-370M through K5 at every prefill layer
+# ---------------------------------------------------------------------------
+def phase_serve_ssm(dev, profile=False):
+    """128 prompts of 200..1800 tokens, decode 64, on full-width, full-depth
+    Mamba2-370M (its own seeded bf16 weights) through the port's ``Server``
+    (both schedulers) at the planner's plan.  No prompt and not the wave's
+    longest is a multiple of the 256-position chunk, so K5 pads the last
+    chunk of every row.  K5's launches must equal layers x prefill
+    micro-batches (all 128 requests form one wave under both schedulers).
+    Then K5 on the inputs of its largest call on the path."""
+    from repro_torch.data.datasets import DatasetSpec, synthetic_requests
+    from repro_torch.serving.weights import tree_bytes
+
+    cfg, plan, lens, decode_len = serve_setup(ssm_lengths(), SSM_DECODE, SSM_ARCH)
+    n = len(lens)
+    max_seq = SSM_MAX + SSM_DECODE
+    before = torch.cuda.memory_allocated()
+    params = init_weights(dev, SSM_ARCH)
+    nh, ns, hp, di = cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_headdim, cfg.ssm_d_inner
+    slot = cfg.num_layers * (nh * ns * hp * 4 + (cfg.ssm_conv_width - 1) * (di + 2 * ns) * 2)
+    # reckoned before the first card run: about 40 KB of live activations a
+    # position in one layer's prefill, over a micro-batch padded to the wave
+    act = 40e3 * plan.b_a * SSM_MAX
+    reckoning = {"weights_gb": tree_bytes(params) / 1e9, "state_gb": n * slot / 1e9,
+                 "state_mb_per_slot": slot / 1e6, "prefill_activations_gb": act / 1e9,
+                 "prefill_state_out_gb": plan.b_a * nh * ns * hp * 4 / 1e9, "kv_gb": 0.0}
+    reckoning["total_gb"] = sum(v for k, v in reckoning.items() if k.endswith("_gb"))
+    emit({"phase": "serve_ssm", "arch": cfg.name, "requests": n,
+          "prompt_lens": [min(lens), max(lens)], "prompt_tokens": sum(lens),
+          "decode_len": decode_len, "max_seq": max_seq,
+          "plan": {"B": plan.B, "b_a": plan.b_a, "b_e": plan.b_e},
+          "memory_reckoning": reckoning})
+    requests = synthetic_requests(DatasetSpec("ssm", n, SSM_MAX, decode_len),
+                                  cfg.vocab_size, seed=0, prompt_lens=lens)
+    _, reports, counts = serve_both(dev, cfg, params, plan, requests, decode_len,
+                                    "serve_ssm")
+    emit({"phase": "serve_ssm", "reckoned_gb": reckoning["total_gb"],
+          "peak_gb_continuous": torch.cuda.max_memory_allocated() / 1e9})
+    want = cfg.num_layers * -(-n // plan.b_a)
+    for sched, c in counts.items():
+        emit({"phase": "serve_ssm", "scheduler": sched,
+              "k5_launches": c["ssd_scan"], "k5_expected": want})
+        if dev.type == "cuda" and (c["ssd_scan"] != want or want <= 0):
+            raise AssertionError(f"{sched}: K5 launched {c['ssd_scan']} times, "
+                                 f"expected {want}")
+    profile_path(dev, "serve_ssm", cfg, params, plan, requests, max_seq, reports,
+                 profile)
+    del params
+    freed("serve_ssm", "Mamba2 weights", before)
+    torch.cuda.empty_cache()
+    return counts["static"], reports
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: card against CPU, f32
 # ---------------------------------------------------------------------------
 def _to_cpu(tree):
     if isinstance(tree, dict):
@@ -866,55 +1173,89 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
-def phase_parity(dev):
-    """Card (kernels) against CPU (plain versions) at full width, 2 layers,
-    f32: 4 prompts of 32 tokens, then a 1536-token prompt (past the naive
-    limit of 1024) beside a ragged 1100-token one.  Logits within 1e-3 of
-    their scale over prefill and 3 decode steps, identical greedy tokens."""
+def parity_models():
+    """(config, its prompts (name, (B, S), lengths), the kernels its card
+    run must launch): OLMoE and Mamba2 at full width but 2 layers, and the
+    Jamba smoke config (one full interleave period: SSM, attention, MoE and
+    dense layers), where K1-K5 all run in one model."""
     import numpy as np
 
     from repro_torch.configs import get_config
+
+    return (
+        (replace(get_config("olmoe-1b-7b"), num_layers=2, dtype="float32"),
+         (("short", (4, 32), None), ("long", (2, 1536), np.array([1536, 1100]))),
+         ("expert_gate_up", "grouped_matmul", "decode_attention", "flash_attention")),
+        (replace(get_config(SSM_ARCH), num_layers=2, dtype="float32"),
+         (("mamba2-600-300", (2, 600), np.array([600, 300])),), ("ssd_scan",)),
+        (replace(get_config("jamba-1.5-large-398b", smoke=True), dtype="float32"),
+         (("jamba-smoke-100-77", (2, 100), np.array([100, 77])),),
+         ("expert_gate_up", "grouped_matmul", "decode_attention", "flash_attention",
+          "ssd_scan")),
+    )
+
+
+def phase_parity(dev):
+    """Card (kernels) against CPU (plain versions), f32, for each of
+    ``parity_models``: prefill of the prompts (ragged where lengths are
+    given) and 3 decode steps.  Logits within 1e-3 of their scale, identical
+    greedy tokens, and every kernel of the model launched on the card."""
+    import numpy as np
+
     from repro_torch.core.dag_builder import Plan
     from repro_torch.core.engine import ModuleBatchingEngine
+    from repro_torch.kernels import ops
     from repro_torch.models import model as M
 
-    cfg = replace(get_config("olmoe-1b-7b"), num_layers=2, dtype="float32")
-    params = M.init_params(cfg, seed=1, device=dev)
-    cpu_params = _to_cpu(params)
+    # PyTorch's CPU exp can be less accurate on its first multithreaded call
+    # in a process (7e-5 relative, seen on a CPU build of torch 2.13): warm it
+    torch.exp(torch.linspace(-10.0, 0.0, 1 << 20))
     rng = np.random.default_rng(1)
-    for name, shape, lengths in (("short", (4, 32), None),
-                                 ("long", (2, 1536), np.array([1536, 1100]))):
-        B, S = shape
-        prompts = rng.integers(0, cfg.vocab_size, shape)
-        pos = np.full(B, S) if lengths is None else lengths
-        plan = Plan(B=B, b_a=B, b_e=B, omega=0.0)
-        out = {}
-        for where, p in (("cuda", params), ("cpu", cpu_params)):
-            eng = ModuleBatchingEngine(cfg, p, plan, max_seq=S + 8, device=where)
-            t0 = time.perf_counter()
-            lg = [eng.prefill(prompts, lengths=lengths).float().cpu()]
-            toks = [lg[0].argmax(-1)]
-            for t in range(3):
-                lg.append(eng.decode_step(toks[-1], pos + t).float().cpu())
-                toks.append(lg[-1].argmax(-1))
-            out[where] = (lg, toks, time.perf_counter() - t0)
-            del eng
-        scale = float(out["cpu"][0][0].abs().max())
-        errs = [float((a - b).abs().max()) / scale
-                for a, b in zip(out["cuda"][0], out["cpu"][0])]
-        same = all(torch.equal(a, b) for a, b in zip(out["cuda"][1], out["cpu"][1]))
-        emit({"phase": "parity", "case": name, "B": B, "S": S,
-              "lengths": None if lengths is None else lengths.tolist(),
-              "rel_err_per_step": errs, "tolerance": 1e-3, "tokens_match": same,
-              "cpu_s": out["cpu"][2], "cuda_s": out["cuda"][2]})
-        if not (max(errs) < 1e-3 and same):
-            raise AssertionError(f"card vs CPU ({name}): errors {errs}, "
-                                 f"tokens match {same}")
+    for cfg, cases, kernels in parity_models():
+        params = M.init_params(cfg, seed=1, device=dev)
+        cpu_params = _to_cpu(params)
+        for name, shape, lengths in cases:
+            B, S = shape
+            prompts = rng.integers(0, cfg.vocab_size, shape)
+            pos = np.full(B, S) if lengths is None else lengths
+            plan = Plan(B=B, b_a=B, b_e=B, omega=0.0)
+            out = {}
+            for where, p in ((dev, params), ("cpu", cpu_params)):
+                ops.reset_launch_counts()
+                eng = ModuleBatchingEngine(cfg, p, plan, max_seq=S + 8, device=where)
+                t0 = time.perf_counter()
+                lg = [eng.prefill(prompts, lengths=lengths).float().cpu()]
+                toks = [lg[0].argmax(-1)]
+                for t in range(3):
+                    lg.append(eng.decode_step(toks[-1], pos + t).float().cpu())
+                    toks.append(lg[-1].argmax(-1))
+                key = "cpu" if where == "cpu" else "card"
+                out[key] = (lg, toks, time.perf_counter() - t0, ops.launch_counts())
+                del eng
+            scale = float(out["cpu"][0][0].abs().max())
+            errs = [float((a - b).abs().max()) / scale
+                    for a, b in zip(out["card"][0], out["cpu"][0])]
+            same = all(torch.equal(a, b) for a, b in zip(out["card"][1], out["cpu"][1]))
+            launched = {k: out["card"][3][k] for k in kernels}
+            emit({"phase": "parity", "arch": cfg.name, "layers": cfg.num_layers,
+                  "case": name, "B": B, "S": S,
+                  "lengths": None if lengths is None else lengths.tolist(),
+                  "rel_err_per_step": errs, "tolerance": 1e-3, "tokens_match": same,
+                  "card_launches": launched, "cpu_launches": sum(out["cpu"][3].values()),
+                  "cpu_s": out["cpu"][2], "cuda_s": out["card"][2]})
+            if not (max(errs) < 1e-3 and same):
+                raise AssertionError(f"card vs CPU ({cfg.name}, {name}): errors {errs}, "
+                                     f"tokens match {same}")
+            if dev.type == "cuda" and not all(v > 0 for v in launched.values()):
+                raise AssertionError(f"card vs CPU ({cfg.name}, {name}): a kernel was "
+                                     f"never launched on the card: {launched}")
+        del params, cpu_params
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="kernels,serve,serve_long,parity")
+    ap.add_argument("--phases", default="kernels,serve,serve_long,serve_ssm,parity")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -926,19 +1267,28 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     name, line = torch.cuda.get_device_name(0), gpu_line()
     emit({"phase": "device", "name": name, "nvidia_smi": line,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     t_build = build.build_all()
     emit({"phase": "build", "seconds": t_build,
-          "ptxas": {n: build.ptxas_log(n).strip().splitlines()[-6:]
-                    for n in build.SOURCES}})
+          "ptxas": {n: ptxas_summary(build.ptxas_log(n)) for n in build.SOURCES}})
     rows = []
+    # cuBLAS keeps one workspace per handle and stream for the process: make
+    # it before any server is built, so that freeing a server is exact
+    for dt in (torch.bfloat16, torch.float32):
+        a = torch.ones((8, 8), dtype=dt, device=dev)
+        torch.addmm(a[0], a, a) @ a
+        torch.bmm(a[None], a[None])
+    torch.cuda.synchronize()
     if "kernels" in phases:
         _, plan, lens, decode_len = serve_setup(short_lengths(), 32)
         long_plan = serve_setup(long_lengths(), LONG_DECODE)[1]
+        ssm_plan = serve_setup(ssm_lengths(), SSM_DECODE, SSM_ARCH)[1]
         rows = phase_kernels(dev, plan, span=max(lens) + decode_len,
-                             prompt_len=max(lens), long_b_a=long_plan.b_a)
+                             prompt_len=max(lens), long_b_a=long_plan.b_a,
+                             ssm_b_a=ssm_plan.b_a)
         emit({"kernel_cases": rows})
     launches = {}                           # per path: counts from its static run
     if phases & {"serve", "serve_long"}:
@@ -951,13 +1301,15 @@ def main() -> int:
                                                          profile="profile" in phases)
         del params
         torch.cuda.empty_cache()
+    if "serve_ssm" in phases:
+        launches["serve_ssm"], _ = phase_serve_ssm(dev, profile="profile" in phases)
     if "parity" in phases:
         phase_parity(dev)
     if rows:
         # one entry per kernel, at the shape of the path it serves most:
-        # K1-K3 the short serve path, K4 the long one; "launches" is that
-        # path's count, "launches_by_path" every path's
-        home = {"flash_attention": "serve_long"}
+        # K1-K3 the short serve path, K4 the long one, K5 the SSM one;
+        # "launches" is that path's count, "launches_by_path" every path's
+        home = {"flash_attention": "serve_long", "ssd_scan": "serve_ssm"}
         seen, line_rows = set(), []
         for r in rows:
             if r["name"] in seen:
@@ -975,6 +1327,8 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "case": r["case"],
             })
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    if rows:
         emit({"kernels": line_rows})
     print(line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

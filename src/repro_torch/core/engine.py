@@ -6,6 +6,9 @@ inference by launching per-module batched work:
 * the attention module consumes micro-batches of ``b_a`` sequences; its
   decode mechanism is the hand-written decode-attention kernel, reading and
   writing the preallocated KV cache in place;
+* an SSM (Mamba2) layer decodes all rows in one plain recurrent step that
+  writes its ``h`` and ``conv`` state rows in place; its prefill runs the
+  hand-written SSD chunked-scan kernel;
 * the sparse-MoE stage runs as ONE grouped dispatch per MoE layer: routed
   tokens are gathered on device into an ``(E, C, D)`` capacity buffer
   (``C`` = the plan's per-expert budget ``b_e``), pushed through the
@@ -21,13 +24,13 @@ power of two over the micro-batch's measured max expert load (one planned
 host read per layer and micro-batch), so no routed copy drops at prefill.
 Only positions below each row's length are routed there.
 
-Cache ownership: the engine owns the per-layer KV buffers; decode, prefill
-insertion and eviction write them in place and their ``data_ptr()``s never
-change.  Callers never keep a reference across a tick.
+Cache ownership: the engine owns the per-layer KV buffers and SSM states;
+decode, prefill insertion and eviction write them in place and their
+``data_ptr()``s never change.  Callers never keep a reference across a tick.
 
-Out of this slice, each raising ``NotImplementedError`` that names its
+Out of the port so far, each raising ``NotImplementedError`` that names its
 slice: the fused decode chunk (a CUDA graph), host attention (omega > 0),
-weight streaming, paged KV, SSM layers, and the loop expert path.
+weight streaming, paged KV, and the loop expert path.
 """
 from __future__ import annotations
 
@@ -43,7 +46,8 @@ from repro_torch.core.dag_builder import Plan
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.blocks import SSM_SLICE, ffn_apply, init_layer_cache, layer_forward
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.blocks import ffn_apply, init_layer_cache, layer_forward, mixer_forward
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.model import head
 from repro_torch.serving.kvcache import evict_rows, insert_prefill_rows
@@ -107,8 +111,6 @@ class ModuleBatchingEngine:
             )
         self.store = store
         self.schema = store.schema                  # [(kind, ffn)] per layer
-        if any(kind != "attn" for kind, _ in self.schema):
-            raise NotImplementedError(SSM_SLICE)
         self.cache: Optional[List[Dict[str, torch.Tensor]]] = None
         self.stats = EngineStats()
         # device-side counters, folded into `stats` by sync_stats(): drops and
@@ -208,7 +210,8 @@ class ModuleBatchingEngine:
             for j, ((lo, hi), x) in enumerate(zip(spans, xs)):
                 ln = None if lengths is None else lengths[lo:hi]
                 if ffn == "moe":
-                    x, entry = self._prefill_moe_layer(p, x, positions, ln, live[j])
+                    x, entry = self._prefill_moe_layer(kind, p, x, positions, ln,
+                                                       live[j])
                 else:
                     x, entry, _ = layer_forward(cfg, kind, ffn, p, x, positions, ln)
                 insert_prefill_rows(cfg, self.cache[li], entry, rows[lo:hi])
@@ -230,8 +233,9 @@ class ModuleBatchingEngine:
         mask = np.arange(S)[None, :] < lens[:, None]
         return self._tensor(np.flatnonzero(mask))
 
-    def _prefill_moe_layer(self, p, x, positions, lengths, live=None):
-        """A grouped-prefill MoE layer as two launches: mixer + route, then
+    def _prefill_moe_layer(self, kind, p, x, positions, lengths, live=None):
+        """A grouped-prefill MoE layer as two launches: mixer (attention or
+        SSM, by ``kind``) + route, then
         the grouped FFN at capacity ``next_pow2(max expert load)`` -- zero
         drops, and the same output as any capacity >= that load.
 
@@ -240,8 +244,7 @@ class ModuleBatchingEngine:
         zeros they would all route to the same experts and inflate the
         capacity probe.  Their MoE output is zero."""
         cfg = self.cfg
-        h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        y, entry = attn_mod.attn_forward(cfg, p["attn"], h, positions, lengths)
+        y, entry = mixer_forward(cfg, kind, p, x, positions, lengths)
         x = x + y
         B, S, D = x.shape
         xt = rms_norm(x, p["norm2"], cfg.norm_eps).reshape(-1, D)
@@ -279,7 +282,10 @@ class ModuleBatchingEngine:
         x = self.store.base["embed"][tokens]
         for li, (kind, ffn) in enumerate(self.schema):
             p = self.store.acquire(li)
-            x = x + self._attention_stage(li, p, x, pos, row0)
+            if kind == "attn":
+                x = x + self._attention_stage(li, p, x, pos, row0)
+            else:
+                x = x + self._ssm_stage(li, p, x, row0)
             if ffn == "moe":
                 x = x + self._expert_stage_grouped(li, p, x)
             elif cfg.d_ff > 0 and "ffn" in p:
@@ -306,6 +312,17 @@ class ModuleBatchingEngine:
             self.stats.attn_microbatches += 1
             self.stats.device_attn_tokens += hi - lo
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+    def _ssm_stage(self, li, p, x, row0: int = 0) -> torch.Tensor:
+        """SSM decode over rows ``[row0, row0 + n)`` in one launch set (not
+        micro-batched: the state is O(1) per row); ``ssm_decode`` writes the
+        rows of the layer's ``h`` and ``conv`` buffers in place."""
+        cfg = self.cfg
+        rows = slice(row0, row0 + x.shape[0])
+        state = {"h": self.cache[li]["h"][rows], "conv": self.cache[li]["conv"][rows]}
+        h = rms_norm(x[:, None, :], p["norm1"], cfg.norm_eps)
+        y, _ = ssm_mod.ssm_decode(cfg, p["ssm"], h, state)
+        return y[:, 0]
 
     def _expert_stage_grouped(self, li, p, x) -> torch.Tensor:
         """One grouped-dispatch launch for the whole MoE stage; the kept,

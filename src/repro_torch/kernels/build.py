@@ -18,13 +18,14 @@ from pathlib import Path
 from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("expert_gemm", "decode_attention", "flash_attention")
+SOURCES = ("expert_gemm", "decode_attention", "flash_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # launches per kernel wrapper: each wrapper adds one where it launches
 LAUNCHES: Dict[str, int] = {"expert_gate_up": 0, "grouped_matmul": 0,
-                            "decode_attention": 0, "flash_attention": 0}
+                            "decode_attention": 0, "flash_attention": 0,
+                            "ssd_scan": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _c_int, _ptr = ctypes.c_int, ctypes.c_void_p
@@ -33,10 +34,12 @@ _ARGTYPES = {
     "repro_grouped_matmul": [_ptr, _ptr, _ptr, _ptr] + [_c_int] * 5 + [_ptr],
     "repro_decode_attention": [_ptr] * 5 + [_c_int] * 6 + [_ptr],
     "repro_flash_attention": [_ptr] * 5 + [_c_int] * 7 + [_ptr],
+    "repro_ssd_scan": [_ptr] * 8 + [_c_int] * 7 + [_ptr],
 }
 _SYMBOLS = {"expert_gemm": ("repro_expert_gate_up", "repro_grouped_matmul"),
             "decode_attention": ("repro_decode_attention",),
-            "flash_attention": ("repro_flash_attention",)}
+            "flash_attention": ("repro_flash_attention",),
+            "ssd_scan": ("repro_ssd_scan",)}
 
 
 def reset_launch_counts() -> None:

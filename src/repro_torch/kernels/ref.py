@@ -106,3 +106,87 @@ def flash_attention_ref(
         live = kpos[None, :] < lens[:, None]                     # (B, S)
         out = out * live[:, :, None, None]
     return out.to(q.dtype)
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,        # (B, S, nh, hp)
+    B: torch.Tensor,        # (B, S, ns), shared by every head
+    C: torch.Tensor,        # (B, S, ns)
+    dt: torch.Tensor,       # (B, S, nh) f32
+    A: torch.Tensor,        # (nh,) f32, negative
+    chunk: int,
+    lengths: Optional[torch.Tensor] = None,   # (B,) int: valid prefix per row
+):
+    """Mamba2 SSD chunked scan.  Returns (y (B, S, nh, hp) in x's dtype,
+    final state (B, nh, ns, hp) f32).
+
+    The twin of the JAX package's ``models.ssm.ssd_scan`` / ``_chunk_math``:
+    a Python loop over chunks of ``chunk`` positions, all in f32, the
+    intra-chunk decay ``L = exp(cum_i - cum_j)`` masked to j <= i before the
+    exp, and the state carried in f32 from chunk to chunk.  One difference:
+    ``cum`` (the prefix sums of ``dt * A`` inside a chunk) is summed in f64
+    and each difference rounded to f32, so that the exponent keeps f32
+    precision where |cum| reaches the thousands (the reference's f32 prefix
+    sums lose about 1e-4 of it over a 256-long chunk); the kernel does the
+    same, so the two agree to f32 rounding at any chunk length.
+
+    Positions at or past ``lengths[b]`` (and the pad of a last chunk shorter
+    than ``chunk``) are padding: their x, B, C and dt count as zero, so the
+    state is the state at ``lengths[b]``, and their y rows are zeros.
+    Chunks wholly past ``lengths[b]`` leave the state as it is (exactly
+    what skipping them, as the kernel does, gives)."""
+    Bt, S, nh, hp = x.shape
+    dev = x.device
+    pos = torch.arange(S, device=dev)
+    if lengths is None:
+        lens = torch.full((Bt,), S, device=dev, dtype=torch.long)
+    else:
+        lens = torch.as_tensor(lengths, device=dev).reshape(-1).expand(Bt).long()
+        lens = lens.clamp(0, S)
+    # rows in groups so that a (rows, Q, Q, nh) f32 intermediate stays near 1 GB
+    g = max(1, (1 << 28) // max(1, chunk * chunk * nh))
+    ys, hs = [], []
+    for lo in range(0, Bt, g):
+        hi = min(Bt, lo + g)
+        y, h = _ssd_rows(x[lo:hi], B[lo:hi], C[lo:hi], dt[lo:hi], A, chunk,
+                         lens[lo:hi], pos)
+        ys.append(y)
+        hs.append(h)
+    y = ys[0] if len(ys) == 1 else torch.cat(ys)
+    h = hs[0] if len(hs) == 1 else torch.cat(hs)
+    return y.to(x.dtype), h
+
+
+def _ssd_rows(x, B, C, dt, A, chunk: int, lens, pos):
+    Bt, S, nh, hp = x.shape
+    ns = B.shape[-1]
+    live = pos[None, :] < lens[:, None]                          # (Bt, S)
+    xf = x.float() * live[..., None, None]
+    Bf = B.float() * live[..., None]
+    Cf = C.float() * live[..., None]
+    dtf = dt.float() * live[..., None]
+    Af = A.float()
+    n_chunks = -(-int(lens.max()) // chunk) if Bt else 0
+    y = torch.zeros((Bt, S, nh, hp), dtype=torch.float32, device=x.device)
+    H = torch.zeros((Bt, nh, ns, hp), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        lo, hi = c * chunk, min(S, (c + 1) * chunk)
+        q = hi - lo
+        x_c, B_c, C_c, dt_c = xf[:, lo:hi], Bf[:, lo:hi], Cf[:, lo:hi], dtf[:, lo:hi]
+        cum = torch.cumsum((dt_c * Af).double(), dim=1)         # (Bt, q, nh) f64
+        causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+        diff = (cum[:, :, None, :] - cum[:, None, :, :]).float()  # (Bt, i, j, nh)
+        diff = torch.where(causal[None, :, :, None], diff,
+                           torch.full_like(diff, NEG_INF))          # mask BEFORE exp
+        L = torch.exp(diff)
+        CB = torch.einsum("bis,bjs->bij", C_c, B_c)
+        M = CB[..., None] * L * dt_c[:, None, :, :]
+        del diff, L
+        y_intra = torch.einsum("bijn,bjnp->binp", M, x_c)
+        del M
+        y_inter = torch.einsum("bis,bnsp->binp", C_c, H) * torch.exp(cum.float())[..., None]
+        w = torch.exp((cum[:, -1:] - cum).float()) * dt_c       # (Bt, q, nh)
+        S_c = torch.einsum("bjs,bjnp->bnsp", B_c, x_c * w[..., None])
+        H = H * torch.exp(cum[:, -1].float())[:, :, None, None] + S_c
+        y[:, lo:hi] = y_intra + y_inter
+    return y * live[..., None, None], H

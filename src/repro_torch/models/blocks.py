@@ -1,6 +1,4 @@
-"""Layer blocks: attention + (dense FFN | MoE) with pre-norm residuals.
-
-SSM and hybrid layers are the SSM slice of the port."""
+"""Layer blocks: (attention | SSM) + (dense FFN | MoE) with pre-norm residuals."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -12,14 +10,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import dense_init, rms_norm
-
-SSM_SLICE = "SSM and hybrid layers are the SSM slice of the port"
-
-
-def _require_attn(kind: str) -> None:
-    if kind != "attn":
-        raise NotImplementedError(SSM_SLICE)
 
 
 # ---------------------------------------------------------------------------
@@ -46,11 +38,13 @@ def ffn_apply(p, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def init_layer_params(cfg: ModelConfig, kind: str, ffn_kind: str,
                       gen: torch.Generator) -> Dict:
-    _require_attn(kind)
     dt = torch_dtype(cfg.dtype)
     dev = gen.device
-    p: Dict = {"norm1": torch.ones((cfg.d_model,), dtype=dt, device=dev),
-               "attn": attn_mod.init_attn_params(cfg, gen)}
+    p: Dict = {"norm1": torch.ones((cfg.d_model,), dtype=dt, device=dev)}
+    if kind == "attn":
+        p["attn"] = attn_mod.init_attn_params(cfg, gen)
+    else:
+        p["ssm"] = ssm_mod.init_ssm_params(cfg, gen)
     if ffn_kind == "moe":
         p["norm2"] = torch.ones((cfg.d_model,), dtype=dt, device=dev)
         p["moe"] = moe_mod.init_moe_params(cfg, gen)
@@ -87,17 +81,29 @@ def layer_forward(
 ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """Full-sequence layer.  Returns (x, cache_entry, aux_loss); ``lengths``
     (B,) masks right-padded positions of a ragged batch."""
-    _require_attn(kind)
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    y, cache = attn_mod.attn_forward(cfg, p["attn"], h, positions, lengths)
+    y, cache = mixer_forward(cfg, kind, p, x, positions, lengths)
     x, aux = ffn_stage(cfg, ffn_kind, p, x + y)
     return x, cache, aux
 
 
+def mixer_forward(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor,
+                  positions: Optional[torch.Tensor] = None,
+                  lengths: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+    """The sequence-mixer half of a layer, without its residual: norm1 ->
+    attention (cache ``{"k", "v"}``) or SSM (cache ``{"h", "conv"}``)."""
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if kind == "attn":
+        return attn_mod.attn_forward(cfg, p["attn"], h, positions, lengths)
+    return ssm_mod.ssm_forward(cfg, p["ssm"], h, lengths)
+
+
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                      device="cuda") -> Dict[str, torch.Tensor]:
-    _require_attn(kind)
-    return attn_mod.init_kv_cache(cfg, batch, max_seq, device=device)
+    """A zeroed KV cache (attention) or SSM state (SSM) on ``device``
+    (``cuda`` by default; raises without CUDA)."""
+    if kind == "attn":
+        return attn_mod.init_kv_cache(cfg, batch, max_seq, device=device)
+    return ssm_mod.init_ssm_state(cfg, batch, device=device)
 
 
 def layer_decode(
@@ -109,8 +115,12 @@ def layer_decode(
     cache: Dict,
     pos,
 ) -> Tuple[torch.Tensor, Dict]:
-    _require_attn(kind)
+    """One decode step of a layer; the cache (KV or SSM state) is written in
+    place."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    y, cache = attn_mod.attn_decode(cfg, p["attn"], h, cache, pos)
+    if kind == "attn":
+        y, cache = attn_mod.attn_decode(cfg, p["attn"], h, cache, pos)
+    else:
+        y, cache = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache)
     x, _ = ffn_stage(cfg, ffn_kind, p, x + y)
     return x, cache

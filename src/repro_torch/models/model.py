@@ -1,4 +1,5 @@
-"""Decoder-only model for the attention + (MoE | dense) architectures.
+"""Decoder-only model: attention, SSM (Mamba2) and hybrid layer stacks, each
+layer followed by an MoE, a dense FFN or nothing.
 
 Parameters are a dict of tensors with the layers as a per-layer list
 (``params["layers"][i]``), not stacked over layer groups: PyTorch runs
@@ -79,7 +80,8 @@ def prefill(
     """Returns (last-token logits (B, 1, V), caches).
 
     Cache entries are the raw per-layer ``{"k", "v"}`` of shape (B, S, K, hd)
-    with rope applied (``serving.kvcache`` aligns them into decode buffers).
+    with rope applied (``serving.kvcache`` aligns them into decode buffers),
+    or an SSM layer's ``{"h", "conv"}`` state at each row's length.
     ``lengths`` (B,) makes a ragged right-padded batch exact.  The MoE runs
     the dense-combine reference."""
     B, S = tokens.shape
@@ -97,8 +99,9 @@ def prefill(
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> List:
-    """Zeroed decode caches of every layer on ``device`` (``cuda`` by
-    default, like ``init_params``; raises without CUDA)."""
+    """Zeroed decode caches of every layer (KV buffers or SSM states) on
+    ``device`` (``cuda`` by default, like ``init_params``; raises without
+    CUDA)."""
     dev = resolve_device(device)
     return [init_layer_cache(cfg, kind, batch, max_seq, dev)
             for kind, _ in layer_schema(cfg)]

@@ -1,0 +1,165 @@
+"""Mamba2 (SSD -- state-space duality) block [arXiv:2405.21060].
+
+Full-sequence processing runs the chunked SSD scan (``kernels.ops.ssd_scan``:
+kernel K5 on a CUDA tensor, its plain version on the CPU): quadratic
+attention-like work inside chunks of ``cfg.ssm_chunk`` positions and a
+linear recurrence of the f32 state across them.  Decode is the O(1)
+recurrent step, plain PyTorch (the JAX package computes it outside any
+Pallas kernel too).
+
+The chunk is always ``cfg.ssm_chunk``.  The reference scan takes
+``Q = min(chunk, S)`` and needs ``S % Q == 0``, so it accepts a right-padded
+wave only when its longest prompt is at most one chunk or a multiple of
+one.  Here the scan pads the last chunk itself: positions at or past
+``S`` (and past ``lengths[b]``) are padding with ``dt = 0``, so the
+recurrence neither decays nor absorbs input there.  At every ``S`` the
+reference accepts, the valid outputs and the final state are what it gives,
+up to the order of float sums; and a row's result does not depend on the
+wave it was prefilled in, which keeps the two schedulers' tokens equal.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.kernels import ops
+from repro_torch.models.layers import dense_init, rms_norm
+
+
+def init_ssm_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    """The JAX package's shapes and scales; ``A_log``, ``D`` and
+    ``dt_bias`` stay f32."""
+    d, di, ns, nh = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads
+    w = cfg.ssm_conv_width
+    dt = torch_dtype(cfg.dtype)
+    dev = gen.device
+    ch = di + 2 * ns
+    a = torch.rand((nh,), generator=gen, dtype=torch.float32, device=dev)
+    return {
+        "wz": dense_init((d, di), gen, dtype=dt),
+        "wx": dense_init((d, di), gen, dtype=dt),
+        "wB": dense_init((d, ns), gen, dtype=dt),
+        "wC": dense_init((d, ns), gen, dtype=dt),
+        "wdt": dense_init((d, nh), gen, dtype=dt),
+        "dt_bias": torch.zeros((nh,), dtype=torch.float32, device=dev),
+        "A_log": torch.log(1.0 + 15.0 * a),            # uniform(1, 16)
+        "D": torch.ones((nh,), dtype=torch.float32, device=dev),
+        "conv_w": dense_init((w, ch), gen, in_dim=w, dtype=dt),
+        "conv_b": torch.zeros((ch,), dtype=dt, device=dev),
+        "norm_scale": torch.ones((di,), dtype=dt, device=dev),
+        "out_proj": dense_init((di, d), gen, dtype=dt),
+    }
+
+
+def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv as a sum of W shifted products (the reference's
+    arithmetic; no cuDNN).  u: (B, S, C); w: (W, C)."""
+    W, S = w.shape[0], u.shape[1]
+    up = F.pad(u, (0, 0, W - 1, 0))
+    out = up[:, 0:S] * w[0]
+    for i in range(1, W):
+        out = out + up[:, i:i + S] * w[i]
+    return out + b
+
+
+def _proj_inputs(cfg: ModelConfig, p, x: torch.Tensor):
+    z = x @ p["wz"]
+    xs = x @ p["wx"]
+    Bc = x @ p["wB"]
+    Cc = x @ p["wC"]
+    dt = F.softplus((x @ p["wdt"]).float() + p["dt_bias"])   # (B, S, nh) f32
+    return z, xs, Bc, Cc, dt
+
+
+def ssm_forward(
+    cfg: ModelConfig,
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence Mamba2 block.  Returns (y, {"h", "conv"}) for prefill
+    caching.
+
+    ``lengths`` (B,) handles right-padded ragged batches: ``dt`` is zeroed
+    at padded positions, so the cached state is the state at each row's
+    own length, and the conv tail is gathered at each row's own last
+    ``W - 1`` positions (zeros where a row is shorter than that, the
+    reference's left zero padding)."""
+    B, S, _ = x.shape
+    di, ns, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
+    z, xs, Bc, Cc, dt = _proj_inputs(cfg, p, x)
+    u = torch.cat([xs, Bc, Cc], dim=-1)
+    W = cfg.ssm_conv_width - 1
+    pos = torch.arange(S, device=x.device)
+    lens = (torch.full((B,), S, device=x.device, dtype=torch.long) if lengths is None
+            else torch.as_tensor(lengths, device=x.device).reshape(B).long())
+    if lengths is not None:
+        dt = dt * (pos[None, :] < lens[:, None])[..., None]
+    tail_pos = lens[:, None] - W + torch.arange(W, device=x.device)[None, :]  # (B, W)
+    conv_tail = torch.gather(
+        u, 1, tail_pos.clamp_min(0)[..., None].expand(B, W, u.shape[-1])
+    ) * (tail_pos >= 0)[..., None].to(u.dtype)
+    u = F.silu(_causal_conv(u, p["conv_w"], p["conv_b"]))
+    xs, Bc, Cc = torch.split(u, [di, ns, ns], dim=-1)
+    xh = xs.reshape(B, S, nh, hp)
+    A = -torch.exp(p["A_log"])
+    y, H = ops.ssd_scan(xh.contiguous(), Bc.contiguous(), Cc.contiguous(),
+                        dt.contiguous(), A.contiguous(), cfg.ssm_chunk,
+                        lengths=lengths)
+    y = y + (p["D"][:, None] * xh.float()).to(y.dtype)
+    y = y.reshape(B, S, di)
+    y = rms_norm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+    return out, {"h": H, "conv": conv_tail}
+
+
+def init_ssm_state(cfg: ModelConfig, batch: int, dtype=None,
+                   device="cuda") -> Dict[str, torch.Tensor]:
+    """Zeroed f32 state ``h`` (batch, nh, ns, hp) and conv tail (batch,
+    W - 1, d_inner + 2 ns) on ``device`` (``cuda`` by default; raises
+    without CUDA)."""
+    device = resolve_device(device)
+    dtype = dtype or torch_dtype(cfg.dtype)
+    di, ns, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
+    return {
+        "h": torch.zeros((batch, nh, ns, hp), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, di + 2 * ns),
+                            dtype=dtype, device=device),
+    }
+
+
+def ssm_decode(
+    cfg: ModelConfig,
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,                       # (B, 1, D)
+    state: Dict[str, torch.Tensor],        # written in place
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """O(1) decode step: the recurrent SSM update.  ``state``'s ``h`` and
+    ``conv`` are written IN PLACE (views of the engine's cache rows stay
+    its rows).  Returns (y (B, 1, D), state) -- the same tensors."""
+    B = x.shape[0]
+    di, ns, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
+    z, xs, Bc, Cc, dt = _proj_inputs(cfg, p, x)                 # (B, 1, .)
+    u_t = torch.cat([xs, Bc, Cc], dim=-1)                        # (B, 1, ch)
+    win = torch.cat([state["conv"], u_t], dim=1)                 # (B, W, ch)
+    conv_out = torch.einsum("bwc,wc->bc", win.float(), p["conv_w"].float())
+    conv_out = F.silu(conv_out + p["conv_b"].float())
+    xs, Bc, Cc = torch.split(conv_out.to(x.dtype), [di, ns, ns], dim=-1)
+    xh = xs.reshape(B, nh, hp).float()
+    dt1 = dt[:, 0]                                               # (B, nh)
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dt1 * A)                                      # (B, nh)
+    h = state["h"] * dA[:, :, None, None] + (
+        Bc.float()[:, None, :, None] * (xh * dt1[..., None])[:, :, None, :])
+    y = torch.einsum("bs,bnsp->bnp", Cc.float(), h)
+    y = y + p["D"][:, None] * xh
+    y = y.reshape(B, 1, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+    state["h"].copy_(h)
+    state["conv"].copy_(win[:, 1:])
+    return out, state

@@ -1,10 +1,10 @@
 """KV-cache conversion and slot management for contiguous decode buffers.
 
-Prefill returns raw per-layer K/V; decode runs on preallocated (possibly
-ring-buffer) caches that the engine owns and writes IN PLACE -- their
-``data_ptr()`` never changes across decode ticks, insertions and
-evictions.  Sliding-window ring alignment: absolute position p lives in slot
-``p % span``.
+Prefill returns raw per-layer K/V (or an SSM layer's ``{"h", "conv"}``
+state); decode runs on preallocated (possibly ring-buffer) caches that the
+engine owns and writes IN PLACE -- their ``data_ptr()`` never changes across
+decode ticks, insertions and evictions.  Sliding-window ring alignment:
+absolute position p lives in slot ``p % span``.
 """
 from __future__ import annotations
 
@@ -40,10 +40,13 @@ def aligned_kv(
 
 def cache_from_prefill(cfg: ModelConfig, caches: List[Dict], max_seq: int) -> List[Dict]:
     """Convert raw prefill caches into decode-ready buffers of span
-    ``kv_span(cfg, max_seq)``."""
+    ``kv_span(cfg, max_seq)``; SSM states pass through."""
     span = kv_span(cfg, max_seq)
     out = []
     for c in caches:
+        if "h" in c:
+            out.append(c)
+            continue
         nk, nv = aligned_kv(cfg, c["k"], c["v"], span)
         out.append({"k": nk, "v": nv})
     return out
@@ -61,8 +64,14 @@ def insert_prefill_rows(
 ) -> Dict[str, torch.Tensor]:
     """Write ONE layer's raw prefill ``entry`` into batch rows ``rows`` of
     its decode buffer, in place.  Each newcomer's FULL row is overwritten
-    (KV beyond its prompt is zeroed), so nothing of an evicted sequence
-    survives slot recycling."""
+    (KV beyond its prompt is zeroed; an SSM layer's ``h`` and ``conv`` rows
+    are replaced), so nothing of an evicted sequence survives slot
+    recycling."""
+    if "h" in layer_cache:
+        idx = _rows(rows, layer_cache["h"].device)
+        for key in ("h", "conv"):
+            layer_cache[key].index_copy_(0, idx, entry[key])
+        return layer_cache
     span = layer_cache["k"].shape[1]
     nk, nv = aligned_kv(cfg, entry["k"], entry["v"], span)
     idx = _rows(rows, layer_cache["k"].device)

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import heapq
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterator, List, Optional
@@ -246,12 +247,17 @@ class RequestHandle:
     """A submitted request's live view: status, the token stream as it is
     produced, and the timing marks the metrics derive from.  Pass
     ``on_token=`` to ``Server.submit`` for a per-token callback, or iterate
-    ``handle.stream()``, which drives ``Server.step()``."""
+    ``handle.stream()``, which drives ``Server.step()``.
+
+    The handle holds its ``Server`` by a weak reference: the server lists
+    its handles, so a strong one would make a cycle that keeps the engine's
+    cache alive after ``del server`` until the cycle collector runs.  A
+    finished handle keeps its tokens and ``result()`` without the server."""
 
     def __init__(self, server: "Server", index: int, request: Request,
                  prompt: np.ndarray, decode_len: int,
                  on_token: Optional[Callable] = None) -> None:
-        self._server = server
+        self._server = weakref.ref(server)
         self.index = index
         self.request = request
         self.prompt = prompt              # truncated to max_prompt_len
@@ -284,8 +290,14 @@ class RequestHandle:
                 sent += 1
             if self.finished:
                 return
-            self._server._wait_for_arrival()
-            self._server.step()
+            server = self._server()
+            if server is None:
+                raise RuntimeError(
+                    f"request {self.index} is {self.status} and its Server "
+                    f"is gone: keep the Server alive until it finishes")
+            server._wait_for_arrival()
+            server.step()
+            del server
 
     def result(self) -> RequestResult:
         assert self.finished, f"request {self.index} is {self.status}"

@@ -13,14 +13,14 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 
-def assert_close(got, want):
+def assert_close(got, want, tol_f32=2e-5):
     """f32: within 2e-5 absolute (tests/test_kernels.py's TOL), on outputs of
     order 0.1.  bf16: every row of the last axis within 0.02 of that row's
     largest reference value (one bf16 rounding flip is at most 2**-7 of it;
     an all-zero reference row must be matched exactly)."""
     d = (got.float() - want.float()).abs()
     if want.dtype == torch.float32:
-        assert d.max() < 2e-5, float(d.max())
+        assert d.max() < tol_f32, float(d.max())
     else:
         peak = want.float().abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
         rel = (d.amax(-1) / peak).max()
@@ -103,6 +103,65 @@ def test_cuda_flash_attention_poisoned_keys(cuda):
     k2 = torch.where(dead, torch.full_like(k, 1e4), k)
     v2 = torch.where(dead, torch.full_like(v, 1e4), v)
     assert torch.equal(ops.flash_attention(q, k2, v2, lengths=lens), base)
+
+
+def _ssd_inputs(cuda, Bt, S, nh, hp, ns, dtype):
+    """tests/test_kernels.py's SSD inputs: x, B, C at scale 0.5,
+    dt = softplus(normal), A = -exp(0.3 normal)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, B, C = [(torch.randn(s, generator=g, device=cuda) * 0.5).to(dtype)
+               for s in ((Bt, S, nh, hp), (Bt, S, ns), (Bt, S, ns))]
+    dt = torch.nn.functional.softplus(torch.randn((Bt, S, nh), generator=g, device=cuda))
+    A = -torch.exp(torch.randn((nh,), generator=g, device=cuda) * 0.3)
+    return x, B, C, dt, A
+
+
+def assert_state_close(got, want):
+    """The f32 state: each (row, head) slice within 1e-4 of its largest
+    reference value (the state update stays in f32)."""
+    d = (got - want).abs().amax((-2, -1))
+    peak = want.abs().amax((-2, -1)).clamp_min(torch.finfo(torch.float32).tiny)
+    assert float((d / peak).max()) < 1e-4, float((d / peak).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bt,S,nh,hp,ns,chunk,lengths", [
+    (2, 256, 4, 32, 16, 64, None),                 # tests/test_kernels.py's shape
+    (2, 128, 8, 32, 16, 32, [128, 1]),             # the smoke configs' chunk, length 1
+    (3, 300, 4, 64, 128, 256, [300, 256, 1]),      # S % chunk != 0, one whole chunk
+    (2, 200, 2, 64, 64, 128, [77, 200]),
+])
+def test_cuda_ssd_scan_matches_plain(cuda, dtype, Bt, S, nh, hp, ns, chunk, lengths):
+    """K5 against its plain version: y in f32 within 8e-5 absolute
+    (tests/test_kernels.py's 4 x TOL for this kernel), bf16 rows within 0.02
+    of their peak; rows past lengths exactly zero; the f32 state."""
+    x, B, C, dt, A = _ssd_inputs(cuda, Bt, S, nh, hp, ns, dtype)
+    lens = None if lengths is None else torch.tensor(lengths, device=cuda,
+                                                     dtype=torch.int32)
+    y, h = ops.ssd_scan(x, B, C, dt, A, chunk, lengths=lens)
+    y_ref, h_ref = ref.ssd_scan_ref(x, B, C, dt, A, chunk, lengths=lens)
+    assert y.dtype == x.dtype and h.dtype == torch.float32
+    assert_close(y, y_ref, tol_f32=8e-5)
+    assert_state_close(h, h_ref)
+    for b, n in enumerate(lengths or []):
+        assert torch.count_nonzero(y[b, n:]) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_poisoned_padding(cuda):
+    """x, B and C past lengths[b] set to 1e4 change no valid row and not the
+    state."""
+    Bt, S, nh, hp, ns, chunk = 3, 300, 4, 64, 128, 256
+    x, B, C, dt, A = _ssd_inputs(cuda, Bt, S, nh, hp, ns, torch.bfloat16)
+    lens = torch.tensor([300, 100, 7], device=cuda, dtype=torch.int32)
+    y, h = ops.ssd_scan(x, B, C, dt, A, chunk, lengths=lens)
+    dead = torch.arange(S, device=cuda)[None, :] >= lens[:, None]
+    x2 = torch.where(dead[..., None, None], torch.full_like(x, 1e4), x)
+    B2 = torch.where(dead[..., None], torch.full_like(B, 1e4), B)
+    C2 = torch.where(dead[..., None], torch.full_like(C, 1e4), C)
+    y2, h2 = ops.ssd_scan(x2, B2, C2, dt, A, chunk, lengths=lens)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
 
 
 @pytest.mark.cuda

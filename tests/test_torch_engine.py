@@ -32,7 +32,8 @@ def _setup(arch):
     return jcfg, cfg, jp, tp, toks
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b", "mamba2-370m",
+                                  "jamba-1.5-large-398b"])
 def test_engine_logits_match_reference_engine(arch):
     jcfg, cfg, jp, tp, toks = _setup(arch)
     kw = dict(B=B, b_a=2, b_e=B, omega=0.0)
@@ -56,7 +57,8 @@ def test_engine_logits_match_reference_engine(arch):
     assert te.stats.expert_tokens == je.stats.expert_tokens
 
 
-@pytest.mark.parametrize("arch,b_e", [("olmoe-1b-7b", 2), ("mixtral-8x7b", 3)])
+@pytest.mark.parametrize("arch,b_e", [("olmoe-1b-7b", 2), ("mixtral-8x7b", 3),
+                                      ("jamba-1.5-large-398b", 2)])
 def test_engine_ragged_generate_tokens_and_counters_match(arch, b_e):
     """Ragged lengths, a capacity that drops copies: tokens, per-layer drops
     and the per-expert load histogram equal the JAX engine's exactly."""
@@ -155,6 +157,21 @@ def test_cache_tensors_are_written_in_place():
     te.prefill_slots(toks[:2, :8], [1, 4])
     assert [(c["k"].data_ptr(), c["v"].data_ptr()) for c in te.cache] == ptrs
     assert torch.count_nonzero(te.cache[0]["k"][1, 8:]) == 0   # row overwritten
+    # the hybrid's SSM state (h, conv) and KV buffers, the same way
+    _, cfg, _, tp, toks = _setup("jamba-1.5-large-398b")
+    te = ModuleBatchingEngine(cfg, tp, Plan(B=B, b_a=2, b_e=B, omega=0.0),
+                              max_seq=S + DEC, device="cpu")
+    te.init_cache(B)
+    ptrs = [tuple(t.data_ptr() for t in c.values()) for c in te.cache]
+    assert {tuple(c) for c in te.cache} == {("h", "conv"), ("k", "v")}
+    nxt = te.prefill_slots(toks, np.arange(B)).argmax(-1)
+    for t in range(3):
+        nxt = te.decode_step(nxt, S + t).argmax(-1)
+    te.evict_slots([1, 4])
+    assert torch.count_nonzero(te.cache[0]["h"][[1, 4]]) == 0      # evicted rows
+    te.prefill_slots(toks[:2, :8], [1, 4])
+    assert torch.count_nonzero(te.cache[0]["h"][1]) > 0            # re-prefilled
+    assert [tuple(t.data_ptr() for t in c.values()) for c in te.cache] == ptrs
 
 
 def test_default_device_is_cuda_and_never_falls_back():

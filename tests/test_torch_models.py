@@ -195,7 +195,8 @@ def test_grouped_dispatch_matches(capacity):
         assert np.abs(yl[0].numpy() - yt.numpy()).max() < TOL
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b", "mamba2-370m",
+                                  "jamba-1.5-large-398b"])
 def test_model_prefill_and_decode_match(arch):
     jcfg, cfg, jp, tp = _params(arch)
     B, S, DEC = 4, 12, 4

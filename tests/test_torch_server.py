@@ -45,9 +45,22 @@ def _serve(server, requests):
     return server.run()
 
 
-@pytest.mark.parametrize("scheduler", ["static", "continuous"])
-def test_server_matches_jax_server(scheduler):
-    jcfg, cfg, jp, tp, prompts = _setup()
+# mamba2: every wave the JAX server pads must be one its ssd_scan accepts
+# (longest prompt <= the 32-position smoke chunk or a multiple of it)
+SSM_LENS = [12, 32, 64, 5, 30, 64, 9]
+
+
+@pytest.mark.parametrize("arch,scheduler", [
+    pytest.param("olmoe-1b-7b", "static", id="static"),
+    pytest.param("olmoe-1b-7b", "continuous", id="continuous"),
+    pytest.param("mamba2-370m", "static", id="mamba2-370m-static"),
+    pytest.param("mamba2-370m", "continuous", id="mamba2-370m-continuous"),
+])
+def test_server_matches_jax_server(arch, scheduler):
+    jcfg, cfg, jp, tp, prompts = _setup(arch)
+    if arch == "mamba2-370m":
+        rng = np.random.default_rng(7)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in SSM_LENS]
     kw = dict(B=3, b_a=2, b_e=3, omega=0.0)          # b_e = B: no drops
     jrep = _serve(JServer(jcfg, jp, JPlan(**kw),
                           serve=JServeConfig(scheduler=scheduler, decode_len=4)),
@@ -66,6 +79,37 @@ def test_server_matches_jax_server(scheduler):
     assert trep.admission_deferrals == jrep.admission_deferrals
     assert trep.expert_tokens_dropped == jrep.expert_tokens_dropped == 0
     assert np.array_equal(trep.expert_load, jrep.expert_load)
+
+
+def test_finished_server_frees_its_cache_without_gc():
+    """A handle holds its Server weakly: after ``run()``, ``del server``
+    alone (the cycle collector off) frees the engine's cache, and a
+    finished handle still gives its tokens and ``result()``; an unfinished
+    handle whose server is gone raises from ``stream()``."""
+    import gc
+    import weakref
+
+    _, cfg, _, tp, prompts = _setup()
+    plan = Plan(B=3, b_a=2, b_e=3, omega=0.0)
+    gc.collect()
+    gc.disable()
+    try:
+        server = Server(cfg, tp, plan, serve=ServeConfig(decode_len=4), device="cpu")
+        handles = [server.submit(Request(p, d)) for p, d in zip(prompts, DECS)]
+        server.run()
+        cache = weakref.ref(server._engine.cache[0]["k"])
+        del server
+        assert cache() is None
+        assert all(h.finished for h in handles)
+        assert handles[0].result().tokens.tolist() == handles[0].tokens
+        assert list(handles[1].stream()) == handles[1].tokens
+        server = Server(cfg, tp, plan, serve=ServeConfig(decode_len=4), device="cpu")
+        queued = server.submit(Request(prompts[0], 4))
+        del server
+        with pytest.raises(RuntimeError, match="Server is gone"):
+            next(queued.stream())
+    finally:
+        gc.enable()
 
 
 def test_continuous_admission_deferrals_match():
