@@ -136,17 +136,22 @@ def _kernel_name(mangled: str) -> str:
 
 def ptxas_summary(log: str) -> list:
     """Registers and spill bytes of each kernel instantiation, from
-    ``nvcc -Xptxas -v``'s log: [[function, registers, spill store bytes]]."""
-    out, fn, spill = [], None, 0
+    ``nvcc -Xptxas -v``'s log: [[function, registers, spill store bytes]],
+    then ptxas's performance warnings (a serialised wgmma chain, an ignored
+    setmaxnreg) as [function, warning code]."""
+    out, warn, fn, spill = [], [], None, 0
     for line in log.splitlines():
-        if "Compiling entry function" in line:
+        if "Potential Performance Loss" in line:
+            code = line.split("(")[1].split(")")[0] if "(" in line else "?"
+            warn.append([_kernel_name(line.split("'")[1]) if "'" in line else "?", code])
+        elif "Compiling entry function" in line:
             fn, spill = _kernel_name(line.split("'")[1]), 0
         elif "spill stores" in line:
             spill = int(line.split("bytes spill stores")[0].split(",")[-1])
         elif "Used" in line and "registers" in line and fn is not None:
             out.append([fn, int(line.split("Used")[1].split()[0]), spill])
             fn = None
-    return out
+    return out + [["warning"] + w for w in warn]
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -206,6 +211,18 @@ def host_ms(fn) -> float:
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn`` (a kernel wrapper) spends before
+    it returns, over ``calls`` calls queued without a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def sync_sites(fn):
@@ -364,7 +381,7 @@ def check_ffn(name, gen, E, C, D, F, dtype, dev, counts=None, timing=False):
 def check_ffn_on(name, x, wg, wu, wd, counts=None, timing=False):
     """K1, K2 and the grouped FFN against their plain versions on these
     inputs; with ``timing``, the K1 and K2 rows of the kernels line."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import expert_gemm, ops, ref
 
     E, C, D = x.shape
     F, dtype = wg.shape[-1], x.dtype
@@ -397,6 +414,16 @@ def check_ffn_on(name, x, wg, wu, wd, counts=None, timing=False):
         if not within(err, tol):
             raise AssertionError(f"{name}: {key} error {err} outside {tol}")
     if not timing:
+        if x.is_cuda and expert_gemm.grouped_matmul_design(dtype, E, F, D) == "wgmma":
+            # K2's two designs on the same inputs, in turns
+            def k2():
+                return ops.grouped_matmul(h_ref, wd, counts)
+
+            def k2_prev():
+                return expert_gemm.grouped_matmul_prev(h_ref, wd, counts)
+
+            emit({"case": name, "k2_ms": time_ms(k2), "k2_prev_ms": time_ms(k2_prev),
+                  "k2_ms_again": time_ms(k2)})
         return case, None
     es = x.element_size()
     n_live = int(counts.sum()) if counts is not None else E * C
@@ -414,6 +441,7 @@ def check_ffn_on(name, x, wg, wu, wd, counts=None, timing=False):
     rows = []
     big = E * C > 1 << 18                     # the long path's prefill buffer
     iters, plain_iters = (5, 2) if big else (20, 20)
+    k2_design = expert_gemm.grouped_matmul_design(dtype, E, F, D)
     for kname, kern, plain, lib, nbytes, flops, err in (
         ("expert_gate_up", lambda: ops.expert_gate_up(x, wg, wu, counts),
          lambda: by_experts(ref.expert_gate_up_ref, x, wg, wu, counts=counts),
@@ -424,12 +452,25 @@ def check_ffn_on(name, x, wg, wu, wd, counts=None, timing=False):
          errs["grouped_matmul"]),
     ):
         b_ms, b_by = bound(nbytes, flops, peak)
-        rows.append({
-            "name": kname, "case": name, "max_abs_err": err[0],
-            "rel_err": err[1], "tolerance": tol,
-            "ms": time_ms(kern, iters), "plain_ms": time_ms(plain, plain_iters, 1),
-            "library_ms": time_ms(lib, iters), "bound_ms": b_ms, "bound_by": b_by,
-        })
+        row = {"name": kname, "case": name, "max_abs_err": err[0],
+               "rel_err": err[1], "tolerance": tol}
+        if kname == "grouped_matmul":
+            row["design"] = k2_design
+        row.update({"ms": time_ms(kern, iters),
+                    "plain_ms": time_ms(plain, plain_iters, 1),
+                    "library_ms": time_ms(lib, iters), "bound_ms": b_ms, "bound_by": b_by})
+        if kname == "grouped_matmul" and k2_design == "wgmma" and x.is_cuda:
+            # the first design on the same inputs, timed in turns with the new
+            # one; the wrappers' host cost a call where the kernel is short
+            def prev():
+                return expert_gemm.grouped_matmul_prev(h_ref, wd, counts)
+
+            row["prev_ms"] = time_ms(prev, iters)
+            row["ms_again"] = time_ms(kern, iters)
+            if not big:
+                row["host_us"] = host_us(kern)
+                row["prev_host_us"] = host_us(prev)
+        rows.append(row)
     emit({"case": name, "timing": rows})
     return case, rows
 
@@ -534,11 +575,13 @@ def check_flash_on(name, q, k, v, window=0, lens=None):
     """K4 against its plain version (and timed) on these inputs; with
     ``lens``, rows past them must be zeros and keys past them set to 1e4
     must change nothing."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
     B, S, H, hd = q.shape
     K, dtype, dev = k.shape[2], q.dtype, q.device
     lengths = None if lens is None else [int(n) for n in lens.tolist()]
+    design = fa.flash_attention_design(dtype, hd)
 
     def kern():
         return ops.flash_attention(q, k, v, window=window, lengths=lens)
@@ -565,7 +608,7 @@ def check_flash_on(name, q, k, v, window=0, lens=None):
             "max_abs_err": err[0], "rel_err": err[1],
             "ref_peak": float(want.float().abs().max()),
             "zero_rows_past_lengths": zero_rows, "poisoned_diff": poisoned_diff,
-            "tolerance": tol}
+            "tolerance": tol, "design": design}
     if dtype == torch.bfloat16:
         # the size of the reference's own bf16 rounding of the probabilities
         twin = naive_bf16_probs(q, k, v, window, live[0])
@@ -608,12 +651,20 @@ def check_flash_on(name, q, k, v, window=0, lens=None):
                      lambda: torch.nn.functional.scaled_dot_product_attention(
                          qt, kt, vt, is_causal=True, enable_gqa=H != K), iters),
                  "bound_ms": b_ms, "bound_by": b_by})
+    if design == "wgmma" and q.is_cuda:
+        # the first design on the same inputs, timed in turns with the new one
+        case["prev_ms"] = time_ms(lambda: fa.flash_attention_prev(
+            q, k, v, window=window, lengths=lens), iters)
+        case["ms_again"] = time_ms(kern, iters)
     case["tflops"] = flops / case["ms"] / 1e9
     emit(case)
     row = {"name": "flash_attention", "case": name, "max_abs_err": err[0],
-           "rel_err": err[1], "tolerance": tol, "ms": case["ms"],
+           "rel_err": err[1], "tolerance": tol, "design": design, "ms": case["ms"],
            "plain_ms": case["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": case["library_ms"]}
+    for key in ("prev_ms", "ms_again"):
+        if key in case:
+            row[key] = case[key]
     return row
 
 
@@ -748,6 +799,9 @@ def phase_kernels(dev, plan, span: int, prompt_len: int, long_b_a: int,
               torch.clamp(counts, max=8))
     check_ffn("olmoe-ragged-C", gen, E, 100, D, F, bf, dev)
     check_ffn("ragged-N-f32", gen, 3, 70, 256, 200, f32, dev)
+    # D 100, F 60: rows of 200 and 120 bytes, which TMA cannot address, so
+    # K2 takes its first (wmma) design
+    check_ffn("unaligned-K-N-bf16", gen, 3, 70, 100, 60, bf, dev)
     check_ffn("mixtral-expert", gen, 8, 64, 4096, 14336, bf, dev)
     rows.append(check_attention("olmoe-decode", gen, plan.b_a, 16, 16, 128, span,
                                 bf, dev, timing=True))
@@ -891,6 +945,10 @@ def serve_both(dev, cfg, params, plan, requests, decode_len: int, phase: str):
         if dev.type == "cuda" and not all(counts[sched][k] > 0 for k in PATH_KERNELS[phase]):
             raise AssertionError(f"{sched}: a kernel of the path was never launched: "
                                  f"{counts[sched]}")
+        if dev.type == "cuda" and any(counts[sched][k] != counts[sched][f"{k}_wgmma"]
+                                      for k in ("grouped_matmul", "flash_attention")):
+            raise AssertionError(f"{sched}: a K2 or K4 launch of the path did not take "
+                                 f"the wgmma design: {counts[sched]}")
         if len(rep.request_results) != n_requests or any(
                 r.tokens.size != decode_len for r in rep.request_results):
             raise AssertionError(f"{sched}: wrong number of tokens served")
@@ -938,10 +996,14 @@ DECODE_CAPTURE = {"serve": ("grouped_expert_ffn", "decode_attention"),
                   "serve_long": ("grouped_expert_ffn", "decode_attention"),
                   "serve_ssm": ()}               # Mamba2's decode is plain PyTorch
 # device kernels by what issued them, first match wins: the port's own
-# kernels by name (K1/K2 share gemm_*_kernel), then library matrix products
-KERNEL_CLASSES = (("K5", ("ssd_scan_kernel",)), ("K4", ("flash_bf16", "flash_f32")),
+# kernels by name (K1 is gemm_*_kernel<true>, K2 gemm_wgmma_kernel or
+# gemm_*_kernel<false>), then library matrix products
+KERNEL_CLASSES = (("K5", ("ssd_scan_kernel",)),
+                  ("K4", ("flash_wgmma_kernel", "flash_bf16_kernel", "flash_f32_kernel")),
                   ("K3", ("decode_attn_kernel",)),
-                  ("K1+K2", ("gemm_bf16_kernel", "gemm_f32_kernel")),
+                  ("K1", ("gemm_bf16_kernel<true>", "gemm_f32_kernel<true>")),
+                  ("K2", ("gemm_wgmma_kernel", "gemm_bf16_kernel<false>",
+                          "gemm_f32_kernel<false>")),
                   ("library GEMM (projections, LM head, einsums)",
                    ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitK")))
 
@@ -1326,6 +1388,7 @@ def main() -> int:
                 "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "case": r["case"],
+                "design": r.get("design"), "prev_ms": r.get("prev_ms"),
             })
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     if rows:

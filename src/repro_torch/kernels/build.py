@@ -23,8 +23,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # launches per kernel wrapper: each wrapper adds one where it launches
+# (``grouped_matmul`` and ``flash_attention`` count every launch of K2 and
+# K4, the ``_wgmma`` names those of their wgmma designs, the ``_prev`` names
+# first designs launched only as a yardstick)
 LAUNCHES: Dict[str, int] = {"expert_gate_up": 0, "grouped_matmul": 0,
+                            "grouped_matmul_wgmma": 0, "grouped_matmul_prev": 0,
                             "decode_attention": 0, "flash_attention": 0,
+                            "flash_attention_wgmma": 0, "flash_attention_prev": 0,
                             "ssd_scan": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -32,13 +37,16 @@ _c_int, _ptr = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = {
     "repro_expert_gate_up": [_ptr, _ptr, _ptr, _ptr, _ptr] + [_c_int] * 5 + [_ptr],
     "repro_grouped_matmul": [_ptr, _ptr, _ptr, _ptr] + [_c_int] * 5 + [_ptr],
+    "repro_grouped_matmul_wgmma": [_ptr, _ptr, _ptr, _ptr] + [_c_int] * 4 + [_ptr],
     "repro_decode_attention": [_ptr] * 5 + [_c_int] * 6 + [_ptr],
     "repro_flash_attention": [_ptr] * 5 + [_c_int] * 7 + [_ptr],
+    "repro_flash_attention_wgmma": [_ptr] * 5 + [_c_int] * 6 + [_ptr],
     "repro_ssd_scan": [_ptr] * 8 + [_c_int] * 7 + [_ptr],
 }
-_SYMBOLS = {"expert_gemm": ("repro_expert_gate_up", "repro_grouped_matmul"),
+_SYMBOLS = {"expert_gemm": ("repro_expert_gate_up", "repro_grouped_matmul",
+                            "repro_grouped_matmul_wgmma"),
             "decode_attention": ("repro_decode_attention",),
-            "flash_attention": ("repro_flash_attention",),
+            "flash_attention": ("repro_flash_attention", "repro_flash_attention_wgmma"),
             "ssd_scan": ("repro_ssd_scan",)}
 
 
@@ -67,9 +75,14 @@ def nvcc_path() -> str:
 
 
 def _digest(name: str) -> str:
+    """Hash of the flags, source ``name`` and every shared header, so that a
+    changed header rebuilds the libraries that include it."""
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return h.hexdigest()[:16]
 
 

@@ -4,6 +4,10 @@
   TPU's fused ``expert_ffn`` kernel, rounded to x's dtype.
 * ``grouped_matmul`` (K2) -- (E, C, K) @ (E, K, N), the TPU's
   ``grouped_matmul`` kernel and the down projection of the expert FFN.
+  Three designs, chosen by dtype and shape alone (``grouped_matmul_design``):
+  ``wgmma`` (bf16, K and N multiples of 8: TMA-fed warp-specialised wgmma,
+  every served shape), ``wmma`` (bf16 shapes TMA cannot address) and
+  ``simt`` (f32, exact to f32).
 
 Both take optional per-expert routed counts ``counts`` (E,) int32: rows
 ``c >= counts[e]`` are written as zeros and their weight tiles never read.
@@ -20,6 +24,18 @@ import torch
 from repro_torch.kernels import build, ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
+WGMMA_MAX_E = 1024            # experts gemm_wgmma_kernel's tile list holds
+
+
+def grouped_matmul_design(dtype: torch.dtype, E: int, K: int, N: int) -> str:
+    """The K2 design a CUDA call of these inputs launches: ``wgmma`` where
+    TMA can address both operands (bf16, 16-byte row strides), ``wmma`` for
+    other bf16 shapes, ``simt`` for f32."""
+    if dtype == torch.float32:
+        return "simt"
+    if K % 8 == 0 and N % 8 == 0 and E <= WGMMA_MAX_E:
+        return "wgmma"
+    return "wmma"
 
 
 def _check_cuda(name: str, tensors, counts: Optional[torch.Tensor]) -> None:
@@ -85,10 +101,37 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     _check_cuda("grouped_matmul", (x, w), counts)
     out = torch.empty((E, C, N), dtype=x.dtype, device=x.device)
     lib = build.library("expert_gemm")
-    err = lib.repro_grouped_matmul(
+    if grouped_matmul_design(x.dtype, E, K, N) == "wgmma":
+        err = lib.repro_grouped_matmul_wgmma(
+            build.ptr(x), build.ptr(w), build.ptr(out), build.ptr(counts),
+            E, C, K, N, build.stream_of(x),
+        )
+        build.check(err, "grouped_matmul")
+        build.LAUNCHES["grouped_matmul_wgmma"] += 1
+    else:
+        err = lib.repro_grouped_matmul(
+            build.ptr(x), build.ptr(w), build.ptr(out), build.ptr(counts),
+            E, C, K, N, int(x.dtype == torch.bfloat16), build.stream_of(x),
+        )
+        build.check(err, "grouped_matmul")
+    build.LAUNCHES["grouped_matmul"] += 1
+    return out
+
+
+def grouped_matmul_prev(x: torch.Tensor, w: torch.Tensor,
+                        counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The first design (``wmma`` in bf16) on any CUDA inputs: a yardstick
+    for timing the ``wgmma`` design beside it.  No served path calls it."""
+    E, C, K = x.shape
+    N = w.shape[-1]
+    if x.device.type != "cuda":
+        raise ValueError("grouped_matmul_prev: CUDA tensors only")
+    _check_cuda("grouped_matmul_prev", (x, w), counts)
+    out = torch.empty((E, C, N), dtype=x.dtype, device=x.device)
+    err = build.library("expert_gemm").repro_grouped_matmul(
         build.ptr(x), build.ptr(w), build.ptr(out), build.ptr(counts),
         E, C, K, N, int(x.dtype == torch.bfloat16), build.stream_of(x),
     )
-    build.check(err, "grouped_matmul")
-    build.LAUNCHES["grouped_matmul"] += 1
+    build.check(err, "grouped_matmul_prev")
+    build.LAUNCHES["grouped_matmul_prev"] += 1
     return out

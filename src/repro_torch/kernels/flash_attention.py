@@ -4,7 +4,11 @@ The prefill attention of every layer: q (B, S, H, hd) against k/v
 (B, S, K, hd), query head h reading KV head h // (H // K), with an optional
 sliding window and per-row ``lengths`` of a right-padded batch.  On a CUDA
 tensor the wrapper launches the kernel (or raises); on a CPU tensor it runs
-``kernels.ref.flash_attention_ref``.
+``kernels.ref.flash_attention_ref``.  Three designs, chosen by dtype and
+head width alone (``flash_attention_design``): ``wgmma`` (bf16 at hd 64 and
+128: TMA-fed warp-specialised wgmma, every full-size config), ``mma``
+(bf16 at hd 32, the smoke configs: the first, mma.sync kernel) and ``simt``
+(f32).
 """
 from __future__ import annotations
 
@@ -17,6 +21,32 @@ from repro_torch.kernels.expert_gemm import _check_cuda, _is_cpu
 
 SUPPORTED_G = (1, 2, 4, 8)
 SUPPORTED_HD = (32, 64, 128)        # 32: the smoke configs
+WGMMA_HD = (64, 128)
+
+
+def flash_attention_design(dtype: torch.dtype, hd: int) -> str:
+    """The K4 design a CUDA call of this dtype and head width launches."""
+    if dtype == torch.float32:
+        return "simt"
+    return "wgmma" if hd in WGMMA_HD else "mma"
+
+
+def _check_flash(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lengths) -> Optional[torch.Tensor]:
+    """Validate CUDA inputs; returns ``lengths`` as a contiguous (B,) int32
+    vector on q's device (or None)."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    _check_cuda(name, (q, k, v), None)
+    if H // K not in SUPPORTED_G or hd not in SUPPORTED_HD:
+        raise ValueError(
+            f"{name}: G={H // K}, hd={hd} not built "
+            f"(G in {SUPPORTED_G}, hd in {SUPPORTED_HD})"
+        )
+    if lengths is None:
+        return None
+    lens = torch.as_tensor(lengths, device=q.device).to(torch.int32)
+    return lens.reshape(-1).expand(B).contiguous()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -35,23 +65,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: window {window} < 0")
     if _is_cpu(q):
         return ref.flash_attention_ref(q, k, v, window=window, lengths=lengths)
-    _check_cuda("flash_attention", (q, k, v), None)
-    if H // K not in SUPPORTED_G or hd not in SUPPORTED_HD:
-        raise ValueError(
-            f"flash_attention: G={H // K}, hd={hd} not built "
-            f"(G in {SUPPORTED_G}, hd in {SUPPORTED_HD})"
-        )
-    lens = None
-    if lengths is not None:
-        lens = torch.as_tensor(lengths, device=q.device).to(torch.int32)
-        lens = lens.reshape(-1).expand(B).contiguous()
+    lens = _check_flash("flash_attention", q, k, v, lengths)
     out = torch.empty_like(q)
     lib = build.library("flash_attention")
-    err = lib.repro_flash_attention(
-        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(lens), build.ptr(out),
-        B, S, H, K, hd, int(window), int(q.dtype == torch.bfloat16),
-        build.stream_of(q),
-    )
-    build.check(err, "flash_attention")
+    if flash_attention_design(q.dtype, hd) == "wgmma":
+        err = lib.repro_flash_attention_wgmma(
+            build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(lens), build.ptr(out),
+            B, S, H, K, hd, int(window), build.stream_of(q),
+        )
+        build.check(err, "flash_attention")
+        build.LAUNCHES["flash_attention_wgmma"] += 1
+    else:
+        err = lib.repro_flash_attention(
+            build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(lens), build.ptr(out),
+            B, S, H, K, hd, int(window), int(q.dtype == torch.bfloat16),
+            build.stream_of(q),
+        )
+        build.check(err, "flash_attention")
     build.LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention_prev(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         window: int = 0,
+                         lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The first design (``mma`` in bf16) on any CUDA inputs: a yardstick
+    for timing the ``wgmma`` design beside it.  No served path calls it."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_prev: CUDA tensors only")
+    lens = _check_flash("flash_attention_prev", q, k, v, lengths)
+    out = torch.empty_like(q)
+    err = build.library("flash_attention").repro_flash_attention(
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(lens), build.ptr(out),
+        B, S, H, K, hd, int(window), int(q.dtype == torch.bfloat16), build.stream_of(q),
+    )
+    build.check(err, "flash_attention_prev")
+    build.LAUNCHES["flash_attention_prev"] += 1
     return out

@@ -10,7 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels.expert_gemm import grouped_matmul_prev  # noqa: E402
 
 
 def assert_close(got, want, tol_f32=2e-5):
@@ -49,6 +50,55 @@ def test_cuda_expert_ffn_matches_plain(cuda, dtype, E, C, D, F):
     got = ops.grouped_expert_ffn(x, *ws, counts)
     want = ref.expert_ffn_ref(x, *ws, counts)
     assert_close(got, want)
+
+
+def _gm_inputs(cuda, E, C, K, N, counts):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((E, C, K), generator=g, device=cuda) * 0.3
+    w = torch.randn((E, K, N), generator=g, device=cuda) * K ** -0.5
+    if counts == "routed":                     # 64 tokens x top-8 of E experts
+        picks = torch.rand((64, E), generator=g, device=cuda).argsort(dim=1)[:, :8]
+        counts = torch.bincount(picks.reshape(-1), minlength=E).clamp(max=C).tolist()
+    cnt = None
+    if counts is not None:
+        cnt = torch.tensor(counts, dtype=torch.int32, device=cuda)
+        x = x * (torch.arange(C, device=cuda)[None, :] < cnt[:, None])[..., None]
+    return x.bfloat16(), w.bfloat16(), cnt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,K,N,counts", [
+    (4, 300, 1024, 2048, [0, 1, 63, 64]),          # C not a multiple of 128
+    (4, 300, 1024, 2048, [127, 128, 129, 300]),    # tile edges, and C itself
+    (3, 200, 256, 200, [200, 5, 0]),               # N % 8 == 0, not a multiple of 256
+    (2, 130, 72, 136, [130, 77]),                  # K not a multiple of 64
+    (2, 200, 256, 512, None),                      # no counts: every row live
+    (64, 64, 1024, 2048, "routed"),                # the decode shape (64-row tiles)
+    (64, 64, 1024, 2048, [64] * 64),               # ...every row live
+])
+def test_cuda_grouped_matmul_wgmma_tile_edges(cuda, E, C, K, N, counts):
+    """K2's wgmma design against its plain version and the first design:
+    rows within 0.02 of their peak, rows past counts exactly zero."""
+    x, w, cnt = _gm_inputs(cuda, E, C, K, N, counts)
+    build.reset_launch_counts()
+    got = ops.grouped_matmul(x, w, cnt)
+    assert build.launch_counts()["grouped_matmul_wgmma"] == 1
+    want = ref.grouped_matmul_ref(x, w, cnt)
+    assert_close(got, want)
+    assert_close(grouped_matmul_prev(x, w, cnt), want)
+    for e, n in enumerate([C] * E if cnt is None else cnt.tolist()):
+        assert torch.count_nonzero(got[e, n:]) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_matmul_unaligned_rows_take_the_wmma_design(cuda):
+    """Rows of 120 and 200 bytes, which TMA cannot address: the first design."""
+    x, w, cnt = _gm_inputs(cuda, 2, 70, 60, 100, [70, 9])
+    build.reset_launch_counts()
+    got = ops.grouped_matmul(x, w, cnt)
+    counts = build.launch_counts()
+    assert counts["grouped_matmul"] == 1 and counts["grouped_matmul_wgmma"] == 0
+    assert_close(got, ref.grouped_matmul_ref(x, w, cnt))
 
 
 @pytest.mark.cuda
@@ -103,6 +153,39 @@ def test_cuda_flash_attention_poisoned_keys(cuda):
     k2 = torch.where(dead, torch.full_like(k, 1e4), k)
     v2 = torch.where(dead, torch.full_like(v, 1e4), v)
     assert torch.equal(ops.flash_attention(q, k2, v2, lengths=lens), base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_cuda_flash_attention_wgmma_edges(cuda, G, hd, window):
+    """K4's wgmma design: S a multiple of neither the 128-row query tile nor
+    the 64-key tile, lengths of 1 and of exactly one query tile, a window
+    crossing key tiles, and keys past lengths set to 1e4 changing no bit."""
+    B, S, K = 3, 333, 2
+    q, k, v = _flash_inputs(cuda, B, S, G * K, K, hd, torch.bfloat16)
+    lens = torch.tensor([333, 1, 128], device=cuda, dtype=torch.int32)
+    build.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, window=window, lengths=lens)
+    assert build.launch_counts()["flash_attention_wgmma"] == 1
+    assert_close(got, ref.flash_attention_ref(q, k, v, window=window, lengths=lens))
+    for b, n in enumerate(lens.tolist()):
+        assert torch.count_nonzero(got[b, n:]) == 0
+    dead = torch.arange(S, device=cuda)[None, :, None, None] >= lens[:, None, None, None]
+    k2 = torch.where(dead, torch.full_like(k, 1e4), k)
+    v2 = torch.where(dead, torch.full_like(v, 1e4), v)
+    assert torch.equal(ops.flash_attention(q, k2, v2, window=window, lengths=lens), got)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_hd32_takes_the_mma_design(cuda):
+    q, k, v = _flash_inputs(cuda, 2, 100, 4, 2, 32, torch.bfloat16)
+    build.reset_launch_counts()
+    got = ops.flash_attention(q, k, v)
+    counts = build.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_wgmma"] == 0
+    assert_close(got, ref.flash_attention_ref(q, k, v))
 
 
 def _ssd_inputs(cuda, Bt, S, nh, hp, ns, dtype):
