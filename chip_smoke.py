@@ -94,6 +94,9 @@ PATH_KERNELS = {
                    "flash_attention"),
     "serve_ssm": ("ssd_scan",),
 }
+# every launch of a served (bf16, full-size) path must take these designs
+NEW_DESIGNS = (("expert_gate_up", "wgmma"), ("grouped_matmul", "wgmma"),
+               ("decode_attention", "split"), ("flash_attention", "wgmma"))
 # the long-prompt path: 32 prompts even-spread over 1024..3584, decode 64
 # (max_seq 3648, within OLMoE's 4096 context), at the planner's b_a
 LONG_REQUESTS, LONG_MIN, LONG_MAX, LONG_DECODE = 32, 1024, 3584, 64
@@ -415,15 +418,22 @@ def check_ffn_on(name, x, wg, wu, wd, counts=None, timing=False):
             raise AssertionError(f"{name}: {key} error {err} outside {tol}")
     if not timing:
         if x.is_cuda and expert_gemm.grouped_matmul_design(dtype, E, F, D) == "wgmma":
-            # K2's two designs on the same inputs, in turns
+            # K1's and K2's two designs on the same inputs, in turns
+            def k1():
+                return ops.expert_gate_up(x, wg, wu, counts)
+
+            def k1_prev():
+                return expert_gemm.expert_gate_up_prev(x, wg, wu, counts)
+
             def k2():
                 return ops.grouped_matmul(h_ref, wd, counts)
 
             def k2_prev():
                 return expert_gemm.grouped_matmul_prev(h_ref, wd, counts)
 
-            emit({"case": name, "k2_ms": time_ms(k2), "k2_prev_ms": time_ms(k2_prev),
-                  "k2_ms_again": time_ms(k2)})
+            emit({"case": name, "k1_ms": time_ms(k1), "k1_prev_ms": time_ms(k1_prev),
+                  "k1_ms_again": time_ms(k1), "k2_ms": time_ms(k2),
+                  "k2_prev_ms": time_ms(k2_prev), "k2_ms_again": time_ms(k2)})
         return case, None
     es = x.element_size()
     n_live = int(counts.sum()) if counts is not None else E * C
@@ -441,30 +451,27 @@ def check_ffn_on(name, x, wg, wu, wd, counts=None, timing=False):
     rows = []
     big = E * C > 1 << 18                     # the long path's prefill buffer
     iters, plain_iters = (5, 2) if big else (20, 20)
-    k2_design = expert_gemm.grouped_matmul_design(dtype, E, F, D)
-    for kname, kern, plain, lib, nbytes, flops, err in (
+    for kname, kern, prev, plain, lib, nbytes, flops, err, design in (
         ("expert_gate_up", lambda: ops.expert_gate_up(x, wg, wu, counts),
+         lambda: expert_gemm.expert_gate_up_prev(x, wg, wu, counts),
          lambda: by_experts(ref.expert_gate_up_ref, x, wg, wu, counts=counts),
-         lib_gate_up, k1_bytes, k1_flops, errs["gate_up"]),
+         lib_gate_up, k1_bytes, k1_flops, errs["gate_up"],
+         expert_gemm.expert_gate_up_design(dtype, E, D, F, C)),
         ("grouped_matmul", lambda: ops.grouped_matmul(h_ref, wd, counts),
+         lambda: expert_gemm.grouped_matmul_prev(h_ref, wd, counts),
          lambda: by_experts(ref.grouped_matmul_ref, h_ref, wd, counts=counts),
          lambda: torch.bmm(h_ref, wd), k2_bytes, k2_flops,
-         errs["grouped_matmul"]),
+         errs["grouped_matmul"], expert_gemm.grouped_matmul_design(dtype, E, F, D)),
     ):
         b_ms, b_by = bound(nbytes, flops, peak)
         row = {"name": kname, "case": name, "max_abs_err": err[0],
-               "rel_err": err[1], "tolerance": tol}
-        if kname == "grouped_matmul":
-            row["design"] = k2_design
+               "rel_err": err[1], "tolerance": tol, "design": design}
         row.update({"ms": time_ms(kern, iters),
                     "plain_ms": time_ms(plain, plain_iters, 1),
                     "library_ms": time_ms(lib, iters), "bound_ms": b_ms, "bound_by": b_by})
-        if kname == "grouped_matmul" and k2_design == "wgmma" and x.is_cuda:
+        if design == "wgmma" and x.is_cuda:
             # the first design on the same inputs, timed in turns with the new
             # one; the wrappers' host cost a call where the kernel is short
-            def prev():
-                return expert_gemm.grouped_matmul_prev(h_ref, wd, counts)
-
             row["prev_ms"] = time_ms(prev, iters)
             row["ms_again"] = time_ms(kern, iters)
             if not big:
@@ -488,34 +495,50 @@ def check_attention(name, gen, B, H, K, hd, S, dtype, dev, timing=False, pos=Non
 
 def check_attention_on(name, q, k, v, pos, timing=False):
     """K3 against its plain version on these inputs (and keys and values
-    past ``pos`` poisoned); with ``timing``, its row of the kernels line."""
+    past ``pos`` poisoned; a row with ``pos < 0`` must be zeros, the kernel's
+    contract where the plain version spreads it evenly); the split design
+    also gives row 0 alone bit for bit what it gave inside the batch.  With
+    ``timing``, its row of the kernels line."""
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops, ref
 
     B, H, hd = q.shape
     S, K, dtype, dev = k.shape[1], k.shape[2], q.dtype, q.device
+    design = da.decode_attention_design(dtype, H // K, hd)
     got = ops.decode_attention(q, k, v, pos)
     want = ref.decode_attention_ref(q, k, v, pos)
+    want = torch.where((pos < 0)[:, None, None], torch.zeros_like(want), want)
     # poisoned slots past pos must not change the output
     idx = torch.arange(S, device=dev)[None, :, None, None]
     dead = idx > pos[:, None, None, None]
     k2 = torch.where(dead, torch.full_like(k, 1e4), k)
     v2 = torch.where(dead, torch.full_like(v, -1e4), v)
     poisoned = ops.decode_attention(q, k2, v2, pos)
+    alone = ops.decode_attention(q[:1].contiguous(), k[:1].contiguous(),
+                                 v[:1].contiguous(), pos[:1])
     torch.cuda.synchronize()
     err, err_p = errors(got, want), errors(got, poisoned)[0]
+    invariant = bool(torch.equal(alone[0], got[0]))
+    zero_rows = all(int(torch.count_nonzero(got[b])) == 0
+                    for b in torch.nonzero(pos < 0).flatten().tolist())
     tol = tolerance(dtype)
     emit({"case": name, "B": B, "H": H, "K": K, "hd": hd, "S": S,
-          "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err[0],
-          "rel_err": err[1], "ref_peak": float(want.float().abs().max()),
-          "poisoned_diff": err_p, "tolerance": tol})
+          "dtype": str(dtype).replace("torch.", ""), "design": design,
+          "max_abs_err": err[0], "rel_err": err[1],
+          "ref_peak": float(want.float().abs().max()), "poisoned_diff": err_p,
+          "row0_alone_bit_identical": invariant, "zero_rows_pos_lt_0": zero_rows,
+          "tolerance": tol})
     if not within(err, tol):
         raise AssertionError(f"{name}: error {err} outside {tol}")
     if not err_p < 1e-5:
         raise AssertionError(f"{name}: poisoned slots changed the output by {err_p}")
+    if not zero_rows or (design == "split" and q.is_cuda and not invariant):
+        raise AssertionError(f"{name}: rows with pos < 0 not zero ({zero_rows}) or row "
+                             f"0 alone differs from row 0 in the batch ({invariant})")
     if not timing:
         return None
     es = q.element_size()
-    n_valid = int(torch.clamp(pos.long() + 1, max=S).sum())
+    n_valid = int(torch.clamp(pos.long() + 1, min=0, max=S).sum())
     nbytes = 2 * n_valid * K * hd * es + 2 * B * H * hd * es + B * 4
     flops = 4.0 * n_valid * H * hd
     b_ms, b_by = bound(nbytes, flops,
@@ -529,12 +552,24 @@ def check_attention_on(name, q, k, v, pos, timing=False):
         return torch.nn.functional.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, enable_gqa=H != K)
 
-    return {
-        "name": "decode_attention", "case": name, "max_abs_err": err[0],
-        "rel_err": err[1], "tolerance": tol, "ms": time_ms(lambda: ops.decode_attention(q, k, v, pos)),
-        "plain_ms": time_ms(lambda: ref.decode_attention_ref(q, k, v, pos)),
-        "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
-    }
+    def kern():
+        return ops.decode_attention(q, k, v, pos)
+
+    row = {"name": "decode_attention", "case": name, "max_abs_err": err[0],
+           "rel_err": err[1], "tolerance": tol, "design": design, "ms": time_ms(kern),
+           "plain_ms": time_ms(lambda: ref.decode_attention_ref(q, k, v, pos)),
+           "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+    if design == "split" and q.is_cuda:
+        # the first design on the same inputs, timed in turns with the new
+        # one, and both wrappers' host cost a call (the decode tick is
+        # host-bound)
+        def prev():
+            return da.decode_attention_prev(q, k, v, pos)
+
+        row.update({"prev_ms": time_ms(prev), "ms_again": time_ms(kern),
+                    "host_us": host_us(kern), "prev_host_us": host_us(prev)})
+    emit({"case": name, "timing": [row]})
+    return row
 
 
 def long_lengths(n: int = LONG_REQUESTS):
@@ -761,7 +796,7 @@ def check_ssd_on(name, x, B, C, dt, A, chunk, lens=None):
                  "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
                  "gbytes": nbytes / 1e9})
     emit(case)
-    return {"name": "ssd_scan", "case": name, "max_abs_err": y_err[0],
+    return {"name": "ssd_scan", "case": name, "design": "simt", "max_abs_err": y_err[0],
             "rel_err": y_err[1], "state_rel_err": state_rel, "tolerance": tol,
             "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
@@ -815,6 +850,14 @@ def phase_kernels(dev, plan, span: int, prompt_len: int, long_b_a: int,
                 for i in range(LONG_REQUESTS)]
     rows.append(check_attention("olmoe-decode-long", gen, LONG_REQUESTS, 16, 16, 128,
                                 long_span, bf, dev, timing=True, pos=long_pos))
+    # a Mixtral-shaped GQA row set at the same span, and rows at the split
+    # edges (slot 0, L - 1, L, the last slot) and one with no valid slot
+    rows.append(check_attention("mixtral-gqa-decode-long", gen, LONG_REQUESTS, 32, 8, 128,
+                                long_span, bf, dev, timing=True, pos=long_pos))
+    from repro_torch.kernels.decode_attention import SPLIT_SLOTS as L
+
+    check_attention("split-edges", gen, 5, 16, 16, 128, long_span, bf, dev,
+                    pos=[0, L - 1, L, long_span - 1, -1])
     # K4: the long path's prefill micro-batch, a Mixtral-shaped GQA case, a
     # sliding window, and f32 (the parity shape)
     lens = long_lengths()
@@ -945,10 +988,11 @@ def serve_both(dev, cfg, params, plan, requests, decode_len: int, phase: str):
         if dev.type == "cuda" and not all(counts[sched][k] > 0 for k in PATH_KERNELS[phase]):
             raise AssertionError(f"{sched}: a kernel of the path was never launched: "
                                  f"{counts[sched]}")
-        if dev.type == "cuda" and any(counts[sched][k] != counts[sched][f"{k}_wgmma"]
-                                      for k in ("grouped_matmul", "flash_attention")):
-            raise AssertionError(f"{sched}: a K2 or K4 launch of the path did not take "
-                                 f"the wgmma design: {counts[sched]}")
+        if dev.type == "cuda" and any(counts[sched][k] != counts[sched][f"{k}_{d}"]
+                                      for k, d in NEW_DESIGNS):
+            raise AssertionError(f"{sched}: a K1, K2 or K4 launch of the path did not "
+                                 f"take the wgmma design, or a K3 launch the split "
+                                 f"design: {counts[sched]}")
         if len(rep.request_results) != n_requests or any(
                 r.tokens.size != decode_len for r in rep.request_results):
             raise AssertionError(f"{sched}: wrong number of tokens served")
@@ -996,12 +1040,14 @@ DECODE_CAPTURE = {"serve": ("grouped_expert_ffn", "decode_attention"),
                   "serve_long": ("grouped_expert_ffn", "decode_attention"),
                   "serve_ssm": ()}               # Mamba2's decode is plain PyTorch
 # device kernels by what issued them, first match wins: the port's own
-# kernels by name (K1 is gemm_*_kernel<true>, K2 gemm_wgmma_kernel or
-# gemm_*_kernel<false>), then library matrix products
+# kernels by name (K1 is gate_up_wgmma_kernel or gemm_*_kernel<true>, K2
+# gemm_wgmma_kernel or gemm_*_kernel<false>, K3 decode_split_kernel or
+# decode_attn_kernel), then library matrix products
 KERNEL_CLASSES = (("K5", ("ssd_scan_kernel",)),
                   ("K4", ("flash_wgmma_kernel", "flash_bf16_kernel", "flash_f32_kernel")),
-                  ("K3", ("decode_attn_kernel",)),
-                  ("K1", ("gemm_bf16_kernel<true>", "gemm_f32_kernel<true>")),
+                  ("K3", ("decode_split_kernel", "decode_attn_kernel")),
+                  ("K1", ("gate_up_wgmma_kernel", "gemm_bf16_kernel<true>",
+                          "gemm_f32_kernel<true>")),
                   ("K2", ("gemm_wgmma_kernel", "gemm_bf16_kernel<false>",
                           "gemm_f32_kernel<false>")),
                   ("library GEMM (projections, LM head, einsums)",
@@ -1315,6 +1361,34 @@ def phase_parity(dev):
         torch.cuda.empty_cache()
 
 
+def kernels_line(rows, launches) -> list:
+    """One entry per kernel, at the shape of the path it serves most: K1-K3
+    the short serve path, K4 the long one, K5 the SSM one; "launches" is
+    that path's count (from its static run), "launches_by_path" every
+    path's."""
+    home = {"flash_attention": "serve_long", "ssd_scan": "serve_ssm"}
+    seen, line_rows = set(), []
+    for r in rows:
+        if r["name"] in seen:
+            continue
+        seen.add(r["name"])
+        by_path = {k: c[r["name"]] for k, c in launches.items()}
+        line_rows.append({
+            "name": r["name"], "route": "cuda", "source": SOURCE[r["name"]],
+            "replaces": REPLACES[r["name"]],
+            "launches": by_path.get(home.get(r["name"], "serve")),
+            "launches_by_path": by_path,
+            "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"],
+            "tolerance": r["tolerance"],
+            "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "case": r["case"],
+            "design": r["design"],
+            "prev_ms": r.get("prev_ms"), "ms_again": r.get("ms_again"),
+        })
+    return line_rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="kernels,serve,serve_long,serve_ssm,parity")
@@ -1337,12 +1411,17 @@ def main() -> int:
     emit({"phase": "build", "seconds": t_build,
           "ptxas": {n: ptxas_summary(build.ptxas_log(n)) for n in build.SOURCES}})
     rows = []
-    # cuBLAS keeps one workspace per handle and stream for the process: make
-    # it before any server is built, so that freeing a server is exact
+    # cuBLAS keeps one workspace per handle and stream for the process, and
+    # K3's split design one buffer of tickets per device: make both before
+    # any server is built, so that freeing a server is exact
     for dt in (torch.bfloat16, torch.float32):
         a = torch.ones((8, 8), dtype=dt, device=dev)
         torch.addmm(a[0], a, a) @ a
         torch.bmm(a[None], a[None])
+    from repro_torch.kernels import ops
+
+    z = torch.zeros((1, 1, 1, 128), dtype=torch.bfloat16, device=dev)
+    ops.decode_attention(z[:, 0], z, z, 0)
     torch.cuda.synchronize()
     if "kernels" in phases:
         _, plan, lens, decode_len = serve_setup(short_lengths(), 32)
@@ -1367,31 +1446,9 @@ def main() -> int:
         launches["serve_ssm"], _ = phase_serve_ssm(dev, profile="profile" in phases)
     if "parity" in phases:
         phase_parity(dev)
-    if rows:
-        # one entry per kernel, at the shape of the path it serves most:
-        # K1-K3 the short serve path, K4 the long one, K5 the SSM one;
-        # "launches" is that path's count, "launches_by_path" every path's
-        home = {"flash_attention": "serve_long", "ssd_scan": "serve_ssm"}
-        seen, line_rows = set(), []
-        for r in rows:
-            if r["name"] in seen:
-                continue
-            seen.add(r["name"])
-            by_path = {k: c[r["name"]] for k, c in launches.items()}
-            line_rows.append({
-                "name": r["name"], "route": "cuda", "source": SOURCE[r["name"]],
-                "replaces": REPLACES[r["name"]],
-                "launches": by_path.get(home.get(r["name"], "serve")),
-                "launches_by_path": by_path,
-                "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"],
-                "tolerance": r["tolerance"],
-                "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"], "case": r["case"],
-                "design": r.get("design"), "prev_ms": r.get("prev_ms"),
-            })
+    line_rows = kernels_line(rows, launches)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    if rows:
+    if line_rows:
         emit({"kernels": line_rows})
     print(line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -23,12 +23,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # launches per kernel wrapper: each wrapper adds one where it launches
-# (``grouped_matmul`` and ``flash_attention`` count every launch of K2 and
-# K4, the ``_wgmma`` names those of their wgmma designs, the ``_prev`` names
-# first designs launched only as a yardstick)
-LAUNCHES: Dict[str, int] = {"expert_gate_up": 0, "grouped_matmul": 0,
+# (``expert_gate_up``, ``grouped_matmul``, ``decode_attention`` and
+# ``flash_attention`` count every launch of K1-K4, the ``_wgmma`` and
+# ``_split`` names those of their redesigns, the ``_prev`` names first
+# designs launched only as a yardstick)
+LAUNCHES: Dict[str, int] = {"expert_gate_up": 0, "expert_gate_up_wgmma": 0,
+                            "expert_gate_up_prev": 0, "grouped_matmul": 0,
                             "grouped_matmul_wgmma": 0, "grouped_matmul_prev": 0,
-                            "decode_attention": 0, "flash_attention": 0,
+                            "decode_attention": 0, "decode_attention_split": 0,
+                            "decode_attention_prev": 0, "flash_attention": 0,
                             "flash_attention_wgmma": 0, "flash_attention_prev": 0,
                             "ssd_scan": 0}
 
@@ -36,16 +39,18 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _c_int, _ptr = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = {
     "repro_expert_gate_up": [_ptr, _ptr, _ptr, _ptr, _ptr] + [_c_int] * 5 + [_ptr],
+    "repro_expert_gate_up_wgmma": [_ptr, _ptr, _ptr, _ptr, _ptr] + [_c_int] * 4 + [_ptr],
     "repro_grouped_matmul": [_ptr, _ptr, _ptr, _ptr] + [_c_int] * 5 + [_ptr],
     "repro_grouped_matmul_wgmma": [_ptr, _ptr, _ptr, _ptr] + [_c_int] * 4 + [_ptr],
     "repro_decode_attention": [_ptr] * 5 + [_c_int] * 6 + [_ptr],
+    "repro_decode_attention_split": [_ptr] * 7 + [_c_int] * 6 + [_ptr],
     "repro_flash_attention": [_ptr] * 5 + [_c_int] * 7 + [_ptr],
     "repro_flash_attention_wgmma": [_ptr] * 5 + [_c_int] * 6 + [_ptr],
     "repro_ssd_scan": [_ptr] * 8 + [_c_int] * 7 + [_ptr],
 }
-_SYMBOLS = {"expert_gemm": ("repro_expert_gate_up", "repro_grouped_matmul",
-                            "repro_grouped_matmul_wgmma"),
-            "decode_attention": ("repro_decode_attention",),
+_SYMBOLS = {"expert_gemm": ("repro_expert_gate_up", "repro_expert_gate_up_wgmma",
+                            "repro_grouped_matmul", "repro_grouped_matmul_wgmma"),
+            "decode_attention": ("repro_decode_attention", "repro_decode_attention_split"),
             "flash_attention": ("repro_flash_attention", "repro_flash_attention_wgmma"),
             "ssd_scan": ("repro_ssd_scan",)}
 

@@ -1,9 +1,10 @@
 // Grouped expert GEMMs for Hopper (sm_90a), plain C interface for ctypes.
 //
 // Replaces the Pallas kernels of src/repro/kernels/expert_gemm.py:
-//   * repro_expert_gate_up  (K1) -- the first half of _expert_ffn_kernel:
-//       h[e] = silu(x[e] @ wg[e]) * (x[e] @ wu[e]), f32 accumulation,
-//       rounded to x's dtype (where kernels/ref.py::expert_ffn_ref rounds h).
+//   * repro_expert_gate_up_wgmma / repro_expert_gate_up  (K1) -- the first
+//       half of _expert_ffn_kernel: h[e] = silu(x[e] @ wg[e]) * (x[e] @ wu[e]),
+//       f32 accumulation, rounded to x's dtype (where
+//       kernels/ref.py::expert_ffn_ref rounds h).
 //   * repro_grouped_matmul_wgmma / repro_grouped_matmul  (K2) --
 //       _grouped_matmul_kernel, and the down projection h @ wd of the expert
 //       FFN: (E,C,K)@(E,K,N)->(E,C,N), f32 accumulation, output in x's dtype.
@@ -42,10 +43,18 @@
 //   * Tiles: 128 x 256 x 64 at prefill; at decode (C <= 64) 64 x 128 x 64
 //     with one consumer warpgroup, so each weight tile is read once per
 //     expert and no half-empty 128-row tile is issued.
-// The first design stays for everything else: gemm_bf16_kernel<false>
-// (64 x 64 x 32 WMMA tiles, a 3-stage cp.async ring) for bf16 shapes TMA
-// cannot take, gemm_f32_kernel (SIMT, exact to f32) for f32, and
-// gemm_bf16_kernel<true> for K1.
+// K1's bf16 design on the same shapes (D % 8 == 0 and F % 8 == 0):
+// gate_up_wgmma_kernel, the same body with two B operands.  Each stage's B
+// tile holds BN / 128 boxes of wg and as many of wu at the same columns, so
+// one wgmma m64nBNk16 computes the gate and up halves of BN / 2 columns of h
+// together, in the same 48 KB stage, 4-stage ring and 128 accumulator
+// registers a thread as K2 (64-column halves at decode); the epilogue pairs
+// each gate column with its up column and writes silu(g) * u, rounded once
+// to bf16.  The live-tile walk, the zero-writing producer warps and the
+// decode configuration are K2's.
+// The first design stays for everything else: gemm_bf16_kernel (64 x 64 x
+// 32 WMMA tiles, a 3-stage cp.async ring; <true> gated for K1) for bf16
+// shapes TMA cannot take, gemm_f32_kernel (SIMT, exact to f32) for f32.
 //
 // Shapes that are not tile multiples (C, N, K) are masked, never padded.
 
@@ -377,6 +386,14 @@ constexpr int WG_BK = 64;             // one 128-byte swizzle row of bf16
 constexpr int WG_MAX_E = 1024;        // experts the tile list has room for
 constexpr int WG_RING_BYTES = 200 * 1024;
 
+// K1's decode configuration touches only the live rows of its tiles (a
+// decode tile is mostly dead capacity rows): A in 16-row boxes, as many as
+// hold live rows, and an epilogue that stores live rows only, while the
+// zero-writing warps write every dead row.  K2 loads whole BM-row boxes
+// and its epilogue writes the dead rows of a live tile.
+template <int NWG, bool GATED>
+constexpr bool kLiveRows = GATED && NWG == 1;
+
 template <int NWG, int BN>
 struct WgCfg {
   static constexpr int BM = 64 * NWG;                  // one warpgroup per 64 rows
@@ -393,16 +410,23 @@ __device__ __forceinline__ int routed_rows(const int* counts, int e, int C) {
   return counts == nullptr ? C : min(max(counts[e], 0), C);
 }
 
-// grid: min(SMs, E * ceil(C/BM) * ceil(N/BN)) persistent blocks.
-// amap: x (E, C, K) as 3-D (K, C, E), box (64, BM, 1); bmap: w (E, K, N) as
-// (N, K, E), box (64, 64, 1); both bf16 with 128-byte swizzle.
-template <int NWG, int BN>
-__global__ void __launch_bounds__(WgCfg<NWG, BN>::THREADS, 1)
-gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
-                  const __grid_constant__ CUtensorMap bmap, bf16* __restrict__ out,
-                  const int* __restrict__ counts, int E, int C, int K, int N) {
+// The body of K2's and K1's wgmma kernels.  grid: min(SMs, E * ceil(C/BM)
+// * ceil(N/ON)) persistent blocks.  amap: x (E, C, K) as 3-D (K, C, E), box
+// (64, BM, 1); bmap (and bmap2): w (E, K, N) as (N, K, E), box (64, 64, 1);
+// all bf16 with 128-byte swizzle.  GATED (K1): N is h's width F, and each
+// stage's B tile is BN / 128 boxes of wg (bmap) then as many of wu (bmap2)
+// at the same columns, so one wgmma m64nBNk16 computes the gate and up
+// columns of ON = BN / 2 outputs together and the epilogue writes
+// silu(gate) * up.  Otherwise (K2) ON = BN.
+template <int NWG, int BN, bool GATED>
+__device__ __forceinline__ void wgmma_body(const CUtensorMap* amap, const CUtensorMap* bmap,
+                                           const CUtensorMap* bmap2, bf16* __restrict__ out,
+                                           const int* __restrict__ counts, int E, int C,
+                                           int K, int N) {
   using CF = WgCfg<NWG, BN>;
   constexpr int BM = CF::BM, STAGES = CF::STAGES, NB = BN / 64;
+  constexpr int ON = GATED ? BN / 2 : BN;              // output columns of a tile
+  constexpr bool LIVE_ROWS = kLiveRows<NWG, GATED>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -425,7 +449,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
     hopper::fence_barrier_init();
   }
   __syncthreads();
-  const int NT = (N + BN - 1) / BN;
+  const int NT = (N + ON - 1) / ON;
   const int total = prefix[E] * NT;                    // live tiles, n fastest
   const int nk = (K + WG_BK - 1) / WG_BK;
   const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
@@ -437,29 +461,43 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
         int e = 0;
         uint32_t it = 0;
         for (int t = blockIdx.x; t < total; t += gridDim.x) {
-          const int mg = t / NT, n0 = (t % NT) * BN;
+          const int mg = t / NT, n0 = (t % NT) * ON;
           while (prefix[e + 1] <= mg) ++e;
           const int m0 = (mg - prefix[e]) * BM;
+          // trimmed: only the 16-row boxes that hold live rows (the rows
+          // after them keep stale data and come out as written zeros)
+          const int a_rows =
+              LIVE_ROWS ? min(BM, (routed_rows(counts, e, C) - m0 + 15) / 16 * 16) : BM;
           for (int kt = 0; kt < nk; ++kt, ++it) {
             const int s = it % STAGES;
             hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
             unsigned char* st = smem + s * CF::STAGE_BYTES;
-            hopper::mbar_arrive_expect_tx(&full[s], CF::STAGE_BYTES);
-            hopper::tma_load_3d(st, &amap, &full[s], kt * WG_BK, m0, e);
+            hopper::mbar_arrive_expect_tx(&full[s], a_rows * WG_BK * 2 + CF::B_BYTES);
+            if constexpr (LIVE_ROWS) {
+              for (int r = 0; r < a_rows; r += 16)             // 2 KB, 1024-aligned
+                hopper::tma_load_3d(st + r * WG_BK * 2, amap, &full[s], kt * WG_BK, m0 + r, e);
+            } else {
+              hopper::tma_load_3d(st, amap, &full[s], kt * WG_BK, m0, e);
+            }
 #pragma unroll
-            for (int j = 0; j < NB; ++j)
-              hopper::tma_load_3d(st + CF::A_BYTES + j * 8192, &bmap, &full[s], n0 + 64 * j,
+            for (int j = 0; j < NB; ++j) {
+              const bool second = GATED && j >= NB / 2;   // wu's boxes follow wg's
+              hopper::tma_load_3d(st + CF::A_BYTES + j * 8192, second ? bmap2 : bmap,
+                                  &full[s], n0 + 64 * (GATED ? j % (NB / 2) : j),
                                   kt * WG_BK, e);
+            }
           }
         }
       }
     } else {
       // warps 1-3: zeros for every expert's rows past its last live tile
-      // (the consumers zero the dead rows inside a live tile)
+      // (the consumers zero the dead rows inside a live tile), or with
+      // LIVE_ROWS for every dead row
       const int zt = tid % 128 - 32, nz = 96;
       const uint4 zero = make_uint4(0, 0, 0, 0);
       for (int e = 0; e < E; ++e) {
-        const int r0 = min((prefix[e + 1] - prefix[e]) * BM, C);
+        const int r0 =
+            LIVE_ROWS ? routed_rows(counts, e, C) : min((prefix[e + 1] - prefix[e]) * BM, C);
         uint4* base = reinterpret_cast<uint4*>(out + ((size_t)e * C + r0) * N);
         const size_t nvec = (size_t)(C - r0) * N / 8;
         for (size_t v = (size_t)blockIdx.x * nz + zt; v < nvec; v += (size_t)gridDim.x * nz)
@@ -472,7 +510,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
     int e = 0;
     uint32_t it = 0;
     for (int t = blockIdx.x; t < total; t += gridDim.x) {
-      const int mg = t / NT, n0 = (t % NT) * BN;
+      const int mg = t / NT, n0 = (t % NT) * ON;
       while (prefix[e + 1] <= mg) ++e;
       const int m0 = (mg - prefix[e]) * BM;
       for (int kt = 0; kt < nk; ++kt, ++it) {
@@ -502,52 +540,89 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
       if (lane == 0) hopper::mbar_arrive(&empty[(it - 1) % STAGES]);
 
       // epilogue: thread (warp, lane) holds rows 16 warp + lane / 4 (+ 8) and
-      // columns 8 j + 2 (lane % 4) (+ 1) of its warpgroup's 64 x BN tile
+      // columns 8 j + 2 (lane % 4) (+ 1) of its warpgroup's 64 x BN tile;
+      // gated, column c < ON is gate and c + ON up of output column c
       const int rows = routed_rows(counts, e, C);
       bf16* o = out + (size_t)e * C * N;
       const int r_base = m0 + wg * 64 + warp * 16 + lane / 4;
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
+      for (int j = 0; j < ON / 8; ++j) {
         const int col = n0 + 8 * j + 2 * (lane % 4);
         if (col >= N) continue;                        // N % 8 == 0: col + 1 < N too
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = r_base + 8 * h;
-          if (r >= C) continue;
+          if (r >= (LIVE_ROWS ? rows : C)) continue;
+          float y0 = acc[4 * j + 2 * h], y1 = acc[4 * j + 2 * h + 1];
+          if constexpr (GATED) {
+            y0 = silu_mul(y0, acc[4 * (j + ON / 8) + 2 * h]);
+            y1 = silu_mul(y1, acc[4 * (j + ON / 8) + 2 * h + 1]);
+          }
           const bool live = r < rows;
-          *reinterpret_cast<__nv_bfloat162*>(o + (size_t)r * N + col) = __floats2bfloat162_rn(
-              live ? acc[4 * j + 2 * h] : 0.0f, live ? acc[4 * j + 2 * h + 1] : 0.0f);
+          *reinterpret_cast<__nv_bfloat162*>(o + (size_t)r * N + col) =
+              __floats2bfloat162_rn(live ? y0 : 0.0f, live ? y1 : 0.0f);
         }
       }
     }
   }
 }
 
+// K2: out (E, C, N) = x (E, C, K) @ w (E, K, N)
 template <int NWG, int BN>
-int launch_wgmma(const void* x, const void* w, void* out, const int* counts, int E, int C,
-                 int K, int N, cudaStream_t stream) {
+__global__ void __launch_bounds__(WgCfg<NWG, BN>::THREADS, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                  const __grid_constant__ CUtensorMap bmap, bf16* __restrict__ out,
+                  const int* __restrict__ counts, int E, int C, int K, int N) {
+  wgmma_body<NWG, BN, false>(&amap, &bmap, &bmap, out, counts, E, C, K, N);
+}
+
+// K1: h (E, C, F) = silu(x @ wg) * (x @ wu); x (E, C, D), wg/wu (E, D, F)
+template <int NWG, int BN>
+__global__ void __launch_bounds__(WgCfg<NWG, BN>::THREADS, 1)
+gate_up_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                     const __grid_constant__ CUtensorMap gmap,
+                     const __grid_constant__ CUtensorMap umap, bf16* __restrict__ h,
+                     const int* __restrict__ counts, int E, int C, int D, int F) {
+  wgmma_body<NWG, BN, true>(&amap, &gmap, &umap, h, counts, E, C, D, F);
+}
+
+// K2 (w2 null) or K1 (GATED: w = wg, w2 = wu, N = F) through wgmma_body.
+template <int NWG, int BN, bool GATED>
+int launch_wgmma(const void* x, const void* w, const void* w2, void* out, const int* counts,
+                 int E, int C, int K, int N, cudaStream_t stream) {
   using CF = WgCfg<NWG, BN>;
+  constexpr int ON = GATED ? BN / 2 : BN;
   static bool smem_set = false;                        // once per instantiation
   if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(gemm_wgmma_kernel<NWG, BN>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, CF::SMEM);
+    cudaError_t err;
+    if constexpr (GATED)
+      err = cudaFuncSetAttribute(gate_up_wgmma_kernel<NWG, BN>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, CF::SMEM);
+    else
+      err = cudaFuncSetAttribute(gemm_wgmma_kernel<NWG, BN>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, CF::SMEM);
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
-  CUtensorMap amap, bmap;
+  CUtensorMap amap, bmap, bmap2;
   const uint64_t adims[3] = {(uint64_t)K, (uint64_t)C, (uint64_t)E};
   const uint64_t astr[2] = {(uint64_t)K * 2, (uint64_t)C * K * 2};
-  const uint32_t abox[3] = {64, (uint32_t)CF::BM, 1};
+  const uint32_t abox[3] = {64, kLiveRows<NWG, GATED> ? 16u : (uint32_t)CF::BM, 1};
   const uint64_t bdims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)E};
   const uint64_t bstr[2] = {(uint64_t)N * 2, (uint64_t)K * N * 2};
   const uint32_t bbox[3] = {64, 64, 1};
   if (!hopper_host::make_map_bf16(&amap, x, 3, adims, astr, abox) ||
-      !hopper_host::make_map_bf16(&bmap, w, 3, bdims, bstr, bbox))
+      !hopper_host::make_map_bf16(&bmap, w, 3, bdims, bstr, bbox) ||
+      (GATED && !hopper_host::make_map_bf16(&bmap2, w2, 3, bdims, bstr, bbox)))
     return (int)cudaErrorInvalidValue;
-  const long long tiles = (long long)E * ((C + CF::BM - 1) / CF::BM) * ((N + BN - 1) / BN);
+  const long long tiles = (long long)E * ((C + CF::BM - 1) / CF::BM) * ((N + ON - 1) / ON);
   const int grid = (int)(tiles < hopper_host::sm_count() ? tiles : hopper_host::sm_count());
-  gemm_wgmma_kernel<NWG, BN><<<grid, CF::THREADS, CF::SMEM, stream>>>(
-      amap, bmap, static_cast<bf16*>(out), counts, E, C, K, N);
+  if constexpr (GATED)
+    gate_up_wgmma_kernel<NWG, BN><<<grid, CF::THREADS, CF::SMEM, stream>>>(
+        amap, bmap, bmap2, static_cast<bf16*>(out), counts, E, C, K, N);
+  else
+    gemm_wgmma_kernel<NWG, BN><<<grid, CF::THREADS, CF::SMEM, stream>>>(
+        amap, bmap, static_cast<bf16*>(out), counts, E, C, K, N);
   return (int)cudaGetLastError();
 }
 
@@ -580,8 +655,21 @@ int repro_grouped_matmul_wgmma(const void* x, const void* w, void* out, const in
   if (E <= 0 || C <= 0 || K <= 0 || N <= 0 || K % 8 || N % 8 || E > WG_MAX_E)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C <= 64) return launch_wgmma<1, 128>(x, w, out, counts, E, C, K, N, s);
-  return launch_wgmma<2, 256>(x, w, out, counts, E, C, K, N, s);
+  if (C <= 64) return launch_wgmma<1, 128, false>(x, w, nullptr, out, counts, E, C, K, N, s);
+  return launch_wgmma<2, 256, false>(x, w, nullptr, out, counts, E, C, K, N, s);
+}
+
+// K1's bf16 design where TMA can address x, wg and wu (D % 8 == 0,
+// F % 8 == 0, 16-byte-aligned bases, E <= 1024): h = silu(x @ wg) * (x @ wu)
+// through gate_up_wgmma_kernel; cudaErrorInvalidValue for anything else,
+// never another design.
+int repro_expert_gate_up_wgmma(const void* x, const void* wg, const void* wu, void* h,
+                               const int* counts, int E, int C, int D, int F, void* stream) {
+  if (E <= 0 || C <= 0 || D <= 0 || F <= 0 || D % 8 || F % 8 || E > WG_MAX_E)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C <= 64) return launch_wgmma<1, 128, true>(x, wg, wu, h, counts, E, C, D, F, s);
+  return launch_wgmma<2, 256, true>(x, wg, wu, h, counts, E, C, D, F, s);
 }
 
 }  // extern "C"

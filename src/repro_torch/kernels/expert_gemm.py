@@ -4,10 +4,12 @@
   TPU's fused ``expert_ffn`` kernel, rounded to x's dtype.
 * ``grouped_matmul`` (K2) -- (E, C, K) @ (E, K, N), the TPU's
   ``grouped_matmul`` kernel and the down projection of the expert FFN.
-  Three designs, chosen by dtype and shape alone (``grouped_matmul_design``):
-  ``wgmma`` (bf16, K and N multiples of 8: TMA-fed warp-specialised wgmma,
-  every served shape), ``wmma`` (bf16 shapes TMA cannot address) and
-  ``simt`` (f32, exact to f32).
+
+Each has three designs, chosen by dtype and shape alone
+(``expert_gate_up_design``, ``grouped_matmul_design``): ``wgmma`` (bf16,
+row widths multiples of 8: TMA-fed warp-specialised wgmma, every served
+shape; K1 runs K2's kernel body with wg and wu side by side in one B tile),
+``wmma`` (bf16 shapes TMA cannot address) and ``simt`` (f32, exact to f32).
 
 Both take optional per-expert routed counts ``counts`` (E,) int32: rows
 ``c >= counts[e]`` are written as zeros and their weight tiles never read.
@@ -36,6 +38,14 @@ def grouped_matmul_design(dtype: torch.dtype, E: int, K: int, N: int) -> str:
     if K % 8 == 0 and N % 8 == 0 and E <= WGMMA_MAX_E:
         return "wgmma"
     return "wmma"
+
+
+def expert_gate_up_design(dtype: torch.dtype, E: int, D: int, F: int, C: int) -> str:
+    """The K1 design a CUDA call of these inputs launches: ``wgmma`` where
+    TMA can address x, wg and wu (bf16, D and F multiples of 8), ``wmma``
+    for other bf16 shapes, ``simt`` for f32.  The capacity C is part of
+    the shape; no rule depends on it."""
+    return grouped_matmul_design(dtype, E, D, F)
 
 
 def _check_cuda(name: str, tensors, counts: Optional[torch.Tensor]) -> None:
@@ -79,13 +89,41 @@ def expert_gate_up(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     _check_cuda("expert_gate_up", (x, wg, wu), counts)
     h = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     lib = build.library("expert_gemm")
-    err = lib.repro_expert_gate_up(
+    if expert_gate_up_design(x.dtype, E, D, F, C) == "wgmma":
+        err = lib.repro_expert_gate_up_wgmma(
+            build.ptr(x), build.ptr(wg), build.ptr(wu), build.ptr(h),
+            build.ptr(counts), E, C, D, F, build.stream_of(x),
+        )
+        build.check(err, "expert_gate_up")
+        build.LAUNCHES["expert_gate_up_wgmma"] += 1
+    else:
+        err = lib.repro_expert_gate_up(
+            build.ptr(x), build.ptr(wg), build.ptr(wu), build.ptr(h),
+            build.ptr(counts), E, C, D, F, int(x.dtype == torch.bfloat16),
+            build.stream_of(x),
+        )
+        build.check(err, "expert_gate_up")
+    build.LAUNCHES["expert_gate_up"] += 1
+    return h
+
+
+def expert_gate_up_prev(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                        counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The first design (``wmma`` in bf16) on any CUDA inputs: a yardstick
+    for timing the ``wgmma`` design beside it.  No served path calls it."""
+    E, C, D = x.shape
+    F = wg.shape[-1]
+    if x.device.type != "cuda":
+        raise ValueError("expert_gate_up_prev: CUDA tensors only")
+    _check_cuda("expert_gate_up_prev", (x, wg, wu), counts)
+    h = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
+    err = build.library("expert_gemm").repro_expert_gate_up(
         build.ptr(x), build.ptr(wg), build.ptr(wu), build.ptr(h),
         build.ptr(counts), E, C, D, F, int(x.dtype == torch.bfloat16),
         build.stream_of(x),
     )
-    build.check(err, "expert_gate_up")
-    build.LAUNCHES["expert_gate_up"] += 1
+    build.check(err, "expert_gate_up_prev")
+    build.LAUNCHES["expert_gate_up_prev"] += 1
     return h
 
 

@@ -63,6 +63,58 @@ def decode_attention_ref(
     return o.reshape(B, H, D).to(q.dtype)
 
 
+def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
+                               split: int, partials: bool = False):
+    """The split design's arithmetic in plain PyTorch (used by tests only).
+
+    A row's slots are cut into ``split``-slot splits by slot index alone;
+    each split keeps its max m (of the scores times hd**-0.5 * log2(e)),
+    its sum l of exp2(score - m) over valid slots and its unnormalised
+    accumulator; then the partials merge by log-sum-exp in split order,
+    skipping empty splits.  Slots past ``n = min(pos + 1, S)`` count as
+    zero K and V rows with masked scores; a row with ``pos < 0`` comes back
+    as zeros (``decode_attention_ref`` spreads it evenly instead).  With
+    ``partials``, also returns (m, l, acc) of shapes (B, H, nsplit) and
+    (B, H, nsplit, hd)."""
+    B, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    G = H // K
+    posv = torch.as_tensor(pos, device=q.device).reshape(-1).expand(B).long()
+    n = torch.clamp(posv + 1, min=0, max=S)
+    valid = torch.arange(S, device=q.device)[None, :] < n[:, None]        # (B, S)
+    kf = torch.where(valid[:, :, None, None], k.float(), torch.zeros((), device=q.device))
+    vf = torch.where(valid[:, :, None, None], v.float(), torch.zeros((), device=q.device))
+    scale_log2 = D ** -0.5 * 1.4426950408889634
+    s = torch.einsum("bkgd,bskd->bkgs", q.reshape(B, K, G, D).float(), kf) * scale_log2
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    ms, ls, accs = [], [], []
+    for lo in range(0, S, split):
+        hi = min(lo + split, S)
+        m = s[..., lo:hi].amax(-1)                                       # -inf: empty
+        m_use = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        p = torch.exp2(s[..., lo:hi] - m_use[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkgs,bskd->bkgd", p, vf[:, lo:hi]))
+    M = torch.stack(ms, -1).amax(-1)
+    L = torch.zeros_like(M)
+    A = torch.zeros((B, K, G, D), device=q.device)
+    for m, l, acc in zip(ms, ls, accs):                                  # split order
+        f = torch.where(l > 0, torch.exp2(m - M), torch.zeros_like(M))
+        L = L + l * f
+        A = A + acc * f[..., None]
+    live = (n > 0)[:, None, None, None]
+    out = torch.where(live, A / torch.where(L > 0, L, torch.ones_like(L))[..., None],
+                      torch.zeros_like(A))
+    out = out.reshape(B, H, D).to(q.dtype)
+    if not partials:
+        return out
+    m = torch.stack(ms, -1).reshape(B, H, -1)
+    l = torch.stack(ls, -1).reshape(B, H, -1)
+    acc = torch.stack(accs, -2).reshape(B, H, -1, D)
+    return out, (m, l, acc)
+
+
 def flash_attention_ref(
     q: torch.Tensor,       # (B, S, H, D)
     k: torch.Tensor,       # (B, S, K, D), H % K == 0: head h reads KV head h // G

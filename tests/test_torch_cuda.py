@@ -11,7 +11,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.kernels.expert_gemm import grouped_matmul_prev  # noqa: E402
+from repro_torch.kernels.decode_attention import SPLIT_SLOTS, decode_attention_prev  # noqa: E402
+from repro_torch.kernels.expert_gemm import (  # noqa: E402
+    expert_gate_up_prev,
+    grouped_matmul_prev,
+)
 
 
 def assert_close(got, want, tol_f32=2e-5):
@@ -114,6 +118,97 @@ def test_cuda_decode_attention_matches_plain(cuda, dtype, B, H, K, hd, S):
     got = ops.decode_attention(q, k, v, pos)
     want = ref.decode_attention_ref(q, k, v, pos)
     assert_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,D,F,counts", [
+    (4, 300, 1024, 2048, [0, 1, 127, 300]),        # C not a multiple of 128, tile edges
+    (3, 200, 256, 200, [500, 5, 0]),               # counts above C; F % 128 != 0
+    (2, 130, 72, 136, [130, 77]),                  # D not a multiple of 64
+    (2, 200, 256, 512, None),                      # no counts: every row live
+    (3, 40, 256, 200, [40, 0, 17]),                # decode (C <= 64), F % 64 != 0
+    (4, 64, 256, 128, [16, 17, 33, 64]),           # decode: live rows at 16-row edges
+    (64, 64, 2048, 1024, "routed"),                # the OLMoE decode shape
+    (64, 64, 2048, 1024, [64] * 64),               # ...every row live
+])
+def test_cuda_expert_gate_up_wgmma_edges(cuda, E, C, D, F, counts):
+    """K1's wgmma design against its plain version and the first design:
+    rows within 0.02 of their peak, rows past counts exactly zero, and dead
+    rows of x set to NaN change no bit."""
+    x, wg, cnt = _gm_inputs(cuda, E, C, D, F, counts)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    wu = (torch.randn((E, D, F), generator=g, device=cuda) * D ** -0.5).bfloat16()
+    build.reset_launch_counts()
+    got = ops.expert_gate_up(x, wg, wu, cnt)
+    assert build.launch_counts()["expert_gate_up_wgmma"] == 1
+    want = ref.expert_gate_up_ref(x, wg, wu, cnt)
+    assert_close(got, want)
+    assert_close(expert_gate_up_prev(x, wg, wu, cnt), want)
+    if cnt is not None:
+        for e, n in enumerate(cnt.tolist()):
+            assert torch.count_nonzero(got[e, n:]) == 0
+        dead = torch.arange(C, device=cuda)[None, :] >= cnt[:, None]
+        x_nan = torch.where(dead[..., None], torch.full_like(x, float("nan")), x)
+        assert torch.equal(ops.expert_gate_up(x_nan, wg, wu, cnt), got)
+
+
+def _decode_inputs(cuda, B, H, K, hd, S, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=cuda).to(dtype)
+            for s in ((B, H, hd), (B, S, K, hd), (B, S, K, hd))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 255, 256, 257, 3648])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_split_matches_plain(cuda, dtype, G, hd, S):
+    """K3 against its plain version at rows ending on slot 0, the split edges
+    (L - 1, L) and the last slot, with keys past pos set to 1e4 and values
+    to NaN: bf16 takes the split design, f32 the first one."""
+    B, K = 4, 2
+    q, k, v = _decode_inputs(cuda, B, K * G, K, hd, S, dtype)
+    L = SPLIT_SLOTS
+    pos = torch.tensor([0, min(S - 1, L - 1), min(S - 1, L), S - 1], dtype=torch.int32,
+                       device=cuda)
+    build.reset_launch_counts()
+    got = ops.decode_attention(q, k, v, pos)
+    assert build.launch_counts()["decode_attention_split"] == int(dtype == torch.bfloat16)
+    assert_close(got, ref.decode_attention_ref(q, k, v, pos))
+    dead = torch.arange(S, device=cuda)[None, :, None, None] > pos[:, None, None, None]
+    k2 = torch.where(dead, torch.full_like(k, 1e4), k)
+    v2 = torch.where(dead, torch.full_like(v, float("nan")), v)
+    assert torch.equal(ops.decode_attention(q, k2, v2, pos), got)
+    assert_close(decode_attention_prev(q, k, v, pos), ref.decode_attention_ref(q, k, v, pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [288, 3648])
+def test_cuda_decode_attention_split_batch_invariant(cuda, S):
+    """A row's output is bit-identical alone, inside a batch of 32 and at
+    another row of another batch: the split partition depends on S alone."""
+    B, H, K, hd = 32, 16, 16, 128
+    q, k, v = _decode_inputs(cuda, B, H, K, hd, S, torch.bfloat16)
+    pos = torch.arange(B, device=cuda, dtype=torch.int32) * (S // B) + S % B
+    got = ops.decode_attention(q, k, v, pos)
+    r = 5
+    alone = ops.decode_attention(q[r:r + 1], k[r:r + 1], v[r:r + 1], pos[r:r + 1])
+    assert torch.equal(alone[0], got[r])
+    q2, k2, v2 = _decode_inputs(cuda, B, H, K, hd, S, torch.bfloat16, seed=7)
+    pos2 = torch.flip(pos, [0])
+    q2[20], k2[20], v2[20], pos2[20] = q[r], k[r], v[r], pos[r]
+    assert torch.equal(ops.decode_attention(q2, k2, v2, pos2)[20], got[r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_negative_pos_writes_zeros(cuda, dtype):
+    q, k, v = _decode_inputs(cuda, 3, 8, 4, 128, 300, dtype)
+    pos = torch.tensor([-1, 299, -7], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, pos)
+    assert torch.count_nonzero(got[0]) == 0 and torch.count_nonzero(got[2]) == 0
+    assert_close(got[1:2], ref.decode_attention_ref(q[1:2], k[1:2], v[1:2], pos[1:2]))
 
 
 def _flash_inputs(cuda, B, S, H, K, hd, dtype):
