@@ -96,7 +96,8 @@ PATH_KERNELS = {
 }
 # every launch of a served (bf16, full-size) path must take these designs
 NEW_DESIGNS = (("expert_gate_up", "wgmma"), ("grouped_matmul", "wgmma"),
-               ("decode_attention", "split"), ("flash_attention", "wgmma"))
+               ("decode_attention", "split"), ("flash_attention", "wgmma"),
+               ("ssd_scan", "mma"))
 # the long-prompt path: 32 prompts even-spread over 1024..3584, decode 64
 # (max_seq 3648, within OLMoE's 4096 context), at the planner's b_a
 LONG_REQUESTS, LONG_MIN, LONG_MAX, LONG_DECODE = 32, 1024, 3584, 64
@@ -747,12 +748,17 @@ def check_ssd_on(name, x, B, C, dt, A, chunk, lens=None):
     """K5 against its plain version on these inputs, timed: y (f32 within
     TOL_SSD_F32, bf16 rows within REL_BF16 of their peak), every y row past
     ``lens`` exactly zero, the f32 state per (row, head) slice within
-    REL_SSD_STATE of its peak.  No single PyTorch call computes the SSD
+    REL_SSD_STATE of its peak; on the card, inputs past ``lens`` set to NaN
+    change no bit; the shortest row run alone at S = its length gives the same
+    bits as inside the batch.  The mma design is timed in turns with the
+    first one on the same inputs.  No single PyTorch call computes the SSD
     scan, so the library column is null."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ss
 
     Bt, S, nh, hp = x.shape
     ns, dtype, dev = B.shape[-1], x.dtype, x.device
+    design = ss.ssd_scan_design(dtype, hp, ns, chunk)
 
     def kern():
         return ops.ssd_scan(x, B, C, dt, A, chunk, lengths=lens)
@@ -761,6 +767,24 @@ def check_ssd_on(name, x, B, C, dt, A, chunk, lens=None):
         return ref.ssd_scan_ref(x, B, C, dt, A, chunk, lengths=lens)
 
     (y, h), (y_ref, h_ref) = kern(), plain()
+    live = [S] * Bt if lens is None else [int(n) for n in lens.tolist()]
+    poisoned_diff = 0.0
+    if lens is not None and x.is_cuda:       # (the plain version multiplies by 0)
+        dead = torch.arange(S, device=dev)[None, :] >= lens[:, None]
+        nan = float("nan")
+        y2, h2 = ops.ssd_scan(
+            torch.where(dead[..., None, None], torch.full_like(x, nan), x),
+            torch.where(dead[..., None], torch.full_like(B, nan), B),
+            torch.where(dead[..., None], torch.full_like(C, nan), C),
+            torch.where(dead[..., None], torch.full_like(dt, nan), dt), A, chunk,
+            lengths=lens)
+        poisoned_diff = max(float((y2.float() - y.float()).abs().max()),
+                            float((h2 - h).abs().max()))
+        del y2, h2
+    b = min(range(Bt), key=lambda r: live[r])          # the shortest row, alone
+    n = live[b]
+    ya, ha = ops.ssd_scan(*(t[b:b + 1, :n].contiguous() for t in (x, B, C, dt)), A, chunk)
+    alone = bool(torch.equal(ya[0], y[b, :n]) and torch.equal(ha[0], h[b]))
     torch.cuda.synchronize()
     if dtype == torch.float32:
         y_err = errors(y, y_ref)
@@ -773,33 +797,46 @@ def check_ssd_on(name, x, B, C, dt, A, chunk, lens=None):
     d = (h - h_ref).abs().amax((-2, -1))
     state_rel = float((d / h_ref.abs().amax((-2, -1)).clamp_min(
         torch.finfo(torch.float32).tiny)).max())
-    live = [S] * Bt if lens is None else [int(n) for n in lens.tolist()]
     zero_rows = all(int(torch.count_nonzero(y[b, n:])) == 0 for b, n in enumerate(live))
     case = {"case": name, "B": Bt, "S": S, "nh": nh, "hp": hp, "ns": ns, "chunk": chunk,
             "lengths": None if lens is None else [min(live), max(live)],
-            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": y_err[0],
-            "rel_err": y_err[1], "ref_peak": float(y_ref.float().abs().max()),
+            "dtype": str(dtype).replace("torch.", ""), "design": design,
+            "max_abs_err": y_err[0], "rel_err": y_err[1],
+            "ref_peak": float(y_ref.float().abs().max()),
             "state_rel_err": state_rel, "state_peak": float(h_ref.abs().max()),
-            "zero_rows_past_lengths": zero_rows, "tolerance": tol}
-    if not (y_ok and state_rel < REL_SSD_STATE and zero_rows):
+            "zero_rows_past_lengths": zero_rows, "poisoned_diff": poisoned_diff,
+            "shortest_row_alone_bit_identical": alone, "tolerance": tol}
+    if not (y_ok and state_rel < REL_SSD_STATE and zero_rows and poisoned_diff == 0.0
+            and alone):
         emit(case)
-        raise AssertionError(f"{name}: K5 y error {y_err}, state {state_rel}, "
-                             f"zero rows {zero_rows} outside {tol}")
+        raise AssertionError(f"{name}: K5 y error {y_err}, state {state_rel}, zero rows "
+                             f"{zero_rows}, poisoned diff {poisoned_diff}, row alone "
+                             f"bit-identical {alone}, outside {tol}")
     nbytes, flops = ssd_work(Bt, S, nh, hp, ns, chunk, None if lens is None else live,
                              x.element_size())
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
     big = Bt * S * nh > 1 << 20
-    case.update({"ms": time_ms(kern, 5 if big else 20),
+    iters = 5 if big else 20
+    case.update({"ms": time_ms(kern, iters),
                  "plain_ms": time_ms(plain, 2 if big else 5, 1),
                  "library_ms": None,
                  "library": "none: no single PyTorch call computes the SSD scan",
                  "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
                  "gbytes": nbytes / 1e9})
+    if design == "mma" and x.is_cuda:
+        # the first design on the same inputs, timed in turns with the new one
+        case["prev_ms"] = time_ms(lambda: ss.ssd_scan_prev(x, B, C, dt, A, chunk,
+                                                           lengths=lens), iters)
+        case["ms_again"] = time_ms(kern, iters)
     emit(case)
-    return {"name": "ssd_scan", "case": name, "design": "simt", "max_abs_err": y_err[0],
-            "rel_err": y_err[1], "state_rel_err": state_rel, "tolerance": tol,
-            "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+    row = {"name": "ssd_scan", "case": name, "design": design, "max_abs_err": y_err[0],
+           "rel_err": y_err[1], "state_rel_err": state_rel, "tolerance": tol,
+           "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None}
+    for key in ("prev_ms", "ms_again"):
+        if key in case:
+            row[key] = case[key]
+    return row
 
 
 def phase_kernels(dev, plan, span: int, prompt_len: int, long_b_a: int,
@@ -990,9 +1027,9 @@ def serve_both(dev, cfg, params, plan, requests, decode_len: int, phase: str):
                                  f"{counts[sched]}")
         if dev.type == "cuda" and any(counts[sched][k] != counts[sched][f"{k}_{d}"]
                                       for k, d in NEW_DESIGNS):
-            raise AssertionError(f"{sched}: a K1, K2 or K4 launch of the path did not "
-                                 f"take the wgmma design, or a K3 launch the split "
-                                 f"design: {counts[sched]}")
+            raise AssertionError(f"{sched}: a kernel launch of the path did not take its "
+                                 f"new design (NEW_DESIGNS: K1, K2, K4 wgmma, K3 split, "
+                                 f"K5 mma): {counts[sched]}")
         if len(rep.request_results) != n_requests or any(
                 r.tokens.size != decode_len for r in rep.request_results):
             raise AssertionError(f"{sched}: wrong number of tokens served")
@@ -1042,8 +1079,9 @@ DECODE_CAPTURE = {"serve": ("grouped_expert_ffn", "decode_attention"),
 # device kernels by what issued them, first match wins: the port's own
 # kernels by name (K1 is gate_up_wgmma_kernel or gemm_*_kernel<true>, K2
 # gemm_wgmma_kernel or gemm_*_kernel<false>, K3 decode_split_kernel or
-# decode_attn_kernel), then library matrix products
-KERNEL_CLASSES = (("K5", ("ssd_scan_kernel",)),
+# decode_attn_kernel, K5 ssd_mma_kernel or ssd_scan_kernel), then library
+# matrix products
+KERNEL_CLASSES = (("K5", ("ssd_mma_kernel", "ssd_scan_kernel")),
                   ("K4", ("flash_wgmma_kernel", "flash_bf16_kernel", "flash_f32_kernel")),
                   ("K3", ("decode_split_kernel", "decode_attn_kernel")),
                   ("K1", ("gate_up_wgmma_kernel", "gemm_bf16_kernel<true>",

@@ -23,17 +23,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # launches per kernel wrapper: each wrapper adds one where it launches
-# (``expert_gate_up``, ``grouped_matmul``, ``decode_attention`` and
-# ``flash_attention`` count every launch of K1-K4, the ``_wgmma`` and
-# ``_split`` names those of their redesigns, the ``_prev`` names first
-# designs launched only as a yardstick)
+# (``expert_gate_up``, ``grouped_matmul``, ``decode_attention``,
+# ``flash_attention`` and ``ssd_scan`` count every launch of K1-K5, the
+# ``_wgmma``, ``_split`` and ``_mma`` names those of their redesigns, the
+# ``_prev`` names first designs launched only as a yardstick)
 LAUNCHES: Dict[str, int] = {"expert_gate_up": 0, "expert_gate_up_wgmma": 0,
                             "expert_gate_up_prev": 0, "grouped_matmul": 0,
                             "grouped_matmul_wgmma": 0, "grouped_matmul_prev": 0,
                             "decode_attention": 0, "decode_attention_split": 0,
                             "decode_attention_prev": 0, "flash_attention": 0,
                             "flash_attention_wgmma": 0, "flash_attention_prev": 0,
-                            "ssd_scan": 0}
+                            "ssd_scan": 0, "ssd_scan_mma": 0, "ssd_scan_prev": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _c_int, _ptr = ctypes.c_int, ctypes.c_void_p
@@ -47,12 +47,13 @@ _ARGTYPES = {
     "repro_flash_attention": [_ptr] * 5 + [_c_int] * 7 + [_ptr],
     "repro_flash_attention_wgmma": [_ptr] * 5 + [_c_int] * 6 + [_ptr],
     "repro_ssd_scan": [_ptr] * 8 + [_c_int] * 7 + [_ptr],
+    "repro_ssd_scan_mma": [_ptr] * 8 + [_c_int] * 6 + [_ptr],
 }
 _SYMBOLS = {"expert_gemm": ("repro_expert_gate_up", "repro_expert_gate_up_wgmma",
                             "repro_grouped_matmul", "repro_grouped_matmul_wgmma"),
             "decode_attention": ("repro_decode_attention", "repro_decode_attention_split"),
             "flash_attention": ("repro_flash_attention", "repro_flash_attention_wgmma"),
-            "ssd_scan": ("repro_ssd_scan",)}
+            "ssd_scan": ("repro_ssd_scan", "repro_ssd_scan_mma")}
 
 
 def reset_launch_counts() -> None:

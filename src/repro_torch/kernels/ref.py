@@ -187,6 +187,21 @@ def ssd_scan_ref(
     state is the state at ``lengths[b]``, and their y rows are zeros.
     Chunks wholly past ``lengths[b]`` leave the state as it is (exactly
     what skipping them, as the kernel does, gives)."""
+    return _ssd_scan(x, B, C, dt, A, chunk, lengths, mma=False)
+
+
+def ssd_scan_mma_ref(x, B, C, dt, A, chunk: int, lengths=None):
+    """The ``mma`` design's arithmetic in plain PyTorch (used by tests
+    only): ``ssd_scan_ref`` with the kernel's roundings.  The three f32
+    operands of the tensor-core products, M = (C B^T) o L o dt, the state H
+    entering a chunk (the C H operand) and the state update's w_j x_j, each
+    enter as two bf16 terms hi = bf16(v) and lo = bf16(v - hi); products
+    accumulate in f32 and ``cum`` is summed in f64, as in the plain
+    version."""
+    return _ssd_scan(x, B, C, dt, A, chunk, lengths, mma=True)
+
+
+def _ssd_scan(x, B, C, dt, A, chunk: int, lengths, mma: bool):
     Bt, S, nh, hp = x.shape
     dev = x.device
     pos = torch.arange(S, device=dev)
@@ -201,7 +216,7 @@ def ssd_scan_ref(
     for lo in range(0, Bt, g):
         hi = min(Bt, lo + g)
         y, h = _ssd_rows(x[lo:hi], B[lo:hi], C[lo:hi], dt[lo:hi], A, chunk,
-                         lens[lo:hi], pos)
+                         lens[lo:hi], pos, mma)
         ys.append(y)
         hs.append(h)
     y = ys[0] if len(ys) == 1 else torch.cat(ys)
@@ -209,7 +224,13 @@ def ssd_scan_ref(
     return y.to(x.dtype), h
 
 
-def _ssd_rows(x, B, C, dt, A, chunk: int, lens, pos):
+def _hi_lo(t: torch.Tensor):
+    """f32 ``t`` as two bf16-valued f32 terms: hi = bf16(t), lo = bf16(t - hi)."""
+    hi = t.bfloat16().float()
+    return hi, (t - hi).bfloat16().float()
+
+
+def _ssd_rows(x, B, C, dt, A, chunk: int, lens, pos, mma: bool):
     Bt, S, nh, hp = x.shape
     ns = B.shape[-1]
     live = pos[None, :] < lens[:, None]                          # (Bt, S)
@@ -234,11 +255,18 @@ def _ssd_rows(x, B, C, dt, A, chunk: int, lens, pos):
         CB = torch.einsum("bis,bjs->bij", C_c, B_c)
         M = CB[..., None] * L * dt_c[:, None, :, :]
         del diff, L
-        y_intra = torch.einsum("bijn,bjnp->binp", M, x_c)
-        del M
-        y_inter = torch.einsum("bis,bnsp->binp", C_c, H) * torch.exp(cum.float())[..., None]
         w = torch.exp((cum[:, -1:] - cum).float()) * dt_c       # (Bt, q, nh)
-        S_c = torch.einsum("bjs,bjnp->bnsp", B_c, x_c * w[..., None])
+        wx = x_c * w[..., None]
+        if mma:                                                 # hi + lo bf16 terms
+            y_intra = sum(torch.einsum("bijn,bjnp->binp", t, x_c) for t in _hi_lo(M))
+            y_inter = sum(torch.einsum("bis,bnsp->binp", C_c, t) for t in _hi_lo(H))
+            S_c = sum(torch.einsum("bjs,bjnp->bnsp", B_c, t) for t in _hi_lo(wx))
+        else:
+            y_intra = torch.einsum("bijn,bjnp->binp", M, x_c)
+            y_inter = torch.einsum("bis,bnsp->binp", C_c, H)
+            S_c = torch.einsum("bjs,bjnp->bnsp", B_c, wx)
+        del M
+        y_inter = y_inter * torch.exp(cum.float())[..., None]
         H = H * torch.exp(cum[:, -1].float())[:, :, None, None] + S_c
         y[:, lo:hi] = y_intra + y_inter
     return y * live[..., None, None], H

@@ -16,6 +16,7 @@ from repro_torch.kernels.expert_gemm import (  # noqa: E402
     expert_gate_up_prev,
     grouped_matmul_prev,
 )
+from repro_torch.kernels.ssd_scan import ssd_scan_prev  # noqa: E402
 
 
 def assert_close(got, want, tol_f32=2e-5):
@@ -302,44 +303,90 @@ def assert_state_close(got, want):
     assert float((d / peak).max()) < 1e-4, float((d / peak).max())
 
 
+# K5 through the served wrapper (bf16: the mma design, f32: the first) and
+# through the first design's yardstick, with the launch counter each adds to
+K5_ENTRIES = {"ssd_scan": ops.ssd_scan, "ssd_scan_prev": ssd_scan_prev}
+
+
+def _k5_counted(which, dtype):
+    if which == "ssd_scan_prev":
+        return "ssd_scan_prev"
+    return "ssd_scan_mma" if dtype == torch.bfloat16 else "ssd_scan"
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("which", sorted(K5_ENTRIES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Bt,S,nh,hp,ns,chunk,lengths", [
     (2, 256, 4, 32, 16, 64, None),                 # tests/test_kernels.py's shape
     (2, 128, 8, 32, 16, 32, [128, 1]),             # the smoke configs' chunk, length 1
     (3, 300, 4, 64, 128, 256, [300, 256, 1]),      # S % chunk != 0, one whole chunk
     (2, 200, 2, 64, 64, 128, [77, 200]),
+    (2, 300, 2, 32, 128, 256, [300, 129]),         # hp 32 at ns 128
+    (2, 100, 2, 64, 16, 32, [100, 33]),            # hp 64 at ns 16
+    (2, 160, 2, 32, 64, 64, [160, 100]),           # hp 32 at ns 64
+    (2, 300, 2, 64, 128, 64, [300, 65]),           # Mamba2's widths at chunk 64
 ])
-def test_cuda_ssd_scan_matches_plain(cuda, dtype, Bt, S, nh, hp, ns, chunk, lengths):
+def test_cuda_ssd_scan_matches_plain(cuda, which, dtype, Bt, S, nh, hp, ns, chunk, lengths):
     """K5 against its plain version: y in f32 within 8e-5 absolute
     (tests/test_kernels.py's 4 x TOL for this kernel), bf16 rows within 0.02
-    of their peak; rows past lengths exactly zero; the f32 state."""
+    of their peak; rows past lengths exactly zero; the f32 state.  The mma
+    design is also held to its CPU mirror (``ref.ssd_scan_mma_ref``), and
+    each call must have launched the design its dtype selects."""
     x, B, C, dt, A = _ssd_inputs(cuda, Bt, S, nh, hp, ns, dtype)
     lens = None if lengths is None else torch.tensor(lengths, device=cuda,
                                                      dtype=torch.int32)
-    y, h = ops.ssd_scan(x, B, C, dt, A, chunk, lengths=lens)
+    build.reset_launch_counts()
+    y, h = K5_ENTRIES[which](x, B, C, dt, A, chunk, lengths=lens)
+    counts = build.launch_counts()
+    assert counts[_k5_counted(which, dtype)] == 1 and sum(counts.values()) == (
+        2 if which == "ssd_scan" and dtype == torch.bfloat16 else 1), counts
     y_ref, h_ref = ref.ssd_scan_ref(x, B, C, dt, A, chunk, lengths=lens)
     assert y.dtype == x.dtype and h.dtype == torch.float32
     assert_close(y, y_ref, tol_f32=8e-5)
     assert_state_close(h, h_ref)
+    if which == "ssd_scan" and dtype == torch.bfloat16:
+        y_mir, h_mir = ref.ssd_scan_mma_ref(x, B, C, dt, A, chunk, lengths=lens)
+        assert_close(y, y_mir)
+        assert_state_close(h, h_mir)
     for b, n in enumerate(lengths or []):
         assert torch.count_nonzero(y[b, n:]) == 0
 
 
 @pytest.mark.cuda
-def test_cuda_ssd_scan_poisoned_padding(cuda):
-    """x, B and C past lengths[b] set to 1e4 change no valid row and not the
-    state."""
+@pytest.mark.parametrize("which", sorted(K5_ENTRIES))
+@pytest.mark.parametrize("poison", [1e4, float("nan")])
+def test_cuda_ssd_scan_poisoned_padding(cuda, which, poison):
+    """x, B, C and dt past lengths[b] set to 1e4 or NaN change no bit of y
+    or of the state."""
     Bt, S, nh, hp, ns, chunk = 3, 300, 4, 64, 128, 256
     x, B, C, dt, A = _ssd_inputs(cuda, Bt, S, nh, hp, ns, torch.bfloat16)
     lens = torch.tensor([300, 100, 7], device=cuda, dtype=torch.int32)
-    y, h = ops.ssd_scan(x, B, C, dt, A, chunk, lengths=lens)
+    fn = K5_ENTRIES[which]
+    y, h = fn(x, B, C, dt, A, chunk, lengths=lens)
     dead = torch.arange(S, device=cuda)[None, :] >= lens[:, None]
-    x2 = torch.where(dead[..., None, None], torch.full_like(x, 1e4), x)
-    B2 = torch.where(dead[..., None], torch.full_like(B, 1e4), B)
-    C2 = torch.where(dead[..., None], torch.full_like(C, 1e4), C)
-    y2, h2 = ops.ssd_scan(x2, B2, C2, dt, A, chunk, lengths=lens)
+    x2 = torch.where(dead[..., None, None], torch.full_like(x, poison), x)
+    B2 = torch.where(dead[..., None], torch.full_like(B, poison), B)
+    C2 = torch.where(dead[..., None], torch.full_like(C, poison), C)
+    dt2 = torch.where(dead[..., None], torch.full_like(dt, poison), dt)
+    y2, h2 = fn(x2, B2, C2, dt2, A, chunk, lengths=lens)
     assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,hp,chunk", [(128, 64, 256), (16, 32, 32)])
+def test_cuda_ssd_scan_mma_batch_invariant(cuda, ns, hp, chunk):
+    """A row run alone, at S equal to its length, is bit-identical (y and
+    state) to the same row inside a ragged batch padded to a longer S."""
+    Bt, S, nh = 4, 700, 4
+    x, B, C, dt, A = _ssd_inputs(cuda, Bt, S, nh, hp, ns, torch.bfloat16)
+    lens = torch.tensor([700, 389, 1, 512], device=cuda, dtype=torch.int32)
+    y, h = ops.ssd_scan(x, B, C, dt, A, chunk, lengths=lens)
+    for b, n in enumerate(lens.tolist()):
+        ya, ha = ops.ssd_scan(x[b:b + 1, :n].contiguous(), B[b:b + 1, :n].contiguous(),
+                              C[b:b + 1, :n].contiguous(), dt[b:b + 1, :n].contiguous(), A,
+                              chunk)
+        assert torch.equal(ya[0], y[b, :n]) and torch.equal(ha[0], h[b]), b
 
 
 @pytest.mark.cuda
