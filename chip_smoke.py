@@ -12,7 +12,9 @@ Phases, in order (any failure exits non-zero with its traceback):
 4. serve    -- the port's ``Server`` on full-width, full-depth OLMoE-1B-7B
                (bf16, seeded random weights, all resident, omega = 0, the
                planner's b_a): 64 ragged requests, static then continuous;
-               the kernels' launch counts are read around each run;
+               the kernels' launch counts are read around each run; then
+               16 requests with mixed greedy / temperature / top-k
+               sampling against the per-module oracle;
 5. serve_long -- the same server and weights on 32 long prompts (1024..3584
                tokens, decode 64, max_seq 3648): prefill through K4 at every
                layer, decode through K3 at spans up to 3648; its own launch
@@ -25,17 +27,30 @@ Phases, in order (any failure exits non-zero with its traceback):
                full width but 2 layers (32 tokens, a ragged 1536-token
                prompt), Mamba2 at full width but 2 layers (600 and 300
                tokens), and the Jamba smoke config (one interleave period,
-               lengths 100 and 77), which runs K1-K5 in one model.
+               lengths 100 and 77), which runs K1-K5 in one model;
+8. profile  -- (inside phases 4-6) torch.profiler over each path's decode
+               chunk and one prefill wave.
+
+Every served decode tick is a replay of the engine's CUDA graph of the
+fused tick (one token read per chunk).  Each serve phase fails unless every
+decode tick of both schedulers was a replay, the kernels' launch counts --
+replays add the launches their capture recorded -- equal those of the
+per-module oracle (``fused_decode=False``, eager launches) on the same
+requests, and the oracle's tokens equal both schedulers'.  The serve phase
+adds a sampled run: mixed greedy, temperature and top-k requests, the fused
+server against the per-module oracle, identical tokens.
 
 After each serve phase a fresh engine prefills the same prompts and runs a
-few decode ticks with the kernels' largest calls captured, and every kernel
-is held to its plain version on those inputs (the path's own shapes: the
-prefill capacity buffer, K4's and K5's micro-batch, a decode tick's FFN and
-K3).  Every server is deleted without a ``gc.collect()``, and
-``torch.cuda.memory_allocated()`` must fall back to what it was before the
-server was built.  ``--phases kernels,serve,serve_long,serve_ssm,parity,
-profile`` adds a torch.profiler breakdown of that decode tick and of one
-prefill wave (not part of the default run).
+few decode ticks with the kernels' largest calls captured (on the eager
+per-module path: a graph capture records and does not run), and every
+kernel is held to its plain version on those inputs (the path's own shapes:
+the prefill capacity buffer, K4's and K5's micro-batch, a decode tick's FFN
+and K3).  The ``profile`` phase (in the default run) adds a torch.profiler
+breakdown of one chunk of replayed ticks -- the kernels the device ran in
+it, checked against the replay accounting -- and of one prefill wave, and
+fails on any host sync inside the decode chunk.  Every server is deleted
+without a ``gc.collect()``, and ``torch.cuda.memory_allocated()`` must fall
+back to what it was before the server was built, its graphs included.
 
 The last two lines of standard output are the card's ``nvidia-smi`` name and
 power limit, then ``{"ok": true, "device": {...}}``.  ``--phases`` runs a
@@ -243,8 +258,8 @@ def sync_sites(fn):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     sites = {}
-    for w in caught:
-        if "synchroniz" in str(w.message):
+    for w in caught:                  # (not the mode's own "prototype" notice)
+        if "called a synchronizing CUDA operation" in str(w.message):
             key = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
             sites[key] = sites.get(key, 0) + 1
     return sites
@@ -256,9 +271,10 @@ RANGES = ("ssm_decode",)     # profiler ranges whose device time is read
 def profile_region(fn, top: int = 12):
     """Run ``fn`` under torch.profiler: device-busy ms (sum of kernel times
     on the one stream), the kernels that took the most device time, every
-    kernel's ms (``by_kernel``, not printed) and, for each profiler range of
-    ``RANGES``, the device ms of the kernels launched inside it (``ranges``,
-    from the range's host-side event).  Returns (summary, fn())."""
+    kernel's ms and launches (``by_kernel``, ``calls_by_kernel``, not
+    printed) and, for each profiler range of ``RANGES``, the device ms of
+    the kernels launched inside it (``ranges``, from the range's host-side
+    event).  Returns (summary, fn())."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -285,6 +301,7 @@ def profile_region(fn, top: int = 12):
              "top": [{"kernel": k[:80], "ms": ms, "calls": n}
                      for ms, k, n in rows[:top]],
              "by_kernel": {k: ms for ms, k, _ in rows},
+             "calls_by_kernel": {k: n for _, k, n in rows},
              "ranges": ranges}, out)
 
 
@@ -972,13 +989,64 @@ def freed(phase: str, what: str, before: int) -> None:
                              f"after del")
 
 
+def padded_prompts(requests):
+    """(n, S) right-padded prompts and their (n,) lengths."""
+    import numpy as np
+
+    lengths = np.array([len(r.prompt) for r in requests], np.int64)
+    prompts = np.zeros((len(requests), int(lengths.max())), np.int64)
+    for i, r in enumerate(requests):
+        prompts[i, :lengths[i]] = r.prompt
+    return prompts, lengths
+
+
+def per_module_oracle(dev, cfg, params, plan, requests, decode_len: int, phase: str,
+                      sampler=None):
+    """The per-module path (``fused_decode=False``: eager launches, one
+    position upload a tick) on the same requests as one wave: prefill, the
+    first token, then ``decode_len - 1`` ticks in one chunk, as ``generate``
+    does (greedy unless a ``sampler`` is given).  Returns its (n,
+    decode_len) tokens, its launch counts and its decode timing; its engine
+    must free its cache when deleted."""
+    import numpy as np
+
+    from repro_torch.core.engine import ModuleBatchingEngine
+    from repro_torch.kernels import ops
+    from repro_torch.serving.sampling import BatchSampler
+
+    prompts, lengths = padded_prompts(requests)
+    n = len(requests)
+    before = torch.cuda.memory_allocated()
+    eng = ModuleBatchingEngine(cfg, params, plan, max_seq=int(lengths.max()) + decode_len,
+                               device=dev, fused_decode=False)
+    sampler = sampler or BatchSampler.uniform(n, None)
+    ops.reset_launch_counts()
+    tok0 = sampler.sample(eng.prefill(prompts, lengths=lengths))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mat = eng.decode_chunk(tok0, lengths, sampler, decode_len - 1)
+    toks = torch.cat([tok0[:, None], mat], dim=1).cpu().numpy()
+    decode_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if eng.stats.fused_dispatches:
+        raise AssertionError(f"{phase}: the per-module oracle took the fused path")
+    del eng, tok0, mat
+    freed(phase, "per-module oracle engine", before)
+    timing = {"decode_s": decode_s, "tick_wall_ms": decode_s * 1e3 / (decode_len - 1),
+              "decode_tok_s": n * (decode_len - 1) / decode_s}
+    return toks, counts, timing
+
+
 def serve_both(dev, cfg, params, plan, requests, decode_len: int, phase: str):
     """Serve ``requests`` through the port's ``Server`` under the static and
     then the continuous scheduler, the launch counts set to 0 just before
-    each run and read just after.  Fails unless every request gets its
-    ``decode_len`` tokens, every kernel of the path (``PATH_KERNELS``) was
-    launched, no routed copy dropped, both schedulers give identical tokens
-    and each deleted server frees its cache by reference counting."""
+    each run and read just after, then the per-module oracle on the same
+    requests.  Fails unless every request gets its ``decode_len`` tokens,
+    every decode tick of both schedulers was a graph replay of the fused
+    tick, every kernel of the path (``PATH_KERNELS``) was launched, each
+    launch count equals the oracle's, no routed copy dropped, both
+    schedulers and the oracle give identical tokens and each deleted server
+    frees its cache and graphs by reference counting."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -1012,16 +1080,30 @@ def serve_both(dev, cfg, params, plan, requests, decode_len: int, phase: str):
         counts[sched] = ops.launch_counts()
         reports[sched] = rep
         tokens[sched] = [r.tokens for r in rep.request_results]
+        st = server._engine.stats
+        ticks = rep.decode_slot_steps // plan.B
+        # the engine's graphs are captured in its first chunk, inside the
+        # server's decode time
+        setup = sum(c["warmup_s"] + c["capture_s"] for c in server._engine.graph_captures)
         emit({"phase": phase, "scheduler": sched, "wall_s": wall,
               "prefill_tokens": rep.prefill_tokens, "prefill_s": rep.prefill_s,
               "prefill_tok_s": rep.prefill_throughput,
               "decode_tokens": rep.decode_tokens, "decode_s": rep.decode_s,
               "decode_tok_s": rep.decode_throughput,
-              "server_ms_per_tick": rep.decode_s * 1e3 / (rep.decode_slot_steps / plan.B),
+              "server_ms_per_tick": rep.decode_s * 1e3 / ticks,
+              "capture_s": setup,
+              "decode_tok_s_past_capture": rep.decode_tokens / (rep.decode_s - setup),
+              "server_ms_per_tick_past_capture": (rep.decode_s - setup) * 1e3 / ticks,
+              "decode_ticks": ticks, "fused_ticks": st.fused_ticks,
+              "fused_dispatches": st.fused_dispatches, "decode_chunk": plan.decode_chunk,
+              "graph_captures": server._engine.graph_captures,
               "dropped": rep.expert_tokens_dropped,
               "decode_slot_steps": rep.decode_slot_steps,
               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
               "launches": counts[sched]})
+        if dev.type == "cuda" and not (st.fused_dispatches > 0 and st.fused_ticks == ticks):
+            raise AssertionError(f"{sched}: {ticks} decode ticks, {st.fused_ticks} of them "
+                                 f"graph replays ({st.fused_dispatches} chunks)")
         if dev.type == "cuda" and not all(counts[sched][k] > 0 for k in PATH_KERNELS[phase]):
             raise AssertionError(f"{sched}: a kernel of the path was never launched: "
                                  f"{counts[sched]}")
@@ -1035,17 +1117,79 @@ def serve_both(dev, cfg, params, plan, requests, decode_len: int, phase: str):
             raise AssertionError(f"{sched}: wrong number of tokens served")
         if rep.expert_tokens_dropped != 0:
             raise AssertionError(f"{sched}: {rep.expert_tokens_dropped} copies dropped")
-        del server
+        del server, st
         freed(phase, f"{sched} server", before)
+    oracle, oracle_counts, timing = per_module_oracle(dev, cfg, params, plan, requests,
+                                                      decode_len, phase)
+    emit({"phase": phase, "oracle": "per-module (fused_decode=False)", **timing,
+          "launches": oracle_counts})
+    for sched in ("static", "continuous"):
+        if counts[sched] != oracle_counts:
+            raise AssertionError(f"{sched}: launch counts {counts[sched]} differ from the "
+                                 f"per-module oracle's {oracle_counts}")
     for i, (a, b) in enumerate(zip(tokens["static"], tokens["continuous"])):
         if not np.array_equal(a, b):
             step = int(np.flatnonzero(a != b)[0]) if a.shape == b.shape else -1
             raise AssertionError(f"static and continuous schedulers gave different "
                                  f"tokens: request {i}, first at step {step}")
+        if not np.array_equal(a, oracle[i]):
+            step = int(np.flatnonzero(a != oracle[i])[0])
+            raise AssertionError(f"fused and per-module tokens differ: request {i}, "
+                                 f"first at step {step}")
     flat = np.concatenate(tokens["static"])
     if flat.min() < 0 or flat.max() >= cfg.vocab_size:
         raise AssertionError("token ids out of range")
     return tokens, reports, counts
+
+
+def phase_sampled(dev, params, n: int = 16):
+    """Seeded sampling on the serve path at ``n`` requests: greedy,
+    temperature and top-k slots mixed, through the fused server (static)
+    and through the per-module oracle armed the way the server arms its
+    slots.  Identical tokens, and the server's decode ticks all replays of
+    the sampled tick's graph."""
+    import numpy as np
+
+    from repro_torch.data.datasets import DatasetSpec, synthetic_requests
+    from repro_torch.serving.sampling import BatchSampler, SamplingParams
+    from repro_torch.serving.server import ServeConfig, Server
+
+    cfg, plan, lens, decode_len = serve_setup(short_lengths()[::64 // n], 32)
+    kinds = [None, SamplingParams(0.8, 0, 1), SamplingParams(0.7, 50, 2),
+             SamplingParams(1.0, 5, 3)]
+    requests = synthetic_requests(DatasetSpec("sampled", n, max(lens), decode_len),
+                                  cfg.vocab_size, seed=1, prompt_lens=lens)
+    requests = [replace(r, sampling=kinds[i % len(kinds)]) for i, r in enumerate(requests)]
+    before = torch.cuda.memory_allocated()
+    server = Server(cfg, params, plan, serve=ServeConfig(decode_len=decode_len), device=dev)
+    for r in requests:
+        server.submit(r)
+    rep = server.run()
+    got = [r.tokens for r in rep.request_results]
+    st = server._engine.stats
+    ticks = rep.decode_slot_steps // plan.B
+    keys = [c["key"] for c in server._engine.graph_captures]
+    emit({"phase": "sampled", "requests": n, "decode_tok_s": rep.decode_throughput,
+          "server_ms_per_tick": rep.decode_s * 1e3 / ticks, "fused_ticks": st.fused_ticks,
+          "decode_ticks": ticks, "graph_captures": server._engine.graph_captures})
+    sampled_graph = any(not k["greedy_only"] for k in keys) or dev.type != "cuda"
+    if not (st.fused_ticks == ticks and sampled_graph):
+        raise AssertionError(f"sampled: {st.fused_ticks} of {ticks} ticks replayed, "
+                             f"keys {keys}")
+    del server, st
+    freed("sampled", "server", before)
+    sampler = BatchSampler(n)
+    for i, r in enumerate(requests):
+        sampler.set_slot(i, r.sampling)
+    want, _, _ = per_module_oracle(dev, cfg, params, plan, requests, decode_len, "sampled",
+                                   sampler=sampler)
+    same = [bool(np.array_equal(a, b)) for a, b in zip(got, want)]
+    emit({"phase": "sampled", "tokens_match": all(same),
+          "kinds": [None if k is None else [k.temperature, k.top_k] for k in kinds],
+          "distinct_streams": len({tuple(t) for t in got})})
+    if not all(same):
+        raise AssertionError(f"sampled: fused and per-module tokens differ for requests "
+                             f"{[i for i, ok in enumerate(same) if not ok]}")
 
 
 def check_path_kernels(phase: str, calls) -> list:
@@ -1092,15 +1236,25 @@ KERNEL_CLASSES = (("K5", ("ssd_mma_kernel", "ssd_scan_kernel")),
                    ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitK")))
 
 
+def kernel_class(name: str) -> str:
+    """The KERNEL_CLASSES class of a device kernel's name."""
+    return next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)),
+                "other (elementwise, copies, reductions)")
+
+
 def kernel_shares(by_kernel: dict, busy: float) -> dict:
     """Device ms and share of ``busy`` of each KERNEL_CLASSES class, and of
     the rest (elementwise glue, copies, reductions)."""
     out = {}
     for name, ms in by_kernel.items():
-        cls = next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)),
-                   "other (elementwise, copies, reductions)")
+        cls = kernel_class(name)
         out[cls] = out.get(cls, 0.0) + ms
     return {c: {"ms": ms, "share_of_busy": ms / busy} for c, ms in out.items()}
+
+
+# the port's kernels by the class their device kernels fall in
+CLASS_OF_KERNEL = {"expert_gate_up": "K1", "grouped_matmul": "K2", "decode_attention": "K3",
+                   "flash_attention": "K4", "ssd_scan": "K5"}
 
 
 @contextlib.contextmanager
@@ -1126,15 +1280,18 @@ def ssm_decode_range():
 
 
 def profile_path(dev, phase, cfg, params, plan, requests, max_seq, reports,
-                 profile=False, steps: int = 4):
-    """A fresh engine on a served path's prompts: one prefill wave and
-    ``steps`` decode ticks (one ``decode_chunk`` tick and one token read
-    each, as the server ticks) with the kernels' largest calls captured,
-    the bare tick's wall, and under ``profile`` a torch.profiler breakdown
-    of the ticks and of one prefill wave.  Then every captured kernel is
-    held to its plain version (``check_path_kernels``)."""
-    import numpy as np
-
+                 profile=False, steps: int = 8):
+    """A fresh engine on a served path's prompts: one prefill wave with the
+    kernels' largest calls captured, one chunk of ``steps`` per-module
+    ticks with the same (eager: a graph capture records and does not run
+    the wrappers' arguments), then the fused chunk of ``steps`` graph
+    replays and one token read, as the server decodes: its wall per tick.
+    Under ``profile``: a torch.profiler breakdown of the replayed chunk --
+    the kernels the device ran, held to the replay accounting (each class's
+    launches = ``steps`` x the launches the capture recorded) -- the host
+    syncs inside the chunk (there must be none), and one prefill wave.
+    Then every captured kernel is held to its plain version
+    (``check_path_kernels``)."""
     from repro_torch.core.engine import ModuleBatchingEngine
     from repro_torch.serving.sampling import BatchSampler
 
@@ -1142,31 +1299,31 @@ def profile_path(dev, phase, cfg, params, plan, requests, max_seq, reports,
     tick_ms = {s: rep.decode_s * 1e3 / (rep.decode_slot_steps / plan.B)
                for s, rep in reports.items()}
     eng = ModuleBatchingEngine(cfg, params, plan, max_seq=max_seq, device=dev)
-    lengths = np.array([len(r.prompt) for r in requests], np.int64)
-    prompts = np.zeros((n, int(lengths.max())), np.int64)
-    for i, r in enumerate(requests):
-        prompts[i, :lengths[i]] = r.prompt
+    prompts, lengths = padded_prompts(requests)
     sampler = BatchSampler.uniform(n, None)
     with capture_calls(PREFILL_CAPTURE[phase]) as pre:
         lg = eng.prefill(prompts, lengths=lengths)
     tok0 = sampler.sample(lg)
 
-    def decode_ticks():
-        tok = tok0
-        for t in range(steps):
-            tok = eng.decode_chunk(tok, lengths + t, sampler, 1)[:, 0]
-            tok.cpu()
-        return tok
+    def chunk():
+        return eng.decode_chunk(tok0, lengths, sampler, steps)
 
+    def decode_ticks():
+        return chunk().cpu()
+
+    eng.fused_decode = False
     with capture_calls(DECODE_CAPTURE[phase]) as dec:
-        decode_ticks()                                      # warm
+        decode_ticks()
+    eng.fused_decode = True
+    decode_ticks()                                          # captures the graph
     wall = host_ms(decode_ticks) / steps
     lg2 = eng.decode_step(tok0, lengths)
     if not (torch.isfinite(lg).all() and torch.isfinite(lg2).all()):
         raise AssertionError(f"{phase}: non-finite logits")
     emit({"phase": phase, "what": "decode_tick", "B": n,
           "positions": [int(lengths.min()), int(lengths.max())],
-          "wall_ms_per_tick": wall, "server_ms_per_tick": tick_ms})
+          "wall_ms_per_tick": wall, "server_ms_per_tick": tick_ms,
+          "graph_captures": eng.graph_captures})
     if profile:
         # device busy from the profiler; walls from unprofiled runs
         with ssm_decode_range():
@@ -1174,14 +1331,29 @@ def profile_path(dev, phase, cfg, params, plan, requests, max_seq, reports,
         busy = prof["device_busy_ms"] / steps
         per_tick = {c: {"ms": v["ms"] / steps, "share_of_busy": v["share_of_busy"]}
                     for c, v in kernel_shares(prof["by_kernel"], prof["device_busy_ms"]).items()}
-        emit({"phase": "profile", "what": f"{phase} decode tick B={n}, per tick",
+        seen = {}
+        for name, calls in prof["calls_by_kernel"].items():
+            seen[kernel_class(name)] = seen.get(kernel_class(name), 0) + calls
+        recorded = eng.graph_captures[-1]["launches_per_replay"] if eng.graph_captures else {}
+        replayed = {c: seen.get(c, 0) for c in CLASS_OF_KERNEL.values()}
+        want = {CLASS_OF_KERNEL[k]: steps * recorded.get(k, 0) for k in CLASS_OF_KERNEL}
+        hidden = sync_sites(chunk)
+        emit({"phase": "profile", "what": f"{phase} decode tick B={n}, per tick "
+              f"(one chunk of {steps} graph replays)",
               "wall_ms": wall, "device_busy_ms": busy,
               "idle_share": 1.0 - busy / wall,
               "idle_share_vs_server": {s: 1.0 - busy / ms for s, ms in tick_ms.items()},
               "by_class": per_tick,
+              "kernels_in_replays": replayed, "replay_accounting": want,
               "ranges_ms_per_tick": {k: v / steps for k, v in prof["ranges"].items()},
-              "sync_sites": sync_sites(decode_ticks),
+              "sync_sites_in_chunk": hidden,
+              "sync_sites_with_read": sync_sites(decode_ticks),
               "top_over_steps": prof["top"]})
+        if dev.type == "cuda" and replayed != want:
+            raise AssertionError(f"{phase}: the device ran {replayed} of the port's "
+                                 f"kernels in {steps} replays; the accounting says {want}")
+        if hidden:
+            raise AssertionError(f"{phase}: host syncs inside the decode chunk: {hidden}")
         wall_p = host_ms(lambda: eng.prefill(prompts, lengths=lengths))
         prof, _ = profile_region(lambda: eng.prefill(prompts, lengths=lengths))
         busy = prof["device_busy_ms"]
@@ -1213,6 +1385,7 @@ def phase_serve(dev, params, profile=False):
                                     decode_len, "serve")
     profile_path(dev, "serve", cfg, params, plan, requests,
                  max(lens) + decode_len, reports, profile)
+    phase_sampled(dev, params)
     return counts["static"], reports
 
 
@@ -1429,7 +1602,7 @@ def kernels_line(rows, launches) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="kernels,serve,serve_long,serve_ssm,parity")
+    ap.add_argument("--phases", default="kernels,serve,serve_long,serve_ssm,parity,profile")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1449,13 +1622,19 @@ def main() -> int:
     emit({"phase": "build", "seconds": t_build,
           "ptxas": {n: ptxas_summary(build.ptxas_log(n)) for n in build.SOURCES}})
     rows = []
-    # cuBLAS keeps one workspace per handle and stream for the process, and
-    # K3's split design one buffer of tickets per device: make both before
-    # any server is built, so that freeing a server is exact
-    for dt in (torch.bfloat16, torch.float32):
-        a = torch.ones((8, 8), dtype=dt, device=dev)
-        torch.addmm(a[0], a, a) @ a
-        torch.bmm(a[None], a[None])
+    # cuBLAS keeps one workspace per handle and stream for the process (on
+    # the default stream and on the side stream engines capture their decode
+    # graphs on), and K3's split design one buffer of tickets per device:
+    # make them before any server is built, so that freeing a server is exact
+    from repro_torch.core.engine import capture_stream
+
+    for stream in (torch.cuda.current_stream(dev), capture_stream(dev)):
+        with torch.cuda.stream(stream):
+            for dt in (torch.bfloat16, torch.float32):
+                a = torch.ones((8, 8), dtype=dt, device=dev)
+                torch.addmm(a[0], a, a) @ a
+                torch.bmm(a[None], a[None])
+        torch.cuda.current_stream(dev).wait_stream(stream)
     from repro_torch.kernels import ops
 
     z = torch.zeros((1, 1, 1, 128), dtype=torch.bfloat16, device=dev)

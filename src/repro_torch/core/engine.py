@@ -17,6 +17,18 @@ inference by launching per-module batched work:
   sync; copies beyond capacity are dropped and counted per MoE layer;
 * dense modules (LM head) run at full batch.
 
+Decode runs in chunks of T ticks.  When ``fused_eligible()`` (fused decode
+on, grouped experts, every weight resident), a chunk is the JAX package's
+fused decode chunk: one tick body (embed, every layer, head, per-slot
+sampling) whose carry -- tokens, positions, the live mask, the sampler's
+keys and token indices, the drop and load counters -- lives in static
+device buffers.  On a CUDA engine the tick is captured once per key as a
+CUDA graph and replayed T times with no host read in between; one token
+read per chunk.  On the CPU the same tick body runs eagerly T times.  The
+per-module path (``fused_decode=False``) is the oracle: both give the same
+tokens bit for bit, because the tick body calls the same module functions
+in the same order.
+
 Prefill is layer-major: each layer's weights are acquired once and reused
 by every ``b_a`` micro-batch, and a grouped-prefill MoE layer is split into
 a mixer+route launch and a grouped-FFN launch whose capacity is the next
@@ -29,13 +41,15 @@ decode, prefill insertion and eviction write them in place and their
 ``data_ptr()``s never change.  Callers never keep a reference across a tick.
 
 Out of the port so far, each raising ``NotImplementedError`` that names its
-slice: the fused decode chunk (a CUDA graph), host attention (omega > 0),
-weight streaming, paged KV, and the loop expert path.
+slice: host attention (omega > 0), weight streaming, paged KV, and the loop
+expert path.
 """
 from __future__ import annotations
 
+import contextlib
+import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +58,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import workload as W
 from repro_torch.core.dag_builder import Plan
 from repro_torch.device import resolve_device
+from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import reserve_tickets
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -51,7 +67,7 @@ from repro_torch.models.blocks import ffn_apply, init_layer_cache, layer_forward
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.model import head
 from repro_torch.serving.kvcache import evict_rows, insert_prefill_rows
-from repro_torch.serving.sampling import BatchSampler
+from repro_torch.serving.sampling import BatchSampler, greedy, sample_tokens
 from repro_torch.serving.weights import ParamStore
 
 HOST_ATTENTION_SLICE = "host attention (omega > 0) is the host-attention slice of the port"
@@ -71,6 +87,47 @@ class EngineStats:
     expert_load: Optional[np.ndarray] = None
     #                                      (n_moe, E) int64 routed-copy
     #                                      histogram (pre-capacity)
+    fused_dispatches: int = 0            # fused decode chunks issued
+    fused_ticks: int = 0                 # decode ticks served by fused chunks
+    decode_retraces: int = 0             # distinct fused (B, path, chunk) keys
+
+
+# one side stream per device on which every engine warms up and captures
+# its decode graphs: cuBLAS keeps a workspace per (handle, stream) for the
+# life of the process, so a stream per engine would leave one per engine
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The side stream decode graphs are captured on, for ``device``."""
+    if device.index is None:                   # "cuda" and "cuda:0": one stream
+        device = torch.device(device.type, torch.cuda.current_device())
+    s = _CAPTURE_STREAMS.get(device)
+    if s is None:
+        s = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return s
+
+
+@dataclass
+class _Carry:
+    """A fused chunk's carry for n rows, in static buffers whose addresses
+    the captured graphs hold: ``state`` (n, 8) int64 with columns token,
+    position, live (0/1), token index (the sampler's step), top-k, the two
+    key words, and in row 0 the tick within the chunk; ``temps`` (n,)
+    float32; ``out`` (n, width) int64, column t the tokens tick t sampled."""
+
+    state: torch.Tensor
+    temps: torch.Tensor
+    out: torch.Tensor
+
+    @classmethod
+    def zeros(cls, n: int, width: int, device: torch.device) -> "_Carry":
+        return cls(torch.zeros((n, 8), dtype=torch.long, device=device),
+                   torch.zeros((n,), dtype=torch.float32, device=device),
+                   torch.zeros((n, width), dtype=torch.long, device=device))
+
+    def clone(self) -> "_Carry":
+        return _Carry(self.state.clone(), self.temps.clone(), self.out.clone())
 
 
 class ModuleBatchingEngine:
@@ -93,6 +150,7 @@ class ModuleBatchingEngine:
         resident_bytes: Optional[float] = None,
         cache_config=None,
         device="cuda",
+        fused_decode: bool = True,
     ) -> None:
         if expert_path != "grouped":
             raise NotImplementedError(LOOP_SLICE)
@@ -104,6 +162,7 @@ class ModuleBatchingEngine:
         self.cfg = cfg
         self.plan = plan
         self.max_seq = max_seq
+        self.fused_decode = fused_decode
         if store is None:
             store = ParamStore.build(
                 cfg, params, plan, stream_weights=stream_weights,
@@ -118,14 +177,21 @@ class ModuleBatchingEngine:
         self._moe_layers = [li for li, (_, f) in enumerate(self.schema)
                             if f == "moe"]
         self._moe_index = {li: j for j, li in enumerate(self._moe_layers)}
-        self._reset_device_counters()
-
-    def _reset_device_counters(self) -> None:
+        self._n_attn = sum(1 for kind, _ in self.schema if kind == "attn")
+        # static buffers (the decode graphs add to them in place)
         dev, n_moe = self.device, len(self._moe_layers)
         E = max(1, self.cfg.num_experts)
         self._kept_dev = torch.zeros((), dtype=torch.int32, device=dev)
         self._dropped_dev = torch.zeros((n_moe,), dtype=torch.int32, device=dev)
         self._load_dev = torch.zeros((n_moe, E), dtype=torch.int32, device=dev)
+        # fused decode: reference keys seen, carries by row count, graphs by
+        # key (all in one private memory pool that dies with the engine),
+        # and one record per capture (key, seconds, pool bytes, launches)
+        self._fused_keys: set = set()
+        self._carries: Dict[int, _Carry] = {}
+        self._graphs: Dict[Tuple, Tuple["torch.cuda.CUDAGraph", Dict[str, int]]] = {}
+        self._pool: Optional[Tuple[int, int]] = None
+        self.graph_captures: List[Dict] = []
 
     def _expert_capacity(self, batch: int) -> int:
         """Per-expert capacity C: the plan's b_e, clamped to the most tokens
@@ -145,11 +211,23 @@ class ModuleBatchingEngine:
                 self.stats.expert_load = np.zeros_like(load)
             self.stats.expert_tokens_dropped_by_layer += dropped
             self.stats.expert_load += load
-        self._reset_device_counters()
+        for t in (self._kept_dev, self._dropped_dev, self._load_dev):
+            t.zero_()
         return self.stats
 
     # -- cache management ---------------------------------------------
     def init_cache(self, batch: int) -> None:
+        """A zeroed cache of ``batch`` rows.  A cache of that batch already
+        held is zeroed in place, so its ``data_ptr()``s -- which the
+        captured decode graphs read and write -- never change; a new batch
+        allocates new buffers and drops the graphs."""
+        if self.cache is not None and next(iter(self.cache[0].values())).shape[0] == batch:
+            for layer in self.cache:
+                for buf in layer.values():
+                    buf.zero_()
+            return
+        self.cache = None                 # free the old buffers first
+        self._graphs.clear()
         self.cache = [init_layer_cache(self.cfg, kind, batch, self.max_seq,
                                        self.device)
                       for kind, _ in self.schema]
@@ -161,9 +239,12 @@ class ModuleBatchingEngine:
 
     # -- phases ---------------------------------------------------------
     def _tensor(self, a, dtype=torch.long) -> torch.Tensor:
-        if torch.is_tensor(a):
-            return a.to(device=self.device, dtype=dtype)
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+        """``a`` on the engine's device.  A host array goes up without a
+        host-side wait (pageable memory is staged before the copy returns),
+        so an upload on the decode path is not a hidden sync."""
+        if not torch.is_tensor(a):
+            a = torch.from_numpy(np.array(a))
+        return a.to(device=self.device, dtype=dtype, non_blocking=True)
 
     def prefill(self, tokens, lengths=None) -> torch.Tensor:
         """Prefill a fresh batch (micro-batched by b_a), filling the engine
@@ -265,19 +346,36 @@ class ModuleBatchingEngine:
 
     # -- path selection ---------------------------------------------------
     def fused_eligible(self) -> bool:
-        """The fused one-launch decode chunk (a CUDA graph over the T-tick
-        loop) is the fused-decode slice; every decode here is per-module."""
-        return False
+        """True when decode takes the fused chunk (a CUDA graph of the tick
+        on the card): fused decode on, grouped expert dispatch, and every
+        weight resident (streamed layers would need the per-layer loop for
+        the prefetch to overlap with).  omega is always 0 and no cache is
+        paged in this port so far (both raise at construction)."""
+        return (self.fused_decode and self.store.fully_resident)
 
     # -- decode -----------------------------------------------------------
     def decode_step(self, tokens, pos) -> torch.Tensor:
         """One per-module decode step for all B sequences; returns logits.
         ``pos`` is a scalar or a per-sequence (B,) vector of positions."""
-        return self._decode_rows(self._tensor(tokens), self._tensor(pos), 0)
+        tokens = self._tensor(tokens)
+        lg = self._decode_rows(tokens, self._tensor(pos), 0)
+        self._count_module_tick(tokens.shape[0])
+        return lg
+
+    def _count_module_tick(self, n: int) -> None:
+        """Per-module accounting of one decode tick over ``n`` rows: one
+        attention launch set per layer and ``b_a`` micro-batch, one grouped
+        dispatch per MoE layer."""
+        mb = -(-n // max(1, min(self.plan.b_a, n)))
+        self.stats.attn_microbatches += self._n_attn * mb
+        self.stats.device_attn_tokens += self._n_attn * n
+        self.stats.expert_launches += len(self._moe_layers)
 
     def _decode_rows(self, tokens: torch.Tensor, pos: torch.Tensor,
                      row0: int) -> torch.Tensor:
-        """Per-module decode over batch rows ``[row0, row0 + n)``."""
+        """Per-module decode over batch rows ``[row0, row0 + n)``: every
+        module of one tick, in order, and nothing else (no host read, no
+        Python counter: the fused tick captures exactly this)."""
         cfg = self.cfg
         x = self.store.base["embed"][tokens]
         for li, (kind, ffn) in enumerate(self.schema):
@@ -309,8 +407,6 @@ class ModuleBatchingEngine:
             y, _ = attn_mod.attn_decode(cfg, p["attn"], h,
                                         {"k": k[rows], "v": v[rows]}, posv[lo:hi])
             outs.append(y[:, 0])
-            self.stats.attn_microbatches += 1
-            self.stats.device_attn_tokens += hi - lo
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
     def _ssm_stage(self, li, p, x, row0: int = 0) -> torch.Tensor:
@@ -335,7 +431,6 @@ class ModuleBatchingEngine:
             cfg, h, gates, idx, moe["experts_w_gate"], moe["experts_w_up"],
             moe["experts_w_down"], self._expert_capacity(x.shape[0]),
         )
-        self.stats.expert_launches += 1
         j = self._moe_index[li]
         self._kept_dev += kept
         self._dropped_dev[j] += dropped
@@ -346,25 +441,32 @@ class ModuleBatchingEngine:
     def decode_chunk(self, tokens, pos, sampler: BatchSampler, T: int,
                      live=None) -> torch.Tensor:
         """``T`` decode ticks for the full batch, sampled per slot; returns
-        the ``(B, T)`` token matrix (column t is tick t's tokens).  Every
-        tick runs the per-module path (``fused_eligible()`` is False).
-        ``live`` (B,) bool marks rows owned by unfinished requests: dead rows
-        hold their stale token and position, like per-tick stepping.
-        Positions are clamped at ``max_seq - 1``."""
-        tokens = self._tensor(tokens)
-        B = tokens.shape[0]
+        the ``(B, T)`` token matrix (column t is tick t's tokens, fed back
+        as tick t+1's input).
+
+        The fused chunk when ``fused_eligible()`` (on the card: T replays
+        of the tick's CUDA graph, no host read between them), else T
+        per-module ticks; both give the same tokens.  ``live`` (B,) bool
+        marks rows owned by unfinished requests: dead rows hold their stale
+        token and position, like per-tick stepping.  Positions are clamped
+        at ``max_seq - 1``."""
+        B = tokens.shape[0] if torch.is_tensor(tokens) else len(tokens)
         pos_np = np.asarray(pos.cpu() if torch.is_tensor(pos) else pos,
                             np.int64).reshape(-1)
         if pos_np.size == 1:
             pos_np = np.full(B, pos_np[0], np.int64)
-        return self._chunk_rows_per_module(tokens, pos_np, sampler, T, 0, B, live)
+        if self.fused_eligible() and self.cache is not None:
+            return self._fused_chunk(tokens, pos_np, sampler, T, live)
+        return self._chunk_rows_per_module(self._tensor(tokens), pos_np, sampler,
+                                           T, 0, B, live)
 
     def _chunk_rows_per_module(self, tokens, pos_np: np.ndarray, sampler,
                                T: int, lo: int, hi: int,
                                live=None) -> torch.Tensor:
-        """``T`` per-module ticks over rows ``[lo, hi)``.  Positions advance
-        on the host (``pos_np`` is the batch's (B,) numpy mirror) and go up
-        once per tick as one (n,) vector."""
+        """``T`` per-module ticks over rows ``[lo, hi)`` (the oracle of the
+        fused chunk).  Positions advance on the host (``pos_np`` is the
+        batch's (B,) numpy mirror) and go up once per tick as one (n,)
+        vector."""
         slots = np.arange(lo, hi)
         cur = tokens[lo:hi]
         pos_rows = pos_np[lo:hi]
@@ -375,17 +477,184 @@ class ModuleBatchingEngine:
         for t in range(T):
             pt = np.minimum(pos_rows + (t if adv is None else t * adv), cap)
             lg = self._decode_rows(cur, self._tensor(pt), lo)
+            self._count_module_tick(hi - lo)
             sampled = sampler.sample(lg, slots)
             cols.append(sampled)
             cur = sampled if lv is None else torch.where(lv, sampled, cur)
         return torch.stack(cols, dim=1)
 
+    def _fused_chunk(self, tokens, pos_np: np.ndarray, sampler: BatchSampler,
+                     T: int, live=None) -> torch.Tensor:
+        """The fused chunk over all B rows: the carry goes up in one copy,
+        the tick runs T times (graph replays on the card), the sampler
+        advances T steps on the host, and the (B, T) tokens come back as one
+        tensor.  Accounting as the JAX package's fused chunk: one dispatch,
+        T ticks, a decode retrace per new (B, path, T) key, and per tick one
+        grouped dispatch per MoE layer and B attention tokens per attention
+        layer."""
+        B = pos_np.size
+        idx = np.arange(B)
+        keys, steps, temps, topks = sampler.state(idx)
+        use_topk = bool((topks > 0).any())
+        greedy_only = not bool((temps > 0).any())
+        capacity, cap = self._expert_capacity(B), self.max_seq - 1
+        ref_key = (B, 0, T, capacity, cap, use_topk, greedy_only)
+        if ref_key not in self._fused_keys:
+            self._fused_keys.add(ref_key)
+            self.stats.decode_retraces += 1
+        c = self._carry(B, T)
+        host = np.zeros((B, 8), np.int64)
+        if not torch.is_tensor(tokens):
+            host[:, 0] = np.asarray(tokens).reshape(-1)
+        host[:, 1] = pos_np
+        host[:, 2] = 1 if live is None else np.asarray(live, bool)
+        host[:, 3], host[:, 4], host[:, 5:7] = steps, topks, keys
+        c.state.copy_(torch.from_numpy(host), non_blocking=True)
+        if torch.is_tensor(tokens):
+            c.state[:, 0].copy_(tokens.reshape(-1))
+        if not greedy_only:
+            c.temps.copy_(torch.from_numpy(temps), non_blocking=True)
+        if self.device.type == "cuda":
+            graph, launches = self._graph((B, capacity, cap, use_topk, greedy_only), c)
+            for _ in range(T):
+                graph.replay()
+            build.add_launches(launches, T)
+        else:
+            for _ in range(T):
+                self._fused_tick(c, cap, use_topk, greedy_only)
+        sampler.advance(idx, T)
+        self.stats.fused_dispatches += 1
+        self.stats.fused_ticks += T
+        self.stats.expert_launches += T * len(self._moe_layers)
+        self.stats.device_attn_tokens += T * self._n_attn * B
+        return c.out[:, :T].clone()
+
+    def _fused_tick(self, c: _Carry, cap: int, use_topk: bool,
+                    greedy_only: bool) -> None:
+        """One decode tick on the carry ``c``, in place: the per-module
+        modules (``_decode_rows``), then ``sample_tokens`` (argmax when no
+        slot samples), then the carry: live rows take their token and
+        advance their position, dead rows hold both, every row's token
+        index advances, the tokens land in column ``tick`` of ``c.out``.
+        The reference's tick (``repro/core/engine.py::_fused_decode_chunk``)."""
+        st = c.state
+        toks, pos, live, steps, tick = st[:, 0], st[:, 1], st[:, 2], st[:, 3], st[:1, 7]
+        lg = self._decode_rows(toks, torch.clamp(pos, max=cap), 0)
+        if greedy_only:
+            nxt = greedy(lg)
+        else:
+            nxt = sample_tokens(lg, st[:, 5:7], steps, c.temps, st[:, 4], use_topk)
+        c.out.index_copy_(1, tick, nxt[:, None])
+        toks.copy_(torch.where(live > 0, nxt, toks))
+        pos.add_(live)
+        steps.add_(1)
+        tick.add_(1)
+
+    def _carry(self, B: int, T: int) -> _Carry:
+        """The static carry of B rows with room for T columns of tokens; a
+        wider one replaces it (and the graphs that held it)."""
+        c = self._carries.get(B)
+        if c is None or c.out.shape[1] < T:
+            c = self._carries[B] = _Carry.zeros(B, max(T, self.max_seq), self.device)
+            for key in [k for k in self._graphs if k[0] == B]:
+                del self._graphs[key]
+        return c
+
+    def _graph(self, key: Tuple, c: _Carry):
+        """The CUDA graph of one tick for ``key`` (B, expert capacity,
+        position cap, top-k, greedy only) and the kernel launches it makes,
+        captured at its first use.
+
+        First a warm-up tick runs eagerly on scratch copies of everything a
+        tick writes (``_scratch``), on the capture stream and uncounted, so
+        that lazy set-up (library loads, cuBLAS workspaces, kernel
+        attributes) happens outside the capture and no served state moves.
+        Then the tick is captured -- recorded, not run -- on the real
+        carry, cache and counters into the engine's private memory pool
+        (``pool_bytes`` in the record: the pool's segments, shared by the
+        engine's graphs), through ``CUDAGraph.capture_begin`` rather than
+        ``torch.cuda.graph``, which would first empty the allocator's cache
+        (slow after a large prefill, and the next prefill refills it).  A
+        failed capture raises; nothing falls back to eager launches."""
+        rec = self._graphs.get(key)
+        if rec is not None:
+            return rec
+        B, _, cap, use_topk, greedy_only = key
+        dev = self.device
+        if self._n_attn:
+            reserve_tickets(B * self.cfg.num_kv_heads, dev)
+        stream = capture_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream), build.launches_held(), self._scratch(c) as sc:
+            self._fused_tick(sc, cap, use_topk, greedy_only)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        if not self._graphs:          # a pool no live graph holds may be released
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with build.launches_held() as launches, torch.cuda.stream(stream):
+            graph.capture_begin(pool=self._pool)
+            try:
+                self._fused_tick(c, cap, use_topk, greedy_only)
+            except BaseException:
+                with contextlib.suppress(RuntimeError):   # the tick's error, not
+                    graph.capture_end()                   # the aborted capture's
+                raise
+            graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                         if tuple(seg.get("segment_pool_id", ())) == tuple(self._pool))
+        self.graph_captures.append({
+            "key": {"B": B, "capacity": key[1], "pos_cap": cap, "use_topk": use_topk,
+                    "greedy_only": greedy_only},
+            "warmup_s": t1 - t0, "capture_s": time.perf_counter() - t1,
+            "pool_bytes": pool_bytes, "launches_per_replay": dict(launches)})
+        rec = self._graphs[key] = (graph, launches)
+        return rec
+
+    @contextlib.contextmanager
+    def _scratch(self, c: _Carry) -> Iterator[_Carry]:
+        """Swap in zeroed scratch copies of what a tick writes -- the cache
+        (one buffer set per layer shape, shared by the layers of that
+        shape), the drop and load counters -- and yield a copy of the carry,
+        so a warm-up tick leaves the served state as it was."""
+        saved = (self.cache, self._kept_dev, self._dropped_dev, self._load_dev)
+        shared: Dict[Tuple, Dict[str, torch.Tensor]] = {}
+
+        def scratch(layer):
+            shape = tuple((k, tuple(v.shape)) for k, v in sorted(layer.items()))
+            if shape not in shared:
+                shared[shape] = {k: torch.zeros_like(v) for k, v in layer.items()}
+            return shared[shape]
+
+        self.cache = [scratch(layer) for layer in saved[0]]
+        self._kept_dev, self._dropped_dev, self._load_dev = (
+            torch.zeros_like(t) for t in saved[1:])
+        try:
+            yield c.clone()
+        finally:
+            self.cache, self._kept_dev, self._dropped_dev, self._load_dev = saved
+
+    def decode_step_sampled(self, tokens, pos, sampler: BatchSampler,
+                            slots=None) -> torch.Tensor:
+        """One decode tick plus per-slot sampling on the device: the fused
+        chunk with T = 1 when eligible, else ``decode_step`` and
+        ``sampler.sample``.  Returns the (B,) next tokens."""
+        if slots is None and self.fused_eligible() and self.cache is not None:
+            return self.decode_chunk(tokens, pos, sampler, 1)[:, 0]
+        return sampler.sample(self.decode_step(tokens, pos), slots)
+
     # -- generation -------------------------------------------------------
     def generate(self, tokens, decode_len: int, lengths=None, sampling=None,
                  chunk: Optional[int] = None) -> torch.Tensor:
-        """Greedy generation (the paper's strategy, §B).  ``lengths`` (B,)
-        generates from a ragged right-padded batch, each sequence at its own
-        positions.  Returns (B, decode_len) tokens on the device."""
+        """Generation -- greedy by default (the paper's strategy, §B); pass
+        ``sampling`` (``serving.sampling.SamplingParams``) for seeded
+        temperature / top-k decoding, each row's index folded into its key.
+        ``lengths`` (B,) generates from a ragged right-padded batch, each
+        sequence at its own positions.  Decode runs in chunks of ``chunk``
+        ticks (default: the plan's ``decode_chunk``), fused when eligible.
+        Returns (B, decode_len) tokens on the device."""
         B, S = tokens.shape
         sampler = BatchSampler.uniform(B, sampling)
         logits = self.prefill(tokens, lengths=lengths)

@@ -8,6 +8,7 @@ loaded as it is.  The build runs at first use, never at import.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -15,7 +16,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("expert_gemm", "decode_attention", "flash_attention", "ssd_scan")
@@ -26,7 +27,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # (``expert_gate_up``, ``grouped_matmul``, ``decode_attention``,
 # ``flash_attention`` and ``ssd_scan`` count every launch of K1-K5, the
 # ``_wgmma``, ``_split`` and ``_mma`` names those of their redesigns, the
-# ``_prev`` names first designs launched only as a yardstick)
+# ``_prev`` names first designs launched only as a yardstick).  A CUDA graph
+# runs its kernels without Python: the capture records each key's launches
+# (``launches_held``) and every replay adds them (``add_launches``)
 LAUNCHES: Dict[str, int] = {"expert_gate_up": 0, "expert_gate_up_wgmma": 0,
                             "expert_gate_up_prev": 0, "grouped_matmul": 0,
                             "grouped_matmul_wgmma": 0, "grouped_matmul_prev": 0,
@@ -63,6 +66,26 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+@contextlib.contextmanager
+def launches_held() -> Iterator[Dict[str, int]]:
+    """Launches made inside the block leave the counts as they were; the
+    yielded dict is filled, on exit, with what they would have added (the
+    launches a CUDA graph capture recorded, or an uncounted warm-up's)."""
+    before = dict(LAUNCHES)
+    delta: Dict[str, int] = {}
+    try:
+        yield delta
+    finally:
+        delta.update({k: v - before[k] for k, v in LAUNCHES.items() if v != before[k]})
+        LAUNCHES.update(before)
+
+
+def add_launches(delta: Dict[str, int], times: int = 1) -> None:
+    """Count ``times`` runs of a recorded set of launches (graph replays)."""
+    for k, v in delta.items():
+        LAUNCHES[k] += v * times
 
 
 def build_dir() -> Path:

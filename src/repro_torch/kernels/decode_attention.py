@@ -24,7 +24,9 @@ SPLIT_HD = (64, 128)
 SPLIT_SLOTS = 256         # slots per split: a multiple of the kernel's 32-slot tile
 # per device, the split design's int32 tickets, one per (row, KV head): zero
 # between launches (each launch resets the tickets it takes), so the buffer
-# is zeroed once and only grows; the port launches on one stream
+# is zeroed once and only grows.  K3 launches never overlap: eager launches
+# and CUDA graph replays are ordered on the engine's current stream (a graph
+# capture and its warm-up run on a side stream that first waits for it)
 _TICKETS: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -42,9 +44,19 @@ def split_partition(S: int) -> List[Tuple[int, int]]:
     return [(lo, min(lo + SPLIT_SLOTS, S)) for lo in range(0, S, SPLIT_SLOTS)]
 
 
-def _tickets(n: int, device: torch.device) -> torch.Tensor:
+def reserve_tickets(n: int, device: torch.device) -> torch.Tensor:
+    """The device's ticket buffer, grown (zeroed) to at least ``n`` tickets.
+    A caller that captures K3 into a CUDA graph reserves B x K tickets
+    before the capture, so that the buffer never comes from (and outlives)
+    the graph's private memory pool; growing it inside a capture raises."""
+    device = torch.device(device)
+    if device.index is None:                   # "cuda" and "cuda:0": one buffer
+        device = torch.device(device.type, torch.cuda.current_device())
     t = _TICKETS.get(device)
     if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"decode_attention: {n} tickets needed inside a CUDA "
+                               f"graph capture; reserve_tickets before capturing")
         t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _TICKETS[device] = t
     return t
@@ -90,7 +102,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 torch.empty(B * H * nsplit * (hd + 2), dtype=torch.float32, device=q.device))
         err = lib.repro_decode_attention_split(
             build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(posv), build.ptr(out),
-            build.ptr(part), build.ptr(_tickets(B * K, q.device)), B, H, K, S, hd,
+            build.ptr(part), build.ptr(reserve_tickets(B * K, q.device)), B, H, K, S, hd,
             SPLIT_SLOTS, build.stream_of(q),
         )
         build.check(err, "decode_attention")

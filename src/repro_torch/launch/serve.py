@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from dataclasses import replace
 
 import numpy as np
 
@@ -40,9 +41,13 @@ def build_plan(cfg, hw, args) -> Plan:
         omega=0.0,
         s_params=float(W.model_bytes(cfg)),
         s_expert=0.0,
-        decode_chunk=1,
     )
-    print(f"realised: B={plan.B} b_a={plan.b_a} b_e={plan.b_e}; pinned "
+    # the fused chunk T from the admission cadence at this batch (the
+    # cadence scales with B, so the full-config T would over- or under-chunk)
+    plan = replace(plan, decode_chunk=planner.select_decode_chunk(
+        plan, args.decode_len, scheduler=args.scheduler))
+    print(f"realised: B={plan.B} b_a={plan.b_a} b_e={plan.b_e}, fused decode chunk "
+          f"T={plan.decode_chunk} ({args.scheduler} cadence); pinned "
           f"omega=0 (planned {res.plan.omega:.1f}) and every weight resident "
           f"({W.model_bytes(cfg) / 1e9:.1f} GB): host attention and weight "
           f"streaming are later slices of the port")

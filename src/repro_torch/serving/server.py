@@ -11,6 +11,12 @@ returns the ``ServeReport``.
 
 The two scheduler modes are admission policies over that single core:
 
+Each step decodes one chunk of ``T`` ticks (``_chunk_T``): the engine's
+fused chunk when it is eligible -- on the card, T replays of the tick's CUDA
+graph -- with one token read per chunk.  ``T`` is capped by
+``ServeConfig.decode_chunk`` (or the plan's) and clamped to the shortest
+remaining decode, so every finish lands on a chunk boundary.
+
 * ``static`` -- the paper's offline protocol (§5.1): requests are admitted
   in waves, a new wave only once the previous one has fully drained; every
   wave slot keeps stepping until the wave's slowest member finishes (early
@@ -91,6 +97,7 @@ class ServeConfig:
     prefix_cache: bool = False
     replan_skew: Optional[float] = None
     faults: Optional[object] = None
+    decode_chunk: Optional[int] = None   # fused chunk T cap (None = plan's)
 
     def __post_init__(self) -> None:
         assert self.scheduler in ("static", "continuous"), self.scheduler
@@ -407,10 +414,6 @@ class Server:
                     f"Eq. 2 host budget {self._kv_budget:.3e}"
                 )
             self._kv_need[i] = need
-        if request.sampling is not None and not request.sampling.is_greedy:
-            from repro_torch.serving.sampling import SAMPLING_SLICE
-
-            raise NotImplementedError(SAMPLING_SLICE)
         h = RequestHandle(self, i, request, prompt, dec, on_token)
         self._handles.append(h)
         heapq.heappush(self._pending, (h.arrival_s, i, h))
@@ -618,15 +621,43 @@ class Server:
                 self._finish_slot(s, now)
 
     def _chunk_T(self) -> int:
-        """Decode ticks to run this step as one chunk.  More than one needs
-        the engine's fused decode path, which is the fused-decode slice;
-        until then every step is a single per-module tick."""
-        return 1
+        """Decode ticks to run this step as ONE fused chunk.
+
+        When no admission or eviction can fall due mid-chunk, ``T`` decode
+        ticks cost one chunk (``engine.decode_chunk``: T graph replays and
+        one token read) instead of ``T``.  ``T`` is capped by the
+        ``ServeConfig.decode_chunk`` override or the plan's
+        ``decode_chunk``, and clamped to the SHORTEST remaining decode
+        among unfinished slots, so every finish lands exactly at a chunk
+        boundary (timestamps, eviction and §5.1 waste accounting are
+        tick-identical to per-tick stepping).  1 when: an ``eos_id`` is set
+        (finishes are unpredictable), the engine is not fused-eligible, or
+        -- continuous mode -- a queued request could be admitted into a
+        free slot mid-chunk."""
+        cap = self.serve.decode_chunk or getattr(self.plan, "decode_chunk", 1)
+        if cap <= 1 or self.serve.eos_id is not None:
+            return 1
+        if not self._engine.fused_eligible():
+            return 1
+        if self._wave is not None:
+            rem = [h.decode_len - len(h.tokens)
+                   for h, d in zip(self._wave["handles"], self._wave["done"])
+                   if not d]
+        else:
+            if self._pending and self._free:
+                return 1               # a due arrival could admit
+            rem = [h.decode_len - len(h.tokens)
+                   for h in self._slot_handle
+                   if h is not None and not h.finished]
+        if not rem:
+            return 1
+        return max(1, min(int(cap), min(rem)))
 
     def _decode_tick(self, T: int = 1) -> None:
-        """``T`` module-batched decode ticks over the full engine batch;
-        live slots emit their tokens tick by tick, finishers are handed to
-        the policy's finish path."""
+        """``T`` module-batched decode ticks over the full engine batch, one
+        chunk (the fused chunk when the engine is eligible); live slots
+        emit their tokens tick by tick, finishers are handed to the
+        policy's finish path.  One token read per chunk."""
         engine, sampler = self._engine, self._sampler
         wave = self._wave
         # rows the scheduler advances each tick: wave slots (finished members
@@ -639,7 +670,7 @@ class Server:
                   if self._slot_handle[s] is not None]] = True
         t0 = self._now()
         toks = engine.decode_chunk(self._cur, self._pos, sampler, T, live=live)
-        mat = toks.cpu().numpy()              # the one d2h sync per tick
+        mat = toks.cpu().numpy()              # the one d2h sync per chunk
         now = self._now()
         self.report.decode_s += now - t0
         if wave is not None:

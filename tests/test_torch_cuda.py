@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+fused decode chunk's CUDA graph against eager per-module ticks, on a card.
 
 Imports no JAX, so it also runs on a machine without it:
 
@@ -417,3 +418,138 @@ def test_cuda_engine_matches_cpu_engine(cuda):
     scale = float(out["cpu"][0].abs().max())
     assert float((out["cpu"][0] - out["cuda"][0]).abs().max()) / scale < 1e-4
     assert torch.equal(out["cpu"][1], out["cuda"][1])
+
+
+# ---------------------------------------------------------------------------
+# The fused decode chunk: one tick captured as a CUDA graph, replayed
+# ---------------------------------------------------------------------------
+def _fused_setup(cuda, arch, fused, b_a=2, n=4, max_seq=24):
+    """A smoke config in its own dtype (bf16, as served) on the card."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.dag_builder import Plan
+    from repro_torch.core.engine import ModuleBatchingEngine
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch, smoke=True)
+    params = M.init_params(cfg, seed=0, device=cuda)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (n, 12))
+    plan = Plan(B=n, b_a=b_a, b_e=n, omega=0.0, decode_chunk=8)
+    return cfg, params, toks, [ModuleBatchingEngine(cfg, params, plan, max_seq=max_seq,
+                                                    device=cuda, fused_decode=f)
+                               for f in fused]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-370m", "jamba-1.5-large-398b"])
+def test_cuda_graph_ticks_match_eager_ticks(cuda, arch, sampled):
+    """Replayed ticks against eager per-module ticks, bit for bit, on a
+    ragged batch: one chunk of 8 replays of one captured graph."""
+    import numpy as np
+
+    from repro_torch.serving.sampling import SamplingParams
+
+    _, _, toks, (ref, eng) = _fused_setup(cuda, arch, (False, True))
+    lens = np.array([12, 9, 5, 12])
+    sp = SamplingParams(0.8, 5, 13) if sampled else None
+    want = ref.generate(toks, 9, lengths=lens, sampling=sp, chunk=1)
+    got = eng.generate(toks, 9, lengths=lens, sampling=sp)
+    assert torch.equal(got, want)
+    assert (eng.stats.fused_dispatches, eng.stats.fused_ticks) == (1, 8)
+    assert len(eng.graph_captures) == 1 and ref.stats.fused_dispatches == 0
+
+
+@pytest.mark.cuda
+def test_cuda_generate_twice_on_one_engine(cuda):
+    """A second ``generate`` refills the same cache in place and replays the
+    graph captured by the first; a new batch size allocates a new cache
+    and captures again.  Tokens equal the per-module path's throughout."""
+    _, _, toks, (ref, eng) = _fused_setup(cuda, "jamba-1.5-large-398b", (False, True))
+    want = ref.generate(toks, 9, chunk=1)
+    assert torch.equal(eng.generate(toks, 9), want)
+    ptrs = [t.data_ptr() for layer in eng.cache for t in layer.values()]
+    assert torch.equal(eng.generate(toks, 9), want)
+    assert [t.data_ptr() for layer in eng.cache for t in layer.values()] == ptrs
+    assert len(eng.graph_captures) == 1
+    assert torch.equal(eng.generate(toks[:3], 9), ref.generate(toks[:3], 9, chunk=1))
+    assert len(eng.graph_captures) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "jamba-1.5-large-398b"])
+def test_cuda_decode_makes_no_hidden_host_sync(cuda, arch):
+    """The ROADMAP contract "no hidden host syncs on the decode path": under
+    ``set_sync_debug_mode("error")`` a per-module chunk and a fused chunk
+    (greedy and seeded, after their graphs were captured) run without one
+    host wait; the token read after each chunk is the planned one."""
+    import numpy as np
+
+    from repro_torch.serving.sampling import BatchSampler, SamplingParams
+
+    _, _, toks, (ref, eng) = _fused_setup(cuda, arch, (False, True))
+    pos = np.full(4, 12)
+    outs = {}
+    for name, e in (("per-module", ref), ("fused", eng)):
+        cur = e.prefill(toks).argmax(-1)
+        for sp in (None, SamplingParams(0.9, 3, 5)):
+            e.decode_chunk(cur, pos, BatchSampler.uniform(4, sp), 4)      # captures
+            sampler = BatchSampler.uniform(4, sp)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = e.decode_chunk(cur, pos, sampler, 4)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            outs[name, sp is None] = out.cpu()
+    assert all(torch.equal(outs["fused", g], outs["per-module", g]) for g in (True, False))
+
+
+@pytest.mark.cuda
+def test_cuda_replays_add_the_captured_launches(cuda):
+    """``build.LAUNCHES`` after N replays equals N times the launches the
+    capture recorded: a first chunk of one tick (warm-up, capture, one
+    replay) counts one replay.  The graph's memory pool holds segments."""
+    import numpy as np
+
+    from repro_torch.serving.sampling import BatchSampler
+
+    cfg, _, toks, (eng,) = _fused_setup(cuda, "jamba-1.5-large-398b", (True,))
+    cur = eng.prefill(toks).argmax(-1)
+    ops.reset_launch_counts()
+    eng.decode_chunk(cur, np.full(4, 12), BatchSampler.uniform(4, None), 1)
+    delta = eng.graph_captures[0]["launches_per_replay"]
+    assert ops.launch_counts() == {k: delta.get(k, 0) for k in ops.launch_counts()}
+    assert eng.graph_captures[0]["pool_bytes"] > 0
+    n_moe = sum(1 for _, f in eng.schema if f == "moe")
+    n_attn = sum(1 for k, _ in eng.schema if k == "attn")
+    assert delta["expert_gate_up"] == delta["grouped_matmul"] == n_moe > 0
+    assert delta["decode_attention"] == n_attn * 2 > 0          # b_a 2 of B 4
+    assert "flash_attention" not in delta and "ssd_scan" not in delta
+    ops.reset_launch_counts()
+    eng.decode_chunk(cur, np.full(4, 12), BatchSampler.uniform(4, None), 7)
+    assert ops.launch_counts() == {k: 7 * delta.get(k, 0) for k in ops.launch_counts()}
+
+
+@pytest.mark.cuda
+def test_cuda_capture_failure_raises(cuda, monkeypatch):
+    """A tick that cannot be captured (here: a host read inside it) raises
+    from the engine; nothing falls back to eager launches."""
+    import numpy as np
+
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.serving.sampling import BatchSampler
+
+    _, _, toks, (eng,) = _fused_setup(cuda, "olmoe-1b-7b", (True,))
+    cur = eng.prefill(toks).argmax(-1)
+    real = attn_mod.ops.decode_attention
+
+    def reads_the_host(q, k, v, pos):
+        float(q.float().sum())
+        return real(q, k, v, pos)
+
+    monkeypatch.setattr(attn_mod.ops, "decode_attention", reads_the_host)
+    with pytest.raises(RuntimeError):
+        eng.decode_chunk(cur, np.full(4, 12), BatchSampler.uniform(4, None), 2)
+    assert eng.stats.fused_dispatches == 0 and not eng.graph_captures

@@ -189,9 +189,9 @@ def test_later_slices_raise():
     with pytest.raises(NotImplementedError, match="weight-streaming"):
         ModuleBatchingEngine(cfg, tp, Plan(B=2, b_a=2, b_e=2), stream_weights=True,
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="sampling"):
-        from repro_torch.serving.sampling import SamplingParams
-
-        te = ModuleBatchingEngine(cfg, tp, Plan(B=2, b_a=2, b_e=2), device="cpu")
-        te.generate(np.zeros((2, 4), np.int32), 2,
-                    sampling=SamplingParams(temperature=1.0))
+    with pytest.raises(NotImplementedError, match="paging"):
+        ModuleBatchingEngine(cfg, tp, Plan(B=2, b_a=2, b_e=2), cache_config=object(),
+                             device="cpu")
+    with pytest.raises(NotImplementedError, match="loop"):
+        ModuleBatchingEngine(cfg, tp, Plan(B=2, b_a=2, b_e=2), expert_path="loop",
+                             device="cpu")
