@@ -108,6 +108,10 @@ PATH_KERNELS = {
     "serve_long": ("expert_gate_up", "grouped_matmul", "decode_attention",
                    "flash_attention"),
     "serve_ssm": ("ssd_scan",),
+    "serve_streamed": ("expert_gate_up", "grouped_matmul", "decode_attention",
+                       "flash_attention"),
+    "serve_mixtral": ("expert_gate_up", "grouped_matmul", "decode_attention",
+                      "flash_attention"),
 }
 # every launch of a served (bf16, full-size) path must take these designs
 NEW_DESIGNS = (("expert_gate_up", "wgmma"), ("grouped_matmul", "wgmma"),
@@ -320,10 +324,12 @@ WORK = {
 
 
 @contextlib.contextmanager
-def capture_calls(names):
+def capture_calls(names, keep=None):
     """Wrap the kernel ops ``names`` so that a copy of the arguments of each
     one's largest call (by ``WORK``) is kept: the shapes and data the path
-    gives the kernel.  Yields {name: (args, kwargs)}."""
+    gives the kernel.  ``keep(name, args)``, when given, says which calls
+    count (e.g. only those reading streamed weights).  Yields {name: (args,
+    kwargs)}."""
     from repro_torch.kernels import ops
 
     best, saved = {}, {n: getattr(ops, n) for n in names}
@@ -333,6 +339,8 @@ def capture_calls(names):
 
     def wrap(name, fn):
         def call(*args, **kw):
+            if keep is not None and not keep(name, args):
+                return fn(*args, **kw)
             work = WORK[name](*args, **kw)
             if name not in best or work > best[name][0]:
                 best[name] = (work, [copy(a) for a in args],
@@ -1386,7 +1394,7 @@ def phase_serve(dev, params, profile=False):
     profile_path(dev, "serve", cfg, params, plan, requests,
                  max(lens) + decode_len, reports, profile)
     phase_sampled(dev, params)
-    return counts["static"], reports
+    return counts, reports
 
 
 # ---------------------------------------------------------------------------
@@ -1482,6 +1490,520 @@ def phase_serve_ssm(dev, profile=False):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: weight streaming, OLMoE against its resident tokens
+# ---------------------------------------------------------------------------
+STREAMED_BUDGET = 7e9          # OLMoE-1B-7B: the expert stacks of layers 7-15 stream
+# Mixtral-8x7B: 60 GB resident (base, all 32 mixers, the stacks of layers
+# 0-19); the stacks of layers 20-31 stream.  64 prompts of 128..512, decode 16
+MIXTRAL_ARCH, MIXTRAL_BUDGET = "mixtral-8x7b", 60e9
+MIXTRAL_REQUESTS, MIXTRAL_MIN, MIXTRAL_MAX, MIXTRAL_DECODE = 64, 128, 512, 16
+K1K2_KERNELS = ("gate_up_wgmma_kernel", "gemm_wgmma_kernel")
+
+
+def mixtral_lengths(n: int = MIXTRAL_REQUESTS):
+    return [MIXTRAL_MIN + ((MIXTRAL_MAX - MIXTRAL_MIN) * i) // (n - 1) for i in range(n)]
+
+
+def host_meminfo() -> dict:
+    """The card's host memory, GB, from ``/proc/meminfo``."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[f"{key}_gb"] = int(val.split()[0]) * 1024 / 1e9
+    return out
+
+
+def streamed_run(dev, cfg, params, plan, requests, decode_len: int, phase: str,
+                 sched: str, stream=None, store=None) -> dict:
+    """One streamed Server run: ``stream`` (a ``StreamConfig``) has the
+    server build its store from ``params``, or ``store`` is a built one.
+    The launch counts are set to 0 just before the run and read just after;
+    prefill passes are counted.  The deleted server must free its device
+    bytes and, when it built the store, its page-locked host bytes."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import weights as wmod
+    from repro_torch.serving.server import ServeConfig, Server, StreamConfig
+
+    before, pinned = torch.cuda.memory_allocated(), wmod.pinned_bytes()
+    server = Server(cfg, params, plan, serve=ServeConfig(scheduler=sched, decode_len=decode_len),
+                    stream=stream if stream is not None else StreamConfig(), store=store,
+                    device=dev)
+    for r in requests:
+        server.submit(r)
+    server._ensure_engine()
+    eng, waves = server._engine, [0]
+    copied = server._store.copied_bytes
+    real = eng.prefill_slots
+
+    def counted(*a, **kw):
+        waves[0] += 1
+        return real(*a, **kw)
+
+    eng.prefill_slots = counted
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = server.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    del eng.prefill_slots, real, counted     # (the wrapper held the engine)
+    st, built = eng.stats, server._store
+    rec = {"report": rep, "counts": counts, "waves": waves[0],
+           "ticks": rep.decode_slot_steps // server._b, "wall_s": wall,
+           "streamed_bytes": built.streamed_module_bytes(),
+           "streamed_padded_bytes": sum(h.layout.size for h in built._host if h is not None),
+           "copied_bytes": built.copied_bytes - copied, "predict_topk": built.predict_topk,
+           "prefetch_issued": st.prefetch_issued, "demand_fetches": st.demand_fetches,
+           "planned_reads": st.planned_reads, "pinned_gb": wmod.pinned_bytes() / 1e9,
+           "fused_ticks": st.fused_ticks}
+    del server, eng, st, built
+    freed(phase, f"{sched} streamed server", before)
+    if stream is not None and wmod.pinned_bytes() != pinned:
+        raise AssertionError(f"{phase}: the deleted server left "
+                             f"{wmod.pinned_bytes() - pinned} page-locked bytes")
+    return rec
+
+
+def check_streamed(phase: str, sched: str, rec: dict, want_tokens, decode_len: int,
+                   want_counts=None) -> dict:
+    """A streamed run's checks: every request served with ``decode_len``
+    tokens equal to ``want_tokens`` (the resident run's), no routed copy
+    dropped, no decode tick fused, every kernel of the path launched in its
+    new design, and (when given) the same launch counts as the resident
+    run.  With whole stacks, the htod bytes and the bytes really copied are
+    those the plan gives: every streamed stack once a prefill wave and a
+    decode tick.  Per-expert copies depend on the routing; they are held to
+    the profiler trace's copies in ``streamed_profile``.  Returns the
+    printed record."""
+    import numpy as np
+
+    rep, counts = rec["report"], rec["counts"]
+    got = [r.tokens for r in rep.request_results]
+    passes = rec["waves"] + rec["ticks"]
+    whole = rec["predict_topk"] == 0
+    reckoned = (passes * rec["streamed_bytes"], passes * rec["streamed_padded_bytes"])
+    out = {"phase": phase, "scheduler": sched, "wall_s": rec["wall_s"],
+           "prefill_tokens": rep.prefill_tokens, "prefill_s": rep.prefill_s,
+           "prefill_tok_s": rep.prefill_throughput, "decode_tokens": rep.decode_tokens,
+           "decode_s": rep.decode_s, "decode_tok_s": rep.decode_throughput,
+           "server_ms_per_tick": rep.decode_s * 1e3 / max(1, rec["ticks"]),
+           "prefill_waves": rec["waves"], "decode_ticks": rec["ticks"],
+           "htod_gb": rep.htod_gb,
+           "htod_reckoned_gb": reckoned[0] / 1e9 if whole else None,
+           "htod_gb_per_pass": rep.htod_gb / max(1, passes),
+           "copied_gb": rec["copied_bytes"] / 1e9,
+           "copied_reckoned_gb": reckoned[1] / 1e9 if whole else None,
+           "prefetch_wait_s": rep.prefetch_wait_s,
+           "prefetch_issued": rec["prefetch_issued"], "demand_fetches": rec["demand_fetches"],
+           "expert_pred_hits": rep.expert_pred_hits,
+           "expert_pred_misses": rep.expert_pred_misses,
+           "expert_lru_hits": rep.expert_lru_hits, "pred_hit_rate": rep.pred_hit_rate,
+           "lru_hit_rate": rep.lru_hit_rate, "planned_reads": rec["planned_reads"],
+           "pinned_gb": rec["pinned_gb"], "dropped": rep.expert_tokens_dropped,
+           "launches": counts}
+    emit(out)
+    if len(got) != len(want_tokens) or any(t.size != decode_len for t in got):
+        raise AssertionError(f"{phase} {sched}: wrong number of tokens served")
+    for i, (a, b) in enumerate(zip(got, want_tokens)):
+        if not np.array_equal(a, b):
+            step = int(np.flatnonzero(a != b)[0]) if a.shape == b.shape else -1
+            raise AssertionError(f"{phase} {sched}: request {i} differs from the resident "
+                                 f"tokens, first at step {step}")
+    if rep.expert_tokens_dropped or rec["fused_ticks"]:
+        raise AssertionError(f"{phase} {sched}: {rep.expert_tokens_dropped} copies "
+                             f"dropped, {rec['fused_ticks']} fused ticks")
+    if whole and (rep.weight_htod_bytes, rec["copied_bytes"]) != reckoned:
+        raise AssertionError(f"{phase} {sched}: {rep.weight_htod_bytes} htod bytes and "
+                             f"{rec['copied_bytes']} copied, {reckoned} reckoned")
+    on_card = rec["report"] is not None and torch.cuda.is_available()
+    if on_card and not all(counts[k] > 0 for k in PATH_KERNELS[phase]):
+        raise AssertionError(f"{phase} {sched}: a kernel of the path was never launched: "
+                             f"{counts}")
+    if on_card and any(counts[k] != counts[f"{k}_{d}"] for k, d in NEW_DESIGNS):
+        raise AssertionError(f"{phase} {sched}: a launch did not take its new design: "
+                             f"{counts}")
+    if want_counts is not None and counts != want_counts:
+        raise AssertionError(f"{phase} {sched}: launch counts {counts} differ from the "
+                             f"resident run's {want_counts}")
+    return out
+
+
+def stream_overlap(prof) -> dict:
+    """From a torch.profiler trace: the device time of the weight copies
+    (host-to-device copies of 1 MB or more) and of K1/K2, the streams each
+    ran on, the copies' bandwidth, and the time K1/K2 ran while a copy was
+    in flight."""
+    path = os.path.join(ROOT, "build", "streamed_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.remove(path)
+    copies, gemms, kernel_us = [], [], 0.0
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        args, cat, nm = ev.get("args", {}), ev.get("cat", ""), ev.get("name", "")
+        span = (float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0)),
+                args.get("stream"), float(args.get("bytes", 0)))
+        if cat == "gpu_memcpy" and "HtoD" in nm and span[3] >= 1 << 20:
+            copies.append(span)
+        elif cat == "kernel":
+            kernel_us += span[1] - span[0]
+            if any(k in nm for k in K1K2_KERNELS):
+                gemms.append(span)
+    copy_us = sum(e - b for b, e, _, _ in copies)
+    gemm_us = sum(e - b for b, e, _, _ in gemms)
+    overlap_us = sum(max(0.0, min(e1, e2) - max(b1, b2))
+                     for b1, e1, _, _ in copies for b2, e2, _, _ in gemms)
+    nbytes = sum(c[3] for c in copies)
+    return {"kernel_ms": kernel_us / 1e3,
+            "weight_copies": len(copies), "copy_ms": copy_us / 1e3,
+            "copy_bytes": int(nbytes), "copy_gb": nbytes / 1e9,
+            "copy_gb_s": nbytes / (copy_us / 1e6) / 1e9 if copy_us else 0.0,
+            "copy_streams": sorted({str(c[2]) for c in copies}),
+            "k1k2_launches": len(gemms), "k1k2_ms": gemm_us / 1e3,
+            "k1k2_streams": sorted({str(g[2]) for g in gemms}),
+            "k1k2_ms_during_copies": overlap_us / 1e3,
+            "k1k2_share_during_copies": overlap_us / gemm_us if gemm_us else 0.0}
+
+
+def streamed_profile(dev, phase: str, cfg, params, plan, requests, max_seq: int,
+                     store, steps: int = 2, capture: bool = True):
+    """A fresh engine over ``store``: a prefill of the prompts and ``steps``
+    per-module ticks with the kernels' largest calls captured (K1/K2 only
+    where they read streamed weights, out of a window slot or the expert
+    stacks), then ``steps`` ticks under torch.profiler (copies against
+    K1/K2, ``stream_overlap``: with whole stacks K1/K2 must run while a
+    copy is in flight, on another stream), the wall of a chunk with its
+    token read, and the sync sites of a chunk: none, the predictive reads
+    being planned and counted.  Returns (captured calls, the record)."""
+    from repro_torch.core.engine import ModuleBatchingEngine
+    from repro_torch.serving.sampling import BatchSampler
+
+    eng = ModuleBatchingEngine(cfg, params, plan, max_seq=max_seq, store=store, device=dev)
+    prompts, lengths = padded_prompts(requests)
+    sampler = BatchSampler.uniform(len(requests), None)
+    streamed = {t.untyped_storage().data_ptr() for t in store._window._slots}
+    streamed |= {t.untyped_storage().data_ptr() for t in store._stack.values()}
+
+    def keep(name, args):
+        return name != "grouped_expert_ffn" or args[1].untyped_storage().data_ptr() in streamed
+
+    names = ("grouped_expert_ffn", "flash_attention") if capture else ()
+    with capture_calls(names, keep) as pre:
+        tok0 = sampler.sample(eng.prefill(prompts, lengths=lengths))
+    names = ("grouped_expert_ffn", "decode_attention") if capture else ()
+    with capture_calls(names, keep) as dec:
+        eng.decode_chunk(tok0, lengths, sampler, steps).cpu()
+
+    def chunk():
+        return eng.decode_chunk(tok0, lengths, sampler, steps)
+
+    n_pred = sum(store.streams_experts(li) for li in range(cfg.num_layers))
+    wall = host_ms(lambda: chunk().cpu()) / steps
+    reads = eng.stats.planned_reads
+    hidden = sync_sites(chunk)
+    reads = eng.stats.planned_reads - reads
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    copied = store.copied_bytes
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        chunk().cpu()
+        torch.cuda.synchronize()
+    copied = store.copied_bytes - copied
+    ov = stream_overlap(prof)
+    rec = {"phase": "profile", "what": f"{phase} streamed decode tick B={len(requests)}, "
+           f"per-module, predict_topk={store.predict_topk}", "steps": steps,
+           "wall_ms_per_tick": wall,
+           "streamed_gb_per_tick": store.streamed_module_bytes() / 1e9,
+           **{k: v / steps if k.endswith("_ms") else v for k, v in ov.items()},
+           "sync_sites_in_chunk": hidden, "planned_reads_in_chunk": reads,
+           "planned_reads_expected": steps * n_pred,
+           "prefetch_depth": store.prefetch_depth, "copied_bytes_in_chunk": copied}
+    if ov["copy_gb_s"]:
+        rec["tick_wall_over_bytes_per_bw"] = wall / (
+            store.streamed_module_bytes() / (ov["copy_gb_s"] * 1e9) * 1e3)
+    emit(rec)
+    if hidden:
+        raise AssertionError(f"{phase}: host syncs inside a streamed decode chunk: {hidden}")
+    if reads != steps * n_pred:
+        raise AssertionError(f"{phase}: {reads} planned reads in {steps} ticks, expected "
+                             f"{steps * n_pred}")
+    # the bytes the store says it queued are those the card copied host to
+    # device, as its trace records them (every weight copy is 1 MB or more)
+    if dev.type == "cuda" and copied != ov["copy_bytes"]:
+        raise AssertionError(f"{phase}: the store queued {copied} bytes of weight copies "
+                             f"in the chunk, the trace shows {ov['copy_bytes']}")
+    # whole stacks: a layer's copy is issued a layer ahead and must run under
+    # K1/K2.  Per-expert copies are issued one by one after the layer's
+    # planned read, and may all land before the host reaches K1/K2
+    overlap = ov["k1k2_ms_during_copies"] > 0 or store.predict_topk > 0
+    if dev.type == "cuda" and not (
+            ov["weight_copies"] and overlap
+            and set(ov["copy_streams"]).isdisjoint(ov["k1k2_streams"])):
+        raise AssertionError(f"{phase}: K1/K2 do not overlap the weight copies on a stream "
+                             f"of their own: {ov}")
+    del eng
+    calls = {("prefill", k): v for k, v in pre.items()}
+    calls.update({("decode", k): v for k, v in dec.items()})
+    return calls, rec
+
+
+def phase_serve_streamed(dev, params, resident=None):
+    """OLMoE-1B-7B on the serve phase's 64 requests and weights, with
+    ``resident_bytes`` 7 GB: the expert stacks of layers 7-15 in page-locked
+    host memory.  Whole-stack streaming, then predictive streaming at
+    ``predict_topk`` 8, each under both schedulers: tokens equal to the
+    resident ``serve`` tokens bit for bit (``resident``: that phase's
+    (counts, reports); run here when the phase did not), launch counts
+    equal to the resident run's, with whole stacks the htod bytes and the
+    bytes copied as reckoned (9 stacks a prefill wave and a decode tick).
+    Then the streamed tick's profile for each (the experts copied held to
+    the trace's copies), and K1/K2 held to their plain versions on calls
+    that read streamed weights: out of a window slot, and out of the
+    per-expert stacks the expert window fills."""
+    from repro_torch.core import workload as W
+    from repro_torch.data.datasets import DatasetSpec, synthetic_requests
+    from repro_torch.serving.server import StreamConfig
+
+    cfg, plan, lens, decode_len = serve_setup(short_lengths(), 32)
+    n = len(lens)
+    requests = synthetic_requests(DatasetSpec("smoke", n, max(lens), decode_len),
+                                  cfg.vocab_size, seed=0, prompt_lens=lens)
+    if resident is None:
+        counts, reports = {}, {}
+        for sched in ("static", "continuous"):
+            rec = streamed_run(dev, cfg, params, plan, requests, decode_len,
+                               "serve_streamed", sched)
+            counts[sched], reports[sched] = rec["counts"], rec["report"]
+        resident = (counts, reports)
+    want = [r.tokens for r in resident[1]["static"].request_results]
+    rp = W.plan_residency(cfg, STREAMED_BUDGET)
+    layers = [i for i, r in enumerate(rp.ffn_resident) if not r]
+    emit({"phase": "serve_streamed", "resident_bytes": STREAMED_BUDGET,
+          "resident_gb": rp.resident_bytes / 1e9, "streamed_stack_layers": layers,
+          "streamed_gb": len(layers) * W.ffn_module_weight_bytes(cfg, "moe") / 1e9,
+          "host": host_meminfo()})
+    first = None
+    for khat in (0, 8):
+        stream = StreamConfig(stream_weights=True, resident_bytes=STREAMED_BUDGET,
+                              predict_topk=khat)
+        for sched in ("static", "continuous"):
+            rec = streamed_run(dev, cfg, params, plan, requests, decode_len,
+                               "serve_streamed", sched, stream=stream)
+            out = check_streamed("serve_streamed", sched, rec, want, decode_len,
+                                 resident[0][sched])
+            out["predict_topk"] = khat
+            first = first or rec["counts"]
+    rows = []
+    from repro_torch.serving.weights import ParamStore
+
+    for khat in (0, 8):
+        before = torch.cuda.memory_allocated()
+        store = ParamStore.build(cfg, params, plan, stream_weights=True,
+                                 resident_bytes=STREAMED_BUDGET, predict_topk=khat,
+                                 device=dev)
+        calls, _ = streamed_profile(dev, "serve_streamed", cfg, None, plan, requests,
+                                    max(lens) + decode_len, store)
+        del store
+        got = check_path_kernels("serve_streamed" + ("-expert-window" if khat else ""),
+                                 calls)
+        rows += got
+        del calls, got
+        freed("serve_streamed", f"profiled store (predict_topk {khat}) and its captures",
+              before)
+    return first, rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: full-width, full-depth Mixtral-8x7B with 12 expert stacks streamed
+# ---------------------------------------------------------------------------
+def mixtral_parity(dev):
+    """Mixtral at full width but 2 layers, f32, the stack of layer 1
+    streamed through the window: the card's engine (kernels) against the
+    CPU's (plain versions, every weight resident) on a ragged batch,
+    prefill and 3 decode steps: logits within 1e-3 of their scale, the
+    same greedy tokens, K1-K4 launched on the card."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import workload as W
+    from repro_torch.core.dag_builder import Plan
+    from repro_torch.core.engine import ModuleBatchingEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.weights import ParamStore
+
+    torch.exp(torch.linspace(-10.0, 0.0, 1 << 20))     # (see phase_parity)
+    cfg = replace(get_config(MIXTRAL_ARCH), num_layers=2, dtype="float32")
+    budget = (W.base_weight_bytes(cfg) + 2 * W.mixer_weight_bytes(cfg, "attn")
+              + W.ffn_module_weight_bytes(cfg, "moe"))
+    before = torch.cuda.memory_allocated()
+    params = M.init_params(cfg, seed=1, device=dev)
+    cpu_params = _to_cpu(params)
+    store = ParamStore(cfg, params, resident_bytes=budget, device=dev)
+    del params
+    streamed = [li for li in range(2) if store._host[li] is not None]
+    B, S = 4, 48
+    lengths = np.array([48, 31, 9, 48])
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
+    plan = Plan(B=B, b_a=B, b_e=B, omega=0.0)
+    out = {}
+    for where in (dev, "cpu"):
+        ops.reset_launch_counts()
+        eng = (ModuleBatchingEngine(cfg, None, plan, max_seq=S + 8, store=store, device=dev)
+               if where == dev else
+               ModuleBatchingEngine(cfg, cpu_params, plan, max_seq=S + 8, device="cpu"))
+        t0 = time.perf_counter()
+        lg = [eng.prefill(prompts, lengths=lengths).float().cpu()]
+        toks = [lg[0].argmax(-1)]
+        for t in range(3):
+            lg.append(eng.decode_step(toks[-1], lengths + t).float().cpu())
+            toks.append(lg[-1].argmax(-1))
+        out["cpu" if where == "cpu" else "card"] = (lg, toks, time.perf_counter() - t0,
+                                                    ops.launch_counts())
+        del eng
+    scale = float(out["cpu"][0][0].abs().max())
+    errs = [float((a - b).abs().max()) / scale for a, b in zip(out["card"][0], out["cpu"][0])]
+    same = all(torch.equal(a, b) for a, b in zip(out["card"][1], out["cpu"][1]))
+    launched = {k: out["card"][3][k] for k in PATH_KERNELS["serve_mixtral"]}
+    htod = store.take_counters()[0]
+    emit({"phase": "serve_mixtral", "what": "parity", "layers": 2, "dtype": "float32",
+          "streamed_layers": streamed, "B": B, "S": S, "lengths": lengths.tolist(),
+          "rel_err_per_step": errs, "tolerance": 1e-3, "tokens_match": same,
+          "card_launches": launched, "card_htod_gb": htod / 1e9,
+          "cpu_s": out["cpu"][2], "cuda_s": out["card"][2]})
+    del store, out
+    torch.cuda.empty_cache()
+    freed("serve_mixtral", "parity store", before)
+    if streamed != [1]:
+        raise AssertionError(f"parity: streamed layers {streamed}, expected [1]")
+    if not (max(errs) < 1e-3 and same):
+        raise AssertionError(f"Mixtral card vs CPU: errors {errs}, tokens match {same}")
+    if not ((dev.type != "cuda" or all(v > 0 for v in launched.values())) and htod > 0):
+        raise AssertionError(f"Mixtral card vs CPU: a kernel was never launched "
+                             f"({launched}) or nothing streamed ({htod} bytes)")
+
+
+def phase_serve_mixtral(dev):
+    """Full-width, full-depth Mixtral-8x7B (bf16, seeded) built by
+    ``ParamStore.seeded`` with 60 GB resident: the stacks of layers 20-31
+    (33.8 GB) in page-locked host memory.  64 requests of 128..512 tokens,
+    decode 16, B 64, the planner's b_a, b_e = B: whole-stack streaming
+    under both schedulers, the streamed tick's profile with K1-K4 captured
+    (K1/K2 on weights that came through the window) and held to their plain
+    versions once the store is freed, then a store with the planner's
+    ``predict_topk`` (4), static, and its tick's profile (the experts
+    copied held to the trace's copies).  The three runs give identical
+    tokens; whole-stack htod and copied bytes as reckoned; every store and
+    server frees its device and page-locked bytes.  Then
+    ``mixtral_parity``."""
+    import numpy as np
+
+    from repro_torch.core import planner
+    from repro_torch.core import workload as W
+    from repro_torch.data.datasets import DatasetSpec, synthetic_requests
+    from repro_torch.serving import weights as wmod
+    from repro_torch.serving.weights import ParamStore
+
+    t_phase = time.perf_counter()
+    cfg, plan, lens, decode_len = serve_setup(mixtral_lengths(), MIXTRAL_DECODE, MIXTRAL_ARCH)
+    n, max_seq = len(lens), MIXTRAL_MAX + MIXTRAL_DECODE
+    rp = W.plan_residency(cfg, MIXTRAL_BUDGET)
+    stack = W.ffn_module_weight_bytes(cfg, "moe")
+    layers = [i for i, r in enumerate(rp.ffn_resident) if not r]
+    kv = n * max_seq * cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * 2
+    # reckoned before the first card run: about 2.5 GB of live activations in
+    # one layer of a 32-prompt prefill micro-batch (the (E, C, F) h of K1 at
+    # C 4096 is 0.94 GB of it)
+    reckoning = {"resident_gb": rp.resident_bytes / 1e9,
+                 "base_gb": W.base_weight_bytes(cfg) / 1e9,
+                 "mixers_gb": cfg.num_layers * W.mixer_weight_bytes(cfg, "attn") / 1e9,
+                 "resident_stacks_gb": (cfg.num_layers - len(layers)) * stack / 1e9,
+                 "window_gb": 2 * stack / 1e9, "kv_gb": kv / 1e9,
+                 "prefill_activations_gb": 2.5}
+    reckoning["device_total_gb"] = (reckoning["resident_gb"] + reckoning["window_gb"]
+                                    + reckoning["kv_gb"] + 2.5)
+    khat = planner.default_predict_topk(cfg)
+    emit({"phase": "serve_mixtral", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "experts": cfg.num_experts, "d_ff": cfg.moe_d_ff,
+          "model_gb": W.model_bytes(cfg) / 1e9, "requests": n,
+          "prompt_lens": [min(lens), max(lens)], "prompt_tokens": sum(lens),
+          "decode_len": decode_len, "max_seq": max_seq,
+          "plan": {"B": plan.B, "b_a": plan.b_a, "b_e": plan.b_e, "predict_topk": khat},
+          "resident_bytes": MIXTRAL_BUDGET, "streamed_stack_layers": layers,
+          "streamed_gb": len(layers) * stack / 1e9, "memory_reckoning": reckoning,
+          "host": host_meminfo(), "card_total_gb": (
+              torch.cuda.get_device_properties(dev).total_memory / 1e9
+              if dev.type == "cuda" else None)})
+    requests = synthetic_requests(DatasetSpec("mixtral", n, MIXTRAL_MAX, decode_len),
+                                  cfg.vocab_size, seed=0, prompt_lens=lens)
+    torch.cuda.reset_peak_memory_stats()
+    before, pinned = torch.cuda.memory_allocated(), wmod.pinned_bytes()
+
+    def build(k):
+        t0 = time.perf_counter()
+        store = ParamStore.seeded(cfg, 0, resident_bytes=MIXTRAL_BUDGET, predict_topk=k,
+                                  device=dev)
+        torch.cuda.synchronize()
+        emit({"phase": "serve_mixtral", "store": store.describe(),
+              "build_s": time.perf_counter() - t0,
+              "resident_module_gb": store.resident_module_bytes() / 1e9,
+              "streamed_module_gb": store.streamed_module_bytes() / 1e9,
+              "device_buffers_gb": store.device_buffer_bytes() / 1e9,
+              "pinned_gb": wmod.pinned_bytes() / 1e9,
+              "allocated_gb": torch.cuda.memory_allocated() / 1e9, "host": host_meminfo()})
+        return store
+
+    def release(store_name):
+        torch.cuda.empty_cache()
+        freed("serve_mixtral", store_name, before)
+        if wmod.pinned_bytes() != pinned:
+            raise AssertionError(f"serve_mixtral: {store_name} left "
+                                 f"{wmod.pinned_bytes() - pinned} page-locked bytes")
+
+    store = build(0)
+    tokens, counts = {}, {}
+    for sched in ("static", "continuous"):
+        rec = streamed_run(dev, cfg, None, plan, requests, decode_len, "serve_mixtral",
+                           sched, store=store)
+        got = [r.tokens for r in rec["report"].request_results]
+        check_streamed("serve_mixtral", sched, rec, tokens.get("static", got), decode_len,
+                       counts.get("static"))
+        tokens[sched], counts[sched] = got, rec["counts"]
+    calls, _ = streamed_profile(dev, "serve_mixtral", cfg, None, plan, requests, max_seq, store)
+    del store                        # room for the plain versions' f32 copies
+    rows = check_path_kernels("serve_mixtral", calls)
+    del calls
+    release("whole-stack store and the captured calls")
+    store = build(khat)
+    rec = streamed_run(dev, cfg, None, plan, requests, decode_len, "serve_mixtral", "static",
+                       store=store)
+    out = check_streamed("serve_mixtral", "static", rec, tokens["static"], decode_len,
+                         counts["static"])
+    n_pred = sum(store.streams_experts(li) for li in range(cfg.num_layers))
+    if rec["planned_reads"] != rec["ticks"] * n_pred:
+        raise AssertionError(f"serve_mixtral: {rec['planned_reads']} planned reads, "
+                             f"expected {rec['ticks']} ticks x {n_pred} layers")
+    streamed_profile(dev, "serve_mixtral", cfg, None, plan, requests, max_seq, store,
+                     capture=False)
+    del store, rec
+    release("predictive store")
+    emit({"phase": "serve_mixtral", "runs_identical": True, "predict_topk": khat,
+          "predictive_decode_tok_s": out["decode_tok_s"],
+          "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "tokens_in_range": bool(np.concatenate(tokens["static"]).max() < cfg.vocab_size)})
+    mixtral_parity(dev)
+    emit({"phase": "serve_mixtral", "seconds": time.perf_counter() - t_phase})
+    return counts["static"], rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: card against CPU, f32
 # ---------------------------------------------------------------------------
 def _to_cpu(tree):
@@ -1572,11 +2094,12 @@ def phase_parity(dev):
         torch.cuda.empty_cache()
 
 
-def kernels_line(rows, launches) -> list:
+def kernels_line(rows, launches, path_rows=None) -> list:
     """One entry per kernel, at the shape of the path it serves most: K1-K3
     the short serve path, K4 the long one, K5 the SSM one; "launches" is
     that path's count (from its static run), "launches_by_path" every
-    path's."""
+    path's.  ``path_rows`` ({path: rows of check_path_kernels}) adds, per
+    kernel, its first row on that path's own inputs (e.g. Mixtral's)."""
     home = {"flash_attention": "serve_long", "ssd_scan": "serve_ssm"}
     seen, line_rows = set(), []
     for r in rows:
@@ -1597,12 +2120,20 @@ def kernels_line(rows, launches) -> list:
             "design": r["design"],
             "prev_ms": r.get("prev_ms"), "ms_again": r.get("ms_again"),
         })
+        for path, prow in (path_rows or {}).items():
+            mine = next((x for x in prow if x["name"] == r["name"]), None)
+            if mine is not None:
+                line_rows[-1][f"{path}_case"] = {
+                    k: mine.get(k) for k in ("case", "design", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms", "max_abs_err",
+                                             "rel_err")}
     return line_rows
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="kernels,serve,serve_long,serve_ssm,parity,profile")
+    ap.add_argument("--phases", default="kernels,serve,serve_long,serve_streamed,serve_ssm,"
+                                        "serve_mixtral,parity,profile")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1649,21 +2180,28 @@ def main() -> int:
                              ssm_b_a=ssm_plan.b_a)
         emit({"kernel_cases": rows})
     launches = {}                           # per path: counts from its static run
-    if phases & {"serve", "serve_long"}:
+    path_rows = {}                          # per streamed path: its kernel rows
+    if phases & {"serve", "serve_long", "serve_streamed"}:
         params = init_weights(dev)
+        resident = None
         if "serve" in phases:
-            launches["serve"], _ = phase_serve(dev, params,
-                                               profile="profile" in phases)
+            resident = phase_serve(dev, params, profile="profile" in phases)
+            launches["serve"] = resident[0]["static"]
         if "serve_long" in phases:
             launches["serve_long"], _ = phase_serve_long(dev, params,
                                                          profile="profile" in phases)
-        del params
+        if "serve_streamed" in phases:
+            launches["serve_streamed"], path_rows["serve_streamed"] = phase_serve_streamed(
+                dev, params, resident)
+        del params, resident
         torch.cuda.empty_cache()
     if "serve_ssm" in phases:
         launches["serve_ssm"], _ = phase_serve_ssm(dev, profile="profile" in phases)
+    if "serve_mixtral" in phases:
+        launches["serve_mixtral"], path_rows["serve_mixtral"] = phase_serve_mixtral(dev)
     if "parity" in phases:
         phase_parity(dev)
-    line_rows = kernels_line(rows, launches)
+    line_rows = kernels_line(rows, launches, path_rows)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     if line_rows:
         emit({"kernels": line_rows})

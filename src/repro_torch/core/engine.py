@@ -40,9 +40,22 @@ Cache ownership: the engine owns the per-layer KV buffers and SSM states;
 decode, prefill insertion and eviction write them in place and their
 ``data_ptr()``s never change.  Callers never keep a reference across a tick.
 
+Weight residency (the paper's S_Params / S_Expert, Fig. 6): every stage
+reads its parameters through a ``serving.weights.ParamStore``.  With
+``stream_weights`` the store keeps the plan's greedy resident set on the
+device and the rest in page-locked host memory; the engine prefetches
+layer *l+1*'s streamed modules after layer *l*'s mixer and before its FFN,
+on the copy stream, so the copy hides behind the grouped expert GEMM.
+With the plan's ``predict_topk`` > 0 a streamed MoE layer reads back one
+packed vector (its used experts and the next streamed MoE layer's
+predicted ones) -- the one planned host read of such a layer in a decode
+tick, counted in ``EngineStats.planned_reads`` -- fetches only the
+experts it uses and prefetches the predicted ones.  A streamed engine
+decodes per module and captures no graph.  Streamed and resident engines
+give the same tokens.
+
 Out of the port so far, each raising ``NotImplementedError`` that names its
-slice: host attention (omega > 0), weight streaming, paged KV, and the loop
-expert path.
+slice: host attention (omega > 0), paged KV, and the loop expert path.
 """
 from __future__ import annotations
 
@@ -90,12 +103,36 @@ class EngineStats:
     fused_dispatches: int = 0            # fused decode chunks issued
     fused_ticks: int = 0                 # decode ticks served by fused chunks
     decode_retraces: int = 0             # distinct fused (B, path, chunk) keys
+    weight_htod_bytes: int = 0           # streamed weight bytes copied htod
+    prefetch_wait_s: float = 0.0         # compute stream's wait on the copies
+    prefetch_issued: int = 0             # prefetches issued (store total)
+    demand_fetches: int = 0              # fetches on demand (store total)
+    expert_pred_hits: int = 0            # routed experts found prefetched
+    expert_pred_misses: int = 0          # routed experts fetched on demand
+    expert_lru_hits: int = 0             # routed experts served from the LRU
+    expert_lru_bytes: int = 0            # device bytes the LRU holds
+    planned_reads: int = 0               # predictive stage's host reads
 
 
 # one side stream per device on which every engine warms up and captures
 # its decode graphs: cuBLAS keeps a workspace per (handle, stream) for the
 # life of the process, so a stream per engine would leave one per engine
 _CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+@contextlib.contextmanager
+def planned_read(t: torch.Tensor) -> Iterator[None]:
+    """A host read the decode path plans: inside it the sync debug mode
+    (the port's guard against hidden host syncs) is off."""
+    if t.device.type != "cuda":
+        yield
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
 
 
 def capture_stream(device: torch.device) -> "torch.cuda.Stream":
@@ -136,6 +173,13 @@ class ModuleBatchingEngine:
     ``expert_path='grouped'`` is the only MoE stage of this slice: one
     grouped-dispatch launch per MoE layer with capacity ``plan.b_e``;
     prefill shares the grouped dispatch at a zero-drop capacity.
+
+    ``stream_weights``, ``resident_bytes`` and ``prefetch`` go to
+    ``ParamStore.build`` (predictive streaming follows the plan's
+    ``predict_topk``), or pass a built ``store`` (``params`` may then be
+    None).  ``predictor`` is a test seam: a callable ``(next layer, khat)
+    -> expert ids`` that replaces the device's prediction for what to
+    prefetch, never what is computed.
     """
 
     def __init__(
@@ -151,6 +195,7 @@ class ModuleBatchingEngine:
         cache_config=None,
         device="cuda",
         fused_decode: bool = True,
+        prefetch: bool = True,
     ) -> None:
         if expert_path != "grouped":
             raise NotImplementedError(LOOP_SLICE)
@@ -166,9 +211,10 @@ class ModuleBatchingEngine:
         if store is None:
             store = ParamStore.build(
                 cfg, params, plan, stream_weights=stream_weights,
-                resident_bytes=resident_bytes, device=self.device,
+                resident_bytes=resident_bytes, prefetch=prefetch, device=self.device,
             )
         self.store = store
+        self.predictor = None
         self.schema = store.schema                  # [(kind, ffn)] per layer
         self.cache: Optional[List[Dict[str, torch.Tensor]]] = None
         self.stats = EngineStats()
@@ -199,7 +245,8 @@ class ModuleBatchingEngine:
         return max(1, min(self.plan.b_e, batch))
 
     def sync_stats(self) -> EngineStats:
-        """Materialize the device-side expert counters (one host sync)."""
+        """Materialize the device-side expert counters (one host sync) and
+        drain the store's transfer and prediction counters."""
         self.stats.expert_tokens += int(self._kept_dev)
         n_moe = len(self._moe_layers)
         if n_moe:
@@ -213,6 +260,16 @@ class ModuleBatchingEngine:
             self.stats.expert_load += load
         for t in (self._kept_dev, self._dropped_dev, self._load_dev):
             t.zero_()
+        htod, wait = self.store.take_counters()
+        self.stats.weight_htod_bytes += htod
+        self.stats.prefetch_wait_s += wait
+        self.stats.prefetch_issued = self.store.prefetch_issued
+        self.stats.demand_fetches = self.store.demand_fetches
+        ec = self.store.take_expert_counters()
+        self.stats.expert_pred_hits += ec["pred_hits"]
+        self.stats.expert_pred_misses += ec["pred_misses"]
+        self.stats.expert_lru_hits += ec["lru_hits"]
+        self.stats.expert_lru_bytes = ec["lru_bytes_used"]
         return self.stats
 
     # -- cache management ---------------------------------------------
@@ -287,6 +344,7 @@ class ModuleBatchingEngine:
         xs = [embed[tokens[lo:hi]] for lo, hi in spans]
         for li, (kind, ffn) in enumerate(self.schema):
             p = self.store.acquire(li)
+            self.store.prefetch(li + 1)     # hide l+1's copy behind this layer
             outs = []
             for j, ((lo, hi), x) in enumerate(zip(spans, xs)):
                 ln = None if lengths is None else lengths[lo:hi]
@@ -348,9 +406,10 @@ class ModuleBatchingEngine:
     def fused_eligible(self) -> bool:
         """True when decode takes the fused chunk (a CUDA graph of the tick
         on the card): fused decode on, grouped expert dispatch, and every
-        weight resident (streamed layers would need the per-layer loop for
-        the prefetch to overlap with).  omega is always 0 and no cache is
-        paged in this port so far (both raise at construction)."""
+        weight resident (a streamed layer keeps the per-module loop: the
+        prefetch needs the layer boundary to hide behind, and a graph would
+        hold the window's slots at fixed addresses).  omega is always 0 and
+        no cache is paged in this port so far (both raise at construction)."""
         return (self.fused_decode and self.store.fully_resident)
 
     # -- decode -----------------------------------------------------------
@@ -374,17 +433,24 @@ class ModuleBatchingEngine:
     def _decode_rows(self, tokens: torch.Tensor, pos: torch.Tensor,
                      row0: int) -> torch.Tensor:
         """Per-module decode over batch rows ``[row0, row0 + n)``: every
-        module of one tick, in order, and nothing else (no host read, no
-        Python counter: the fused tick captures exactly this)."""
+        module of one tick, in order (the fused tick captures exactly this:
+        with every weight resident the store's calls do nothing on the
+        device).  A streamed layer's prefetch of layer ``li + 1`` goes out
+        after its mixer, before its FFN; a predictively streamed MoE layer
+        makes the tick's one planned host read of that layer."""
         cfg = self.cfg
         x = self.store.base["embed"][tokens]
         for li, (kind, ffn) in enumerate(self.schema):
-            p = self.store.acquire(li)
+            predictive = ffn == "moe" and self.store.streams_experts(li)
+            p = self.store.acquire(li, experts=not predictive)
             if kind == "attn":
                 x = x + self._attention_stage(li, p, x, pos, row0)
             else:
                 x = x + self._ssm_stage(li, p, x, row0)
-            if ffn == "moe":
+            self.store.prefetch(li + 1)     # before the FFN / grouped launch
+            if predictive:
+                x = x + self._expert_stage_predictive(li, x)
+            elif ffn == "moe":
                 x = x + self._expert_stage_grouped(li, p, x)
             elif cfg.d_ff > 0 and "ffn" in p:
                 x = x + ffn_apply(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
@@ -431,6 +497,50 @@ class ModuleBatchingEngine:
             cfg, h, gates, idx, moe["experts_w_gate"], moe["experts_w_up"],
             moe["experts_w_down"], self._expert_capacity(x.shape[0]),
         )
+        j = self._moe_index[li]
+        self._kept_dev += kept
+        self._dropped_dev[j] += dropped
+        self._load_dev[j] += load
+        return y
+
+    def _next_streamed_moe(self, li: int) -> int:
+        """The next MoE layer (wrapping) whose experts stream one by one:
+        what layer ``li`` predicts for.  Its router is resident."""
+        streamed = [m for m in self._moe_layers if self.store.streams_experts(m)]
+        return streamed[(streamed.index(li) + 1) % len(streamed)]
+
+    def _expert_stage_predictive(self, li, x) -> torch.Tensor:
+        """The MoE stage of a predictively streamed layer: route this layer
+        and predict the next streamed one, read back one packed int32
+        vector -- the (E,) routed-copy counts, then the khat predicted ids
+        (the planned read, one per layer and tick) -- assemble the stacks
+        of the experts used, prefetch the predicted set for the next layer,
+        then the grouped FFN.  The FFN consumes the true routing, so the
+        output equals the whole-stack path's whatever was predicted."""
+        cfg, store = self.cfg, self.store
+        E = cfg.num_experts
+        shared = store.moe_shared(li)
+        nli = self._next_streamed_moe(li)
+        khat = store.predict_topk
+        h = rms_norm(x, shared["norm2"], cfg.norm_eps)
+        gates, idx, _ = moe_mod.route(cfg, shared["router"], h)
+        used = torch.zeros((E,), dtype=torch.int32, device=x.device)
+        used.scatter_add_(0, idx.reshape(-1), torch.ones_like(idx.reshape(-1),
+                                                              dtype=torch.int32))
+        pred = moe_mod.predict_experts(cfg, store.moe_shared(nli)["router"], x, khat)
+        packed = torch.cat([used, pred])
+        with planned_read(packed):
+            packed_np = packed.cpu().numpy()
+        self.stats.planned_reads += 1
+        ids = np.nonzero(packed_np[:E])[0]
+        if self.predictor is not None:
+            pred_np = np.asarray(list(self.predictor(nli, khat)), np.int64)
+        else:
+            pred_np = packed_np[E:]
+        wg, wu, wd = store.acquire_experts(li, ids)
+        store.prefetch_experts(nli, pred_np)
+        y, kept, dropped, load = moe_mod.grouped_dispatch(
+            cfg, h, gates, idx, wg, wu, wd, self._expert_capacity(x.shape[0]))
         j = self._moe_index[li]
         self._kept_dev += kept
         self._dropped_dev[j] += dropped

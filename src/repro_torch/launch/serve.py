@@ -2,12 +2,18 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
         --requests 64 --prompt-lens 64,128,256 --decode-len 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+        --requests 64 --prompt-lens 128,256,512 --decode-len 16 \
+        --stream-weights --resident-gb 60
 
-Runs the FULL-size model (seeded random weights, every weight resident on
-the device).  The planner searches the
-plan on the full config with the ``H100-SXM-80GB`` profile; the launcher
-then pins omega = 0 and full residency, which this slice of the port
-serves, and says so.
+Runs the FULL-size model on seeded random weights.  The planner searches
+the plan on the full config with the ``H100-SXM-80GB`` profile; the
+launcher pins omega = 0 (host attention is a later slice of the port) and
+says so.  Every weight is resident unless ``--stream-weights`` (or
+``--resident-gb`` / ``--predict-topk``): then the store keeps the greedy
+resident set on the card and the rest in page-locked host memory, built
+layer by layer (``ParamStore.seeded``) so that a model larger than the
+card never has to fit on it.
 """
 from __future__ import annotations
 
@@ -34,24 +40,35 @@ def build_plan(cfg, hw, args) -> Plan:
     print(f"predicted decode throughput (cost model): "
           f"{res.estimate.throughput:.0f} tok/s")
     B = min(args.batch, args.requests)
+    stream = streams(args)
     plan = Plan(
         B=B,
         b_a=max(1, min(res.plan.b_a, B)),
         b_e=args.b_e if args.b_e else res.plan.b_e,
         omega=0.0,
-        s_params=float(W.model_bytes(cfg)),
-        s_expert=0.0,
+        s_params=(res.plan.s_params if stream else float(W.model_bytes(cfg))),
+        s_expert=res.plan.s_expert if stream else 0.0,
+        predict_topk=res.plan.predict_topk if stream else 0,
     )
     # the fused chunk T from the admission cadence at this batch (the
     # cadence scales with B, so the full-config T would over- or under-chunk)
     plan = replace(plan, decode_chunk=planner.select_decode_chunk(
         plan, args.decode_len, scheduler=args.scheduler))
+    where = ("weights streamed" if stream else
+             f"every weight resident ({W.model_bytes(cfg) / 1e9:.1f} GB)")
     print(f"realised: B={plan.B} b_a={plan.b_a} b_e={plan.b_e}, fused decode chunk "
           f"T={plan.decode_chunk} ({args.scheduler} cadence); pinned "
-          f"omega=0 (planned {res.plan.omega:.1f}) and every weight resident "
-          f"({W.model_bytes(cfg) / 1e9:.1f} GB): host attention and weight "
-          f"streaming are later slices of the port")
+          f"omega=0 (planned {res.plan.omega:.1f}: host attention is a later "
+          f"slice of the port); {where}")
     return plan
+
+
+def streams(args) -> bool:
+    """Whether the arguments ask for weight streaming (a namespace without
+    the streaming flags asks for none)."""
+    return (getattr(args, "stream_weights", False)
+            or getattr(args, "resident_gb", None) is not None
+            or getattr(args, "predict_topk", None) is not None)
 
 
 def main(argv=None) -> None:
@@ -70,6 +87,25 @@ def main(argv=None) -> None:
                     choices=("static", "continuous"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--stream-weights", action="store_true",
+                    help="keep the planned resident set on the device and "
+                         "stream the rest from page-locked host memory, "
+                         "prefetched a layer ahead")
+    ap.add_argument("--resident-gb", type=float, default=None,
+                    help="device GB of the greedy resident weight set "
+                         "(implies --stream-weights; default: the plan's "
+                         "S_Params)")
+    ap.add_argument("--no-prefetch", action="store_true",
+                    help="fetch each streamed module when it is needed "
+                         "(copy and compute serialised)")
+    ap.add_argument("--predict-topk", type=int, default=None,
+                    help="stream streamed MoE layers per expert, prefetching "
+                         "the k-hat experts predicted from the previous "
+                         "layer (default: the plan's; 0 streams whole "
+                         "stacks; implies --stream-weights)")
+    ap.add_argument("--lru-gb", type=float, default=None,
+                    help="hot-expert device LRU of predictive streaming, GB "
+                         "(default: the residency plan's spare bytes)")
     args = ap.parse_args(argv)
     args.prompt_lens = [int(x) for x in args.prompt_lens.split(",")]
 
@@ -77,11 +113,29 @@ def main(argv=None) -> None:
 
     from repro_torch.models import model as M
     from repro_torch.serving.scheduler import serve_dataset
+    from repro_torch.serving.weights import ParamStore
 
     cfg = get_config(args.arch)
     plan = build_plan(cfg, PROFILES[args.profile], args)
     t0 = time.perf_counter()
-    params = M.init_params(cfg, seed=args.seed, device=args.device)
+    params, store = None, None
+    if streams(args):
+        store = ParamStore.seeded(
+            cfg, args.seed,
+            resident_bytes=(plan.s_params if args.resident_gb is None
+                            else args.resident_gb * 1e9),
+            prefetch=not args.no_prefetch,
+            predict_topk=(plan.predict_topk if args.predict_topk is None
+                          else args.predict_topk),
+            lru_bytes=None if args.lru_gb is None else args.lru_gb * 1e9,
+            device=args.device)
+        rp = store.residency
+        streamed = [i for i in range(cfg.num_layers)
+                    if not (rp.mixer_resident[i] and rp.ffn_resident[i])]
+        print(f"residency: {store.describe()}; layers with a streamed module: "
+              f"{streamed}")
+    else:
+        params = M.init_params(cfg, seed=args.seed, device=args.device)
     if torch.device(args.device).type == "cuda":
         torch.cuda.synchronize()
     print(f"initialised {cfg.name} ({cfg.num_layers} layers, {cfg.dtype}) on "
@@ -91,7 +145,8 @@ def main(argv=None) -> None:
     requests = synthetic_requests(spec, cfg.vocab_size, seed=args.seed,
                                   prompt_lens=args.prompt_lens)
     report = serve_dataset(cfg, params, requests, plan, args.decode_len,
-                           scheduler=args.scheduler, device=args.device)
+                           scheduler=args.scheduler, store=store,
+                           device=args.device)
     print(f"[{report.scheduler}] served {len(report.request_results)} requests: "
           f"prefill {report.prefill_tokens} tokens in {report.prefill_s:.3f}s "
           f"({report.prefill_throughput:.1f} tok/s), decode "
@@ -102,6 +157,14 @@ def main(argv=None) -> None:
           f"{report.wasted_slot_steps}, occupancy {report.occupancy:.0%}); "
           f"TTFT p50 {report.ttft_percentile(50):.3f}s, TPOT p50 "
           f"{report.tpot_percentile(50) * 1e3:.1f}ms")
+    if store is not None:
+        print(f"weight streaming: {report.htod_gb:.3f} GB host-to-device, "
+              f"copy wait {report.prefetch_wait_s:.3f}s on the card")
+        if report.expert_pred_hits or report.expert_pred_misses \
+                or report.expert_lru_hits:
+            print(f"predictive: hit rate {report.pred_hit_rate:.0%} "
+                  f"({report.expert_pred_hits} hits, {report.expert_pred_misses} "
+                  f"misses), LRU hit rate {report.lru_hit_rate:.0%}")
     toks = np.concatenate([r.tokens for r in report.request_results])
     print(f"generated token ids in [{toks.min()}, {toks.max()}]")
 

@@ -45,20 +45,24 @@ def layer_schema(cfg: ModelConfig) -> List[Tuple[str, str]]:
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
     """Seeded weights drawn on ``device`` with a ``torch.Generator``: the
     JAX package's shapes, dtypes and ``dense_init`` scales, not its bits."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
-    dt = torch_dtype(cfg.dtype)
     layers = [init_layer_params(cfg, kind, ffn, gen)
               for kind, ffn in layer_schema(cfg)]
-    params = {
+    return {"layers": layers, **init_base_params(cfg, gen)}
+
+
+def init_base_params(cfg: ModelConfig, gen: torch.Generator) -> Dict:
+    """The base weights (embedding, final norm, LM head), drawn from
+    ``gen`` after every layer, as ``init_params`` draws them."""
+    dt = torch_dtype(cfg.dtype)
+    base = {
         "embed": dense_init((cfg.vocab_size, cfg.d_model), gen, dtype=dt),
-        "layers": layers,
-        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=gen.device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size), gen, dtype=dt)
-    return params
+        base["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size), gen, dtype=dt)
+    return base
 
 
 def head(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:

@@ -4,6 +4,9 @@
   module: routed token copies gathered into an (E, C, D) capacity buffer,
   ONE grouped FFN (``kernels.ops.grouped_expert_ffn``: the hand-written
   K1 + K2 kernels on the card), combined back weighted by their gates.
+* ``predict_experts`` -- the next MoE layer's likely experts, from its
+  router on the current hidden state (what predictive weight streaming
+  prefetches);
 * ``moe_apply_local`` -- exact dense-combine reference (every expert on
   every token), the oracle of the grouped path.
 """
@@ -153,6 +156,25 @@ def moe_apply_grouped(
         p["experts_w_gate"], p["experts_w_up"], p["experts_w_down"], cap,
     )
     return y.reshape(B, S, D).to(x.dtype), load_balance_loss(cfg, probs, idx)
+
+
+def predict_experts(cfg: ModelConfig, next_router_w: torch.Tensor, x: torch.Tensor,
+                    khat: int) -> torch.Tensor:
+    """Predict the next MoE layer's experts from the current hidden state:
+    (khat,) int32 ids, on the device.
+
+    Layer *l*'s post-mixer state through layer *l+1*'s router is a close
+    proxy for *l+1*'s routing, because the residual stream changes slowly
+    between adjacent layers.  The softmax probabilities (f32) are summed
+    over tokens and the khat experts with the largest expected load are
+    returned, ties to the lower id (``jax.lax.top_k``'s order).  The
+    prediction only decides what to prefetch; the engine fetches any
+    expert it missed on demand."""
+    logits = x.float() @ next_router_w                      # (..., E)
+    probs = torch.softmax(logits, dim=-1)
+    scores = probs.reshape(-1, cfg.num_experts).sum(dim=0)
+    _, order = torch.sort(scores, descending=True, stable=True)
+    return order[:min(khat, cfg.num_experts)].to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

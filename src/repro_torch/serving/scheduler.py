@@ -22,6 +22,7 @@ from repro_torch.serving.server import (  # noqa: F401  (re-exports)
     StreamConfig,
     pad_requests,
 )
+from repro_torch.serving.weights import ParamStore
 
 __all__ = [
     "BatchResult", "Request", "RequestHandle", "RequestResult",
@@ -42,12 +43,17 @@ def serve_dataset(
     eos_id: Optional[int] = None,
     max_prompt_len: Optional[int] = None,
     hw: Optional[HardwareProfile] = None,
+    stream_weights: bool = False,
+    resident_bytes: Optional[float] = None,
+    store: Optional[ParamStore] = None,
     device="cuda",
 ) -> ServeReport:
     """Serve a fixed request list to completion (the offline protocol):
     static accumulated waves or continuous in-flight batching, per-request
     ``decode_len`` honored, ``eos_id`` finishing a sequence early, ``hw``
-    gating continuous admission by the Eq. 2 host KV budget."""
+    gating continuous admission by the Eq. 2 host KV budget;
+    ``stream_weights``/``resident_bytes`` as in ``StreamConfig``, or a built
+    ``store``."""
     assert scheduler in ("static", "continuous"), scheduler
     if not requests:
         return ServeReport(scheduler=scheduler)
@@ -58,6 +64,9 @@ def serve_dataset(
             max_prompt_len=max_prompt_len, pad_id=pad_id, eos_id=eos_id,
             hw=hw,
         ),
+        stream=StreamConfig(stream_weights=stream_weights,
+                            resident_bytes=resident_bytes),
+        store=store,
         device=device,
     )
     for r in requests:

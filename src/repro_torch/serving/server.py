@@ -126,11 +126,16 @@ class ServeConfig:
 
 @dataclass(frozen=True)
 class StreamConfig:
-    """Weight-residency knobs for the ``ParamStore`` the server builds;
-    anything but full residency is the weight-streaming slice."""
+    """Weight-residency knobs for the ``ParamStore`` the server builds
+    (ignored when a built ``store`` is passed)."""
 
     stream_weights: bool = False
     resident_bytes: Optional[float] = None
+    prefetch: bool = True
+    predict_topk: Optional[int] = None   # per-expert predictive streaming
+    #   (None = follow the plan's predict_topk; 0 forces whole-stack)
+    lru_bytes: Optional[float] = None    # hot-expert device LRU budget
+    #   (None = the residency plan's spare bytes)
 
 
 @dataclass
@@ -164,6 +169,11 @@ class ServeReport:
     wasted_slot_steps: int = 0    # slot-steps spent on finished/empty slots
     admission_deferrals: int = 0  # admissions blocked by the Eq. 2 KV budget
     prefill_tokens: int = 0       # token-positions computed in prefill
+    weight_htod_bytes: int = 0    # streamed weight bytes copied host->device
+    prefetch_wait_s: float = 0.0  # compute stream's wait on weight copies
+    expert_pred_hits: int = 0     # expert was staged by the l+1 prediction
+    expert_pred_misses: int = 0   # fetched on demand (mispredicted or cold)
+    expert_lru_hits: int = 0      # served from the hot-expert device LRU
     _expert_dropped: int = 0      # drops counted outside BatchResults
     expert_dropped_by_layer: Optional[np.ndarray] = None  # (n_moe,) drops
     expert_load: Optional[np.ndarray] = None  # (n_moe, E) routed-copy hist
@@ -171,6 +181,24 @@ class ServeReport:
     @property
     def total_s(self) -> float:
         return self.prefill_s + self.decode_s
+
+    @property
+    def htod_gb(self) -> float:
+        """Streamed weight traffic in GB (0 when everything is resident)."""
+        return self.weight_htod_bytes / 1e9
+
+    @property
+    def pred_hit_rate(self) -> float:
+        """Share of the decode stage's expert fetches that the prediction
+        had already issued."""
+        n = self.expert_pred_hits + self.expert_pred_misses
+        return self.expert_pred_hits / n if n else 0.0
+
+    @property
+    def lru_hit_rate(self) -> float:
+        """Share of the decode stage's expert uses served from the LRU."""
+        n = self.expert_pred_hits + self.expert_pred_misses + self.expert_lru_hits
+        return self.expert_lru_hits / n if n else 0.0
 
     @property
     def decode_tokens(self) -> int:
@@ -331,7 +359,9 @@ class Server:
     The engine (and its ``plan.B``-slot cache) is built lazily at the first
     step, sized ``min(plan.B, submitted requests)`` unless
     ``ServeConfig.max_batch`` pins it.  ``device`` is where the engine runs
-    (``cuda`` by default; raises without CUDA)."""
+    (``cuda`` by default; raises without CUDA).  With a built ``store``
+    (e.g. ``ParamStore.seeded`` for a model larger than the card),
+    ``params`` may be None."""
 
     def __init__(
         self,
@@ -362,7 +392,7 @@ class Server:
         self._pending: List = []          # heap of (arrival_s, index, handle)
         self._t0: Optional[float] = None
         self._max_seq: Optional[int] = serve.max_seq
-        self._seen_drop = 0               # engine drops already drained
+        self._seen: Dict[str, float] = {}   # engine counters already drained
         # Eq. 2 admission budget (continuous): every in-flight sequence's
         # offloaded KV at its FULL prompt+decode extent must fit m_c - S_Model
         self._kv_budget = (
@@ -445,10 +475,12 @@ class Server:
         from repro_torch.core.engine import ModuleBatchingEngine
 
         if self._store is None:
+            st = self.stream
             self._store = ParamStore.build(
                 self.cfg, self.params, self.plan,
-                stream_weights=self.stream.stream_weights,
-                resident_bytes=self.stream.resident_bytes, device=self.device,
+                stream_weights=st.stream_weights, resident_bytes=st.resident_bytes,
+                prefetch=st.prefetch, predict_topk=st.predict_topk,
+                lru_bytes=st.lru_bytes, device=self.device,
             )
         if self.serve.max_batch is not None:
             self._b = max(1, min(self.plan.B, int(self.serve.max_batch)))
@@ -471,14 +503,24 @@ class Server:
         self._cur = np.zeros(self._b, np.int32)
         self._pos = np.zeros(self._b, np.int64)
 
+    # engine counters the report folds as deltas since the last drain
+    _FOLDED = ("weight_htod_bytes", "prefetch_wait_s", "expert_pred_hits",
+               "expert_pred_misses", "expert_lru_hits")
+
     def _drain_engine_stats(self) -> int:
-        """Fold the engine's cumulative counters into the report; returns
-        the expert-drop delta since the last drain."""
+        """Fold the engine's cumulative counters into the report (deltas
+        since the last drain); returns the expert-drop delta."""
         if self._engine is None:
             return 0
         st = self._engine.sync_stats()
-        d_drop = st.expert_tokens_dropped - self._seen_drop
-        self._seen_drop = st.expert_tokens_dropped
+        seen = self._seen
+        d_drop = st.expert_tokens_dropped - seen.get("drop", 0)
+        seen["drop"] = st.expert_tokens_dropped
+        for name in self._FOLDED:
+            now = getattr(st, name)
+            setattr(self.report, name, getattr(self.report, name) + now
+                    - seen.get(name, 0))
+            seen[name] = now
         if st.expert_tokens_dropped_by_layer is not None:
             self.report.expert_dropped_by_layer = (
                 st.expert_tokens_dropped_by_layer.copy()

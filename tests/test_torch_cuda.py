@@ -553,3 +553,153 @@ def test_cuda_capture_failure_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         eng.decode_chunk(cur, np.full(4, 12), BatchSampler.uniform(4, None), 2)
     assert eng.stats.fused_dispatches == 0 and not eng.graph_captures
+
+
+# ---------------------------------------------------------------------------
+# Weight streaming: page-locked host memory, the copy stream, the window
+# ---------------------------------------------------------------------------
+def _olmoe_4_layers(cuda, n=8, S=48):
+    """OLMoE-1B-7B at full width and 4 layers, bf16, seeded, on the card;
+    ragged prompts; the plan's b_e = B so nothing drops."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import workload as W
+    from repro_torch.core.dag_builder import Plan
+    from repro_torch.models import model as M
+
+    cfg = replace(get_config("olmoe-1b-7b"), num_layers=4)
+    params = M.init_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (n, S))
+    lens = rng.integers(S // 2, S + 1, n)
+    plan = Plan(B=n, b_a=4, b_e=n, omega=0.0, decode_chunk=4)
+    # the base and every mixer resident, one expert stack, three streamed
+    budget = (W.base_weight_bytes(cfg) + 4 * W.mixer_weight_bytes(cfg, "attn")
+              + W.ffn_module_weight_bytes(cfg, "moe"))
+    return cfg, params, toks, lens, plan, budget
+
+
+def _streamed(cfg, params, plan, cuda, budget, **kw):
+    from repro_torch.core.engine import ModuleBatchingEngine
+    from repro_torch.serving.weights import ParamStore
+
+    store = ParamStore(cfg, params, resident_bytes=budget, device=cuda, **kw)
+    return ModuleBatchingEngine(cfg, None, plan, max_seq=64, store=store, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"prefetch": False}, {"predict_topk": 2},
+                                {"predict_topk": 2, "lru_bytes": 1e9}],
+                         ids=["prefetch", "serial", "predictive", "predictive-lru"])
+def test_cuda_streamed_olmoe_matches_resident(cuda, kw):
+    """Full-width OLMoE, 4 layers, 3 expert stacks in page-locked host
+    memory: the streamed engine's tokens equal the resident (fused)
+    engine's bit for bit, with the bytes the plan reckons."""
+    from repro_torch.core.engine import ModuleBatchingEngine
+
+    cfg, params, toks, lens, plan, budget = _olmoe_4_layers(cuda)
+    want = ModuleBatchingEngine(cfg, params, plan, max_seq=64,
+                                device=cuda).generate(toks, 9, lengths=lens)
+    eng = _streamed(cfg, params, plan, cuda, budget, **kw)
+    assert not eng.fused_eligible() and eng.store.streamed_module_bytes() > 0
+    got = eng.generate(toks, 9, lengths=lens)
+    assert torch.equal(got, want)
+    assert eng.stats.fused_dispatches == 0 and eng.stats.weight_htod_bytes > 0
+    if not kw:
+        # 3 stacks a prefill and a decode tick (8 ticks), the wrapped
+        # prefetch of the first streamed layer included
+        stack = eng.store._host[1].layout.nbytes
+        assert eng.stats.weight_htod_bytes == 3 * stack * 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2])
+def test_cuda_window_slot_reuse_waits_for_a_slow_consumer(cuda, depth, monkeypatch):
+    """The slot-reuse hazard: every grouped FFN first spins the compute
+    stream (a slow consumer), so a prefetch that overwrote a slot still
+    being read would change the tokens.  A window of depth 1 (the next
+    layer's copy must wait for the one slot) and of depth 2 give the
+    resident tokens."""
+    from repro_torch.core.engine import ModuleBatchingEngine
+    from repro_torch.models import moe as moe_mod
+
+    cfg, params, toks, lens, plan, budget = _olmoe_4_layers(cuda)
+    want = ModuleBatchingEngine(cfg, params, plan, max_seq=64,
+                                device=cuda).generate(toks, 5, lengths=lens)
+    real = moe_mod.ops.grouped_expert_ffn
+
+    def slow(*args, **kw):
+        torch.cuda._sleep(20_000_000)            # ~10 ms of the compute stream
+        return real(*args, **kw)
+
+    monkeypatch.setattr(moe_mod.ops, "grouped_expert_ffn", slow)
+    eng = _streamed(cfg, params, plan, cuda, 0.0, prefetch_depth=depth)
+    assert len(eng.store._window._slots) == depth
+    assert torch.equal(eng.generate(toks, 5, lengths=lens), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("khat", [0, 2], ids=["whole-stack", "predictive"])
+def test_cuda_streamed_decode_makes_no_hidden_host_sync(cuda, khat):
+    """The "no hidden host syncs" contract on a streamed per-module chunk:
+    under ``set_sync_debug_mode("error")`` the copies, the waits on them and
+    the slot releases make no host wait; the predictive stage's reads are
+    the planned ones, exactly one per predictive layer and tick."""
+    import numpy as np
+
+    from repro_torch.serving.sampling import BatchSampler
+
+    cfg, params, toks, lens, plan, budget = _olmoe_4_layers(cuda)
+    eng = _streamed(cfg, params, plan, cuda, budget, predict_topk=khat)
+    cur = eng.prefill(toks, lengths=lens).argmax(-1)
+    eng.decode_chunk(cur, lens, BatchSampler.uniform(8, None), 2)        # warm
+    n_pred = sum(eng.store.streams_experts(li) for li in range(cfg.num_layers))
+    reads = eng.stats.planned_reads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = eng.decode_chunk(cur, np.asarray(lens), BatchSampler.uniform(8, None), 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.shape == (8, 4)
+    assert eng.stats.planned_reads - reads == 4 * n_pred
+    assert (n_pred > 0) == (khat > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("khat", [0, 2], ids=["whole-stack", "predictive"])
+def test_cuda_deleted_streamed_server_frees_device_and_pinned_memory(cuda, khat):
+    """A streamed server, deleted without ``gc.collect()``, returns the
+    card's allocated bytes (window slots, stacks, LRU, cache) and the
+    page-locked host bytes to their values before it was built."""
+    from repro_torch.data.datasets import DatasetSpec, synthetic_requests
+    from repro_torch.serving import weights as weights_mod
+    from repro_torch.serving.server import ServeConfig, Server, StreamConfig
+
+    cfg, params, _, _, plan, budget = _olmoe_4_layers(cuda)
+    reqs = synthetic_requests(DatasetSpec("t", 8, 48, 4), cfg.vocab_size,
+                              prompt_lens=[24, 48, 33, 40])
+
+    def serve():
+        server = Server(cfg, params, plan, serve=ServeConfig(decode_len=4),
+                        stream=StreamConfig(stream_weights=True, resident_bytes=budget,
+                                            predict_topk=khat), device=cuda)
+        for r in reqs:
+            server.submit(r)
+        rep = server.run()
+        assert rep.htod_gb > 0 and weights_mod.pinned_bytes() > pinned
+        return server, rep
+
+    pinned = weights_mod.pinned_bytes()
+    server, _ = serve()                  # warm: library handles, K3's tickets
+    del server
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    server, rep = serve()
+    assert rep.expert_tokens_dropped == 0
+    del server
+    assert torch.cuda.memory_allocated() == before
+    assert weights_mod.pinned_bytes() == pinned

@@ -186,9 +186,6 @@ def test_later_slices_raise():
     _, cfg, _, tp, _ = _setup("olmoe-1b-7b")
     with pytest.raises(NotImplementedError, match="host-attention"):
         ModuleBatchingEngine(cfg, tp, Plan(B=2, b_a=2, b_e=2, omega=0.5), device="cpu")
-    with pytest.raises(NotImplementedError, match="weight-streaming"):
-        ModuleBatchingEngine(cfg, tp, Plan(B=2, b_a=2, b_e=2), stream_weights=True,
-                             device="cpu")
     with pytest.raises(NotImplementedError, match="paging"):
         ModuleBatchingEngine(cfg, tp, Plan(B=2, b_a=2, b_e=2), cache_config=object(),
                              device="cpu")
