@@ -23,11 +23,22 @@ Phases, in order (any failure exits non-zero with its traceback):
                seeded, the planner's b_a): 128 prompts of 200..1800 tokens,
                decode 64, both schedulers; prefill through K5 at every layer,
                decode through the plain recurrent step;
+   serve_omega -- serve's requests and weights at omega 0.5: rows 0-31
+               attend on the host CPU (the paper's §B mechanism), rows
+               32-63 replay the fused graph; static, continuous and the
+               per-module oracle give identical tokens, the host split and
+               the planned reads are as reckoned;
+   serve_paged -- serve_long's requests with the KV in 128-slot pages and
+               7.5 GB of device frames: 481 of 928 frames page-locked on the
+               host, streamed a layer ahead and read in place by K3p; the
+               tokens bit-identical to serve_long's contiguous ones under
+               both schedulers, then Mode A (no cap) on the fused graph;
 7. parity   -- card (kernels) against CPU (plain versions), f32: OLMoE at
                full width but 2 layers (32 tokens, a ragged 1536-token
                prompt), Mamba2 at full width but 2 layers (600 and 300
                tokens), and the Jamba smoke config (one interleave period,
-               lengths 100 and 77), which runs K1-K5 in one model;
+               lengths 100 and 77), which runs K1-K5 in one model; OLMoE at
+               2 layers with omega 0.5 and every KV frame on the host;
 8. profile  -- (inside phases 4-6) torch.profiler over each path's decode
                chunk and one prefill wave.
 
@@ -94,6 +105,9 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:77",
     "flash_attention": "src/repro/kernels/flash_attention.py:80",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:85",
+    # K3p has no Pallas counterpart: the reference's paged decode gathers the
+    # frames with XLA (src/repro/core/engine.py:388) and then runs K3's
+    "decode_attention_paged": "src/repro/kernels/decode_attention.py:77",
 }
 SOURCE = {
     "expert_gate_up": "src/repro_torch/kernels/csrc/expert_gemm.cu",
@@ -101,6 +115,7 @@ SOURCE = {
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "decode_attention_paged": "src/repro_torch/kernels/csrc/decode_attention.cu",
 }
 # the kernels each served path must launch
 PATH_KERNELS = {
@@ -112,17 +127,26 @@ PATH_KERNELS = {
                        "flash_attention"),
     "serve_mixtral": ("expert_gate_up", "grouped_matmul", "decode_attention",
                       "flash_attention"),
+    "serve_omega": ("expert_gate_up", "grouped_matmul", "decode_attention", "flash_attention"),
+    "serve_paged": ("expert_gate_up", "grouped_matmul", "decode_attention_paged",
+                    "flash_attention"),
 }
 # every launch of a served (bf16, full-size) path must take these designs
 NEW_DESIGNS = (("expert_gate_up", "wgmma"), ("grouped_matmul", "wgmma"),
                ("decode_attention", "split"), ("flash_attention", "wgmma"),
-               ("ssd_scan", "mma"))
+               ("ssd_scan", "mma"), ("decode_attention_paged", "split"))
 # the long-prompt path: 32 prompts even-spread over 1024..3584, decode 64
 # (max_seq 3648, within OLMoE's 4096 context), at the planner's b_a
 LONG_REQUESTS, LONG_MIN, LONG_MAX, LONG_DECODE = 32, 1024, 3584, 64
 # the SSM path: 128 prompts even-spread over 200..1800 on Mamba2-370M, decode
 # 64 (max_seq 1864, within its 2048-token training context)
 SSM_ARCH, SSM_REQUESTS, SSM_MIN, SSM_MAX, SSM_DECODE = "mamba2-370m", 128, 200, 1800, 64
+# the host-attention path: serve's 64 requests at omega 0.5 (rows 0-31 attend
+# on the host CPU), b_a 32
+OMEGA, OMEGA_B_A = 0.5, 32
+# the paged path: serve_long's requests, KV in 128-slot pages, 7.5 GB of
+# device frames (447 of the 928 frames; the other 481 page-locked on the host)
+PAGE_TOKENS, DEVICE_KV_GB = 128, 7.5
 
 
 def emit(obj) -> None:
@@ -318,6 +342,7 @@ WORK = {
         q.shape[0] * q.shape[1] ** 2 if lengths is None
         else int((lengths.long() ** 2).sum())),
     "decode_attention": lambda q, k, *a: q.shape[0] * k.shape[1],
+    "decode_attention_paged": lambda q, *a: q.shape[0] * a[-1],
     "ssd_scan": lambda x, *a, lengths=None, **kw: (
         x.shape[0] * x.shape[1] if lengths is None else int(lengths.long().sum())),
 }
@@ -594,6 +619,95 @@ def check_attention_on(name, q, k, v, pos, timing=False):
 
         row.update({"prev_ms": time_ms(prev), "ms_again": time_ms(kern),
                     "host_us": host_us(kern), "prev_host_us": host_us(prev)})
+    emit({"case": name, "timing": [row]})
+    return row
+
+
+def paged_inputs(gen, n, H, K, hd, span, pt, dtype, dev, win_frac=0.5):
+    """n rows of ``span`` slots in ``pt``-slot pages, a ``win_frac`` share of
+    the frames in a window beside the device pool, frames shuffled over
+    both (the null frame P never used)."""
+    pages = -(-span // pt)
+    Hf = int(n * pages * win_frac)
+    P = n * pages - Hf
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    pk, pv = rand(P + 1, pt, K, hd), rand(P + 1, pt, K, hd)
+    ek, ev = (rand(Hf, pt, K, hd), rand(Hf, pt, K, hd)) if Hf else (None, None)
+    ids = torch.randperm(n * pages, generator=gen, device=dev)
+    frames = torch.where(ids < P, ids, ids + 1).reshape(n, pages).to(torch.int32)
+    return rand(n, H, hd), pk, pv, ek, ev, frames
+
+
+def check_paged(name, gen, n, H, K, hd, span, pt, dtype, dev, pos=None, timing=False,
+                win_frac=0.5):
+    q, pk, pv, ek, ev, frames = paged_inputs(gen, n, H, K, hd, span, pt, dtype, dev, win_frac)
+    if pos is None:
+        pos = torch.randint(0, span, (n,), generator=gen, device=dev, dtype=torch.int32)
+    else:
+        pos = torch.tensor(pos, device=dev, dtype=torch.int32)
+    return check_paged_on(name, q, pk, pv, ek, ev, frames, pos, span, timing)
+
+
+def check_paged_on(name, q, pk, pv, ek, ev, frames, pos, span, timing=False):
+    """K3p against its plain version (the gather, then K3's plain version)
+    on these inputs, and bit for bit against K3 on the gathered contiguous
+    copy; rows with pos < 0 must be zeros.  With ``timing``, its row of the
+    kernels line: K3p, K3 on the gathered copy (the yardstick: no single
+    PyTorch call computes a paged gather-attention) and the byte bound."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops, ref
+
+    n, H, hd = q.shape
+    pt, K, dtype = pk.shape[1], pk.shape[2], q.dtype
+    pos = pos.to(torch.int32).reshape(-1).expand(n).contiguous()
+    design = da.decode_attention_design(dtype, H // K, hd)
+    got = ops.decode_attention_paged(q, pk, pv, ek, ev, frames, pos, span)
+    want = ref.decode_attention_paged_ref(q, pk, pv, ek, ev, frames, pos, span)
+    want = torch.where((pos < 0)[:, None, None], torch.zeros_like(want), want)
+    gk = ref.gather_pages(pk, ek, frames, span).contiguous()
+    gv = ref.gather_pages(pv, ev, frames, span).contiguous()
+    k3 = ops.decode_attention(q, gk, gv, pos)
+    torch.cuda.synchronize()
+    err = errors(got, want)
+    bit = bool(torch.equal(got, k3))
+    tol = tolerance(dtype)
+    emit({"case": name, "kernel": "decode_attention_paged", "n": n, "H": H, "K": K, "hd": hd,
+          "span": span, "page_tokens": pt, "pool_frames": pk.shape[0],
+          "window_frames": 0 if ek is None else ek.shape[0],
+          "dtype": str(dtype).replace("torch.", ""), "design": design,
+          "max_abs_err": err[0], "rel_err": err[1], "tolerance": tol,
+          "bit_identical_to_k3_on_gathered_copy": bit})
+    if not within(err, tol):
+        raise AssertionError(f"{name}: error {err} outside {tol}")
+    if not bit:
+        raise AssertionError(f"{name}: K3p differs from K3 on the gathered copy")
+    if not timing:
+        return None
+    es = q.element_size()
+    n_valid = int(torch.clamp(pos.long() + 1, min=0, max=span).sum())
+    pages_read = int(sum(-(-min(max(int(p) + 1, 0), span) // pt) for p in pos.tolist()))
+    nbytes = 2 * n_valid * K * hd * es + 2 * n * H * hd * es + n * 4 + pages_read * 4
+    b_ms, b_by = bound(nbytes, 4.0 * n_valid * H * hd,
+                       PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+
+    def kern():
+        return ops.decode_attention_paged(q, pk, pv, ek, ev, frames, pos, span)
+
+    def contiguous():
+        return ops.decode_attention(q, gk, gv, pos)
+
+    row = {"name": "decode_attention_paged", "case": name, "max_abs_err": err[0],
+           "rel_err": err[1], "tolerance": tol, "design": design, "ms": time_ms(kern),
+           "k3_ms": time_ms(contiguous),
+           "plain_ms": time_ms(lambda: ref.decode_attention_paged_ref(q, pk, pv, ek, ev,
+                                                                       frames, pos, span)),
+           "library_ms": None, "library": "none (no single PyTorch call gathers pages)",
+           "bound_ms": b_ms, "bound_by": b_by, "page_tokens": pt, "span": span}
+    row["ms_again"] = time_ms(kern)
+    row["k3_ms_again"] = time_ms(contiguous)
     emit({"case": name, "timing": [row]})
     return row
 
@@ -920,6 +1034,19 @@ def phase_kernels(dev, plan, span: int, prompt_len: int, long_b_a: int,
 
     check_attention("split-edges", gen, 5, 16, 16, 128, long_span, bf, dev,
                     pos=[0, L - 1, L, long_span - 1, -1])
+    # K3p: the paged path's shape (32 rows at span 3648 in 128-slot pages,
+    # half the frames in the window), 8-slot pages at the serve span and at
+    # smoke size (hd 32: the first design), a sliding-window ring, the split
+    # edges with a dead row, and f32 (the parity phase's design)
+    rows.append(check_paged("olmoe-paged-long-pt128", gen, LONG_REQUESTS, 16, 16, 128,
+                            long_span, PAGE_TOKENS, bf, dev, pos=long_pos, timing=True))
+    rows.append(check_paged("olmoe-pt8", gen, plan.b_a, 16, 16, 128, span, 8, bf, dev,
+                            timing=True))
+    check_paged("smoke-hd32-pt8", gen, 4, 8, 2, 32, 100, 8, bf, dev)
+    check_paged("ring-pt8", gen, 4, 16, 16, 128, 256, 8, bf, dev, pos=[300, 1000, 255, 17])
+    check_paged("paged-split-edges", gen, 5, 16, 16, 128, long_span, PAGE_TOKENS, bf, dev,
+                pos=[0, L - 1, L, long_span - 1, -1])
+    check_paged("olmoe-paged-f32", gen, 4, 16, 16, 128, 512, 8, f32, dev)
     # K4: the long path's prefill micro-batch, a Mixtral-shaped GQA case, a
     # sliding window, and f32 (the parity shape)
     lens = long_lengths()
@@ -951,11 +1078,12 @@ def phase_kernels(dev, plan, span: int, prompt_len: int, long_b_a: int,
 # ---------------------------------------------------------------------------
 # Phase 4: full-width serving through the port's Server
 # ---------------------------------------------------------------------------
-def serve_setup(lens, decode_len: int, arch: str = "olmoe-1b-7b"):
+def serve_setup(lens, decode_len: int, arch: str = "olmoe-1b-7b", omega: float = 0.0):
     """A served path on a full-size config: the planner's plan on the H100
     profile for these prompts, with b_e raised to B (one expert can take
     every token of a step, so no copy drops and both schedulers must give
-    identical tokens)."""
+    identical tokens) and ``omega`` host-attention rows (0 unless a phase
+    asks: the planner's own omega at these shapes is 1)."""
     from repro_torch.configs import get_config
     from repro_torch.core.hardware import H100_SXM_80GB
     from repro_torch.launch.serve import build_plan
@@ -963,7 +1091,7 @@ def serve_setup(lens, decode_len: int, arch: str = "olmoe-1b-7b"):
     cfg = get_config(arch)
     n = len(lens)
     args = argparse.Namespace(prompt_lens=lens, decode_len=decode_len,
-                              scheduler="static", batch=n, requests=n, b_e=n)
+                              scheduler="static", batch=n, requests=n, b_e=n, omega=omega)
     return cfg, build_plan(cfg, H100_SXM_80GB, args), lens, decode_len
 
 
@@ -1045,7 +1173,8 @@ def per_module_oracle(dev, cfg, params, plan, requests, decode_len: int, phase: 
     return toks, counts, timing
 
 
-def serve_both(dev, cfg, params, plan, requests, decode_len: int, phase: str):
+def serve_both(dev, cfg, params, plan, requests, decode_len: int, phase: str,
+               serve_kw=None):
     """Serve ``requests`` through the port's ``Server`` under the static and
     then the continuous scheduler, the launch counts set to 0 just before
     each run and read just after, then the per-module oracle on the same
@@ -1054,11 +1183,15 @@ def serve_both(dev, cfg, params, plan, requests, decode_len: int, phase: str):
     tick, every kernel of the path (``PATH_KERNELS``) was launched, each
     launch count equals the oracle's, no routed copy dropped, both
     schedulers and the oracle give identical tokens and each deleted server
-    frees its cache and graphs by reference counting."""
+    frees its cache and graphs (device and page-locked bytes) by reference
+    counting.  ``serve_kw`` goes to ``ServeConfig``."""
     import numpy as np
 
     from repro_torch.kernels import ops
+    from repro_torch.serving import weights as wmod
     from repro_torch.serving.server import ServeConfig, Server
+
+    serve_kw = serve_kw or {}
 
     n_requests = len(requests)
     # warm-up pass (cuBLAS handles, allocator, kernel libraries) so both
@@ -1072,9 +1205,9 @@ def serve_both(dev, cfg, params, plan, requests, decode_len: int, phase: str):
     freed(phase, "warm-up server", before)
     tokens, reports, counts = {}, {}, {}
     for sched in ("static", "continuous"):
-        before = torch.cuda.memory_allocated()
+        before, pinned = torch.cuda.memory_allocated(), wmod.pinned_bytes()
         server = Server(cfg, params, plan,
-                        serve=ServeConfig(scheduler=sched, decode_len=decode_len),
+                        serve=ServeConfig(scheduler=sched, decode_len=decode_len, **serve_kw),
                         device=dev)
         for r in requests:
             server.submit(r)
@@ -1108,7 +1241,10 @@ def serve_both(dev, cfg, params, plan, requests, decode_len: int, phase: str):
               "dropped": rep.expert_tokens_dropped,
               "decode_slot_steps": rep.decode_slot_steps,
               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "host_attn_tokens": rep.host_attn_tokens, "host_attn_s": st.host_attn_s,
+              "planned_reads": st.planned_reads, "pinned_gb": wmod.pinned_bytes() / 1e9,
               "launches": counts[sched]})
+        reports[sched].stats = st
         if dev.type == "cuda" and not (st.fused_dispatches > 0 and st.fused_ticks == ticks):
             raise AssertionError(f"{sched}: {ticks} decode ticks, {st.fused_ticks} of them "
                                  f"graph replays ({st.fused_dispatches} chunks)")
@@ -1127,6 +1263,9 @@ def serve_both(dev, cfg, params, plan, requests, decode_len: int, phase: str):
             raise AssertionError(f"{sched}: {rep.expert_tokens_dropped} copies dropped")
         del server, st
         freed(phase, f"{sched} server", before)
+        if wmod.pinned_bytes() != pinned:
+            raise AssertionError(f"{phase} {sched}: the deleted server left "
+                                 f"{wmod.pinned_bytes() - pinned} page-locked bytes")
     oracle, oracle_counts, timing = per_module_oracle(dev, cfg, params, plan, requests,
                                                       decode_len, phase)
     emit({"phase": phase, "oracle": "per-module (fused_decode=False)", **timing,
@@ -1214,6 +1353,8 @@ def check_path_kernels(phase: str, calls) -> list:
         elif name == "flash_attention":
             rows.append(check_flash_on(case, *args, window=kw.get("window", 0),
                                        lens=kw.get("lengths")))
+        elif name == "decode_attention_paged":
+            rows.append(check_paged_on(case, *args, timing=True))
         else:
             rows.append(check_attention_on(case, *args, timing=True))
         del args, kw
@@ -1433,6 +1574,278 @@ def phase_serve_long(dev, params, profile=False):
     profile_path(dev, "serve_long", cfg, params, plan, requests, max_seq, reports,
                  profile)
     return counts["static"], reports
+
+
+# ---------------------------------------------------------------------------
+# The host-attention path (omega) and the paged, host-tiered KV cache
+# ---------------------------------------------------------------------------
+def cpu_model() -> str:
+    """The host CPU's model name from ``/proc/cpuinfo`` (on an Arm host,
+    which has none, its implementer and part codes) and architecture."""
+    import platform
+
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            fields.setdefault(key.strip(), val.strip())
+    name = fields.get("model name")
+    if name is None:                     # no model name: the ids there are
+        ids = ("vendor_id", "cpu family", "model", "CPU implementer", "CPU part")
+        name = " ".join(f"{k} {fields[k]}" for k in ids if k in fields) or "unknown"
+    return f"{name} ({platform.machine()})"
+
+
+def phase_serve_omega(dev, params, resident=None):
+    """Serve's 64 requests (64..256 tokens, decode 32) at omega 0.5: rows
+    0-31 attend on the host CPU (projections on the card, q/k/v down in one
+    planned read a layer, the §B mechanism on the CPU, the output up from
+    page-locked memory), rows 32-63 replay the fused graph.  Static,
+    continuous and the per-module oracle give identical tokens; the host
+    split is 32 rows x 16 layers a tick, with one planned read per attention
+    layer and host tick and no other host wait in a chunk.  Reports the
+    CPU's ms per host-attention layer and its share of a tick, and the share
+    of requests whose tokens equal ``serve``'s omega-0 tokens (``resident``:
+    that phase's (counts, reports)), which is not a gate: the host mechanism
+    rounds to bf16 where K3 does not."""
+    import numpy as np
+
+    from repro_torch.core.engine import ModuleBatchingEngine
+    from repro_torch.data.datasets import DatasetSpec, synthetic_requests
+    from repro_torch.serving.sampling import BatchSampler
+
+    cfg, plan, lens, decode_len = serve_setup(short_lengths(), 32, omega=OMEGA)
+    plan = replace(plan, b_a=OMEGA_B_A)
+    n = len(lens)
+    n_host = int(round(plan.omega * plan.B))
+    n_attn = cfg.num_layers
+    requests = synthetic_requests(DatasetSpec("smoke", n, max(lens), decode_len),
+                                  cfg.vocab_size, seed=0, prompt_lens=lens)
+    emit({"phase": "serve_omega", "requests": n, "omega": plan.omega, "host_rows": n_host,
+          "plan": {"B": plan.B, "b_a": plan.b_a, "b_e": plan.b_e},
+          "cpu_count": os.cpu_count(), "cpu_model": cpu_model(), "card": gpu_line()})
+    tokens, reports, counts = serve_both(dev, cfg, params, plan, requests, decode_len,
+                                         "serve_omega")
+    for sched, rep in reports.items():
+        st = rep.stats
+        ticks = rep.decode_slot_steps // plan.B
+        want_host = n_host * n_attn * ticks
+        layer_ms = st.host_attn_s * 1e3 / (n_attn * ticks)
+        emit({"phase": "serve_omega", "scheduler": sched, "decode_ticks": ticks,
+              "host_attn_tokens": rep.host_attn_tokens, "host_attn_reckoned": want_host,
+              "planned_reads": st.planned_reads, "planned_reads_reckoned": n_attn * ticks,
+              "cpu_ms_per_host_attention_layer": layer_ms,
+              "host_attention_share_of_decode": st.host_attn_s / rep.decode_s,
+              "decode_tok_s": rep.decode_throughput,
+              "prefill_tok_s": rep.prefill_throughput})
+        if rep.host_attn_tokens != want_host or st.planned_reads != n_attn * ticks:
+            raise AssertionError(f"serve_omega {sched}: {rep.host_attn_tokens} host tokens "
+                                 f"and {st.planned_reads} planned reads, reckoned {want_host} "
+                                 f"and {n_attn * ticks}")
+    if resident is not None:
+        ref = [r.tokens for r in resident[1]["static"].request_results]
+        same = [bool(np.array_equal(a, b)) for a, b in zip(tokens["static"], ref)]
+        emit({"phase": "serve_omega", "share_equal_to_omega0_tokens": {
+            "host_rows": float(np.mean(same[:n_host])),
+            "device_rows": float(np.mean(same[n_host:]))}})
+    # no host wait inside a chunk but the planned reads: a fresh engine, one
+    # chunk to capture the device rows' graph, then one under sync debug
+    before = torch.cuda.memory_allocated()
+    eng = ModuleBatchingEngine(cfg, params, plan, max_seq=max(lens) + decode_len, device=dev)
+    prompts, lengths = padded_prompts(requests)
+    sampler = BatchSampler.uniform(n, None)
+    tok0 = sampler.sample(eng.prefill(prompts, lengths=lengths))
+    eng.decode_chunk(tok0, lengths, sampler, 4).cpu()
+    reads = eng.stats.planned_reads
+    hidden = sync_sites(lambda: eng.decode_chunk(tok0, lengths + 4, sampler, 4))
+    reads = eng.stats.planned_reads - reads
+    emit({"phase": "serve_omega", "sync_sites_in_chunk": hidden,
+          "planned_reads_in_chunk": reads, "planned_reads_reckoned": 4 * n_attn,
+          "graph_captures": eng.graph_captures})
+    if hidden or reads != 4 * n_attn or (dev.type == "cuda" and not eng.graph_captures):
+        raise AssertionError(f"serve_omega: host syncs {hidden}, {reads} planned reads in a "
+                             f"4-tick chunk, graphs {len(eng.graph_captures)}")
+    del eng, tok0
+    freed("serve_omega", "sync-check engine", before)
+    return counts["static"], reports
+
+
+def paged_run(dev, cfg, params, plan, requests, decode_len: int, sched: str,
+              serve_kw: dict) -> dict:
+    """One Server run with ``serve_kw`` (the paging knobs): the launch
+    counts set to 0 just before the run and read just after; the deleted
+    server must free its device and page-locked bytes."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import weights as wmod
+    from repro_torch.serving.server import ServeConfig, Server
+
+    before, pinned = torch.cuda.memory_allocated(), wmod.pinned_bytes()
+    server = Server(cfg, params, plan,
+                    serve=ServeConfig(scheduler=sched, decode_len=decode_len, **serve_kw),
+                    device=dev)
+    for r in requests:
+        server.submit(r)
+    t0 = time.perf_counter()
+    server._ensure_engine()
+    setup_s = time.perf_counter() - t0
+    pages = server._engine.pages
+    table = None if pages is None else pages.describe()
+    pinned_gb = wmod.pinned_bytes() / 1e9
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = server.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    st = server._engine.stats
+    rec = {"report": rep, "counts": counts, "ticks": rep.decode_slot_steps // server._b,
+           "wall_s": wall, "setup_s": setup_s, "table": table, "pinned_gb": pinned_gb,
+           "fused_ticks": st.fused_ticks, "planned_reads": st.planned_reads,
+           "demand_fetches": 0 if pages is None else pages.demand_fetches,
+           "copied_bytes": 0 if pages is None else pages.copied_bytes}
+    del server, st, pages
+    freed("serve_paged", f"{sched} paged server", before)
+    if wmod.pinned_bytes() != pinned:
+        raise AssertionError(f"serve_paged: the deleted server left "
+                             f"{wmod.pinned_bytes() - pinned} page-locked bytes")
+    return rec
+
+
+def phase_serve_paged(dev, params, long_reports=None):
+    """serve_long's 32 prompts (1024..3584 tokens, decode 64, B 32) with
+    the KV in 128-slot pages and 7.5 GB of device frames (Mode B): 447 of
+    the 928 frames on the card, 481 page-locked on the host, streamed a
+    layer ahead on the copy stream and read in place by K3p.  Static and
+    continuous in Mode B, then Mode A (the same pages, no cap).  Gates: the
+    tokens of every run bit-identical to serve_long's contiguous tokens
+    (``long_reports``: that phase's reports; run here when it did not);
+    Mode A on the fused graph with no KV byte copied; one K3p launch, in
+    its split design, per attention layer and Mode B tick; each server
+    freed.  Then a fresh Mode B engine's tick under torch.profiler: the
+    host-to-device bytes the table counted equal the trace's, to the byte,
+    and the tick's wall beside the host-frame bytes over the measured copy
+    rate; K3p held to its plain version on the path's largest call."""
+    import numpy as np
+
+    from repro_torch.core.engine import ModuleBatchingEngine
+    from repro_torch.data.datasets import DatasetSpec, synthetic_requests
+    from repro_torch.serving.cache import CacheConfig
+    from repro_torch.serving.sampling import BatchSampler
+
+    cfg, plan, lens, decode_len = serve_setup(long_lengths(), LONG_DECODE)
+    n = len(lens)
+    max_seq = LONG_MAX + LONG_DECODE
+    requests = synthetic_requests(DatasetSpec("long", n, LONG_MAX, decode_len),
+                                  cfg.vocab_size, seed=0, prompt_lens=lens)
+    if long_reports is None:
+        long_reports = {"static": paged_run(dev, cfg, params, plan, requests, decode_len,
+                                            "static", {})["report"]}
+    want = [r.tokens for r in long_reports["static"].request_results]
+    frame = cfg.num_layers * 2 * PAGE_TOKENS * cfg.num_kv_heads * cfg.head_dim * 2
+    pages = -(-max_seq // PAGE_TOKENS)
+    dev_frames = min(n * pages, int(DEVICE_KV_GB * 1e9 // frame))
+    host_frames = n * pages - dev_frames
+    layer_bytes = 2 * host_frames * PAGE_TOKENS * cfg.num_kv_heads * cfg.head_dim * 2
+    emit({"phase": "serve_paged", "requests": n, "max_seq": max_seq,
+          "page_tokens": PAGE_TOKENS, "device_kv_gb": DEVICE_KV_GB, "frame_mb": frame / 1e6,
+          "pages_per_row": pages, "frames": n * pages, "device_frames": dev_frames,
+          "host_frames": host_frames, "host_gb": host_frames * frame / 1e9,
+          "streamed_gb_per_layer_tick": layer_bytes / 1e9, "card": gpu_line(),
+          "host": host_meminfo()})
+    mode_b = {"kv_page_tokens": PAGE_TOKENS, "device_kv_gb": DEVICE_KV_GB}
+    runs = [(sched, mode_b) for sched in ("static", "continuous")]
+    runs.append(("static", {"kv_page_tokens": PAGE_TOKENS}))
+    counts = None
+    for sched, kw in runs:
+        rec = paged_run(dev, cfg, params, plan, requests, decode_len, sched, kw)
+        rep, c, ticks = rec["report"], rec["counts"], rec["ticks"]
+        mode = "B" if "device_kv_gb" in kw else "A"
+        got = [r.tokens for r in rep.request_results]
+        same = [bool(np.array_equal(a, b)) for a, b in zip(got, want)]
+        emit({"phase": "serve_paged", "mode": mode, "scheduler": sched,
+              "wall_s": rec["wall_s"], "setup_s": rec["setup_s"], "table": rec["table"],
+              "pinned_gb": rec["pinned_gb"], "prefill_tokens": rep.prefill_tokens,
+              "prefill_s": rep.prefill_s, "prefill_tok_s": rep.prefill_throughput,
+              "decode_tokens": rep.decode_tokens, "decode_s": rep.decode_s,
+              "decode_tok_s": rep.decode_throughput,
+              "server_ms_per_tick": rep.decode_s * 1e3 / max(1, ticks), "decode_ticks": ticks,
+              "fused_ticks": rec["fused_ticks"], "kv_htod_gb": rep.kv_htod_gb,
+              "kv_dtoh_gb": rep.kv_dtoh_bytes / 1e9, "copied_gb": rec["copied_bytes"] / 1e9,
+              "demand_fetches": rec["demand_fetches"], "planned_reads": rec["planned_reads"],
+              "tokens_equal_contiguous": all(same), "dropped": rep.expert_tokens_dropped,
+              "launches": c})
+        if len(got) != n or not all(same):
+            raise AssertionError(f"serve_paged Mode {mode} {sched}: tokens differ from "
+                                 f"serve_long's contiguous tokens for requests "
+                                 f"{[i for i, ok in enumerate(same) if not ok]}")
+        if mode == "A":
+            if rec["fused_ticks"] != ticks or rep.kv_htod_bytes or c["decode_attention_paged"]:
+                raise AssertionError(f"serve_paged Mode A: {rec['fused_ticks']} of {ticks} "
+                                     f"ticks fused, {rep.kv_htod_bytes} KV bytes copied")
+            continue
+        k3p = cfg.num_layers * ticks if dev.type == "cuda" else 0
+        if (rec["fused_ticks"] or c["decode_attention_paged"] != k3p
+                or c["decode_attention_paged_split"] != k3p or c["decode_attention"]
+                or rep.kv_htod_bytes <= 0 or host_frames <= 0):
+            raise AssertionError(f"serve_paged Mode B {sched}: K3p launched "
+                                 f"{c['decode_attention_paged']} times (split "
+                                 f"{c['decode_attention_paged_split']}), reckoned {k3p}; "
+                                 f"{rec['fused_ticks']} fused ticks")
+        if dev.type == "cuda" and not all(c[k] > 0 for k in PATH_KERNELS["serve_paged"]):
+            raise AssertionError(f"serve_paged: a kernel of the path was never launched: {c}")
+        counts = counts or c
+    # a fresh Mode B engine: the largest K3p call captured, then a chunk of
+    # two ticks under the profiler, its copies held to the table's count
+    before = torch.cuda.memory_allocated()
+    eng = ModuleBatchingEngine(cfg, params, plan, max_seq=max_seq, device=dev,
+                               cache_config=CacheConfig(page_tokens=PAGE_TOKENS,
+                                                        device_pool_bytes=DEVICE_KV_GB * 1e9))
+    prompts, lengths = padded_prompts(requests)
+    sampler = BatchSampler.uniform(n, None)
+    tok0 = sampler.sample(eng.prefill(prompts, lengths=lengths))
+    with capture_calls(("decode_attention_paged",)) as dec:
+        eng.decode_chunk(tok0, lengths, sampler, 1).cpu()
+    steps = 2
+
+    def chunk():
+        return eng.decode_chunk(tok0, lengths + 1, sampler, steps).cpu()
+
+    wall = host_ms(chunk) / steps
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.sync_stats()
+    htod0, copied0 = eng.stats.kv_htod_bytes, eng.pages.copied_bytes
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        chunk()
+        torch.cuda.synchronize()
+    eng.sync_stats()
+    htod, copied = eng.stats.kv_htod_bytes - htod0, eng.pages.copied_bytes - copied0
+    ov = stream_overlap(prof)
+    bytes_tick = cfg.num_layers * layer_bytes
+    rec = {"phase": "profile", "what": f"serve_paged Mode B decode tick B={n}, per-module",
+           "steps": steps, "wall_ms_per_tick": wall, "host_frame_gb_per_tick": bytes_tick / 1e9,
+           "kv_htod_bytes_in_chunk": htod, "copied_bytes_in_chunk": copied,
+           "trace_htod_bytes": ov["copy_bytes"], "copies_in_trace": ov["weight_copies"],
+           "copy_gb_s": ov["copy_gb_s"], "copy_ms_per_tick": ov["copy_ms"] / steps,
+           "device_kernel_ms_per_tick": ov["kernel_ms"] / steps,
+           "copy_bound_ms_per_tick": (bytes_tick / (ov["copy_gb_s"] * 1e9) * 1e3
+                                      if ov["copy_gb_s"] else None),
+           "tick_wall_over_copy_bound": (wall / (bytes_tick / (ov["copy_gb_s"] * 1e9) * 1e3)
+                                         if ov["copy_gb_s"] else None)}
+    emit(rec)
+    traced = ov["copy_bytes"] if dev.type == "cuda" else htod
+    if not (htod == copied == traced == steps * bytes_tick):
+        raise AssertionError(f"serve_paged: the table counted {htod} bytes ({copied} queued), "
+                             f"the trace shows {ov['copy_bytes']}, reckoned "
+                             f"{steps * bytes_tick}")
+    del eng, tok0, prof
+    torch.cuda.empty_cache()
+    rows = check_path_kernels("serve_paged", {("decode", k): v for k, v in dec.items()})
+    del dec
+    freed("serve_paged", "profiled engine and its captures", before)
+    return counts, rows
 
 
 # ---------------------------------------------------------------------------
@@ -2092,6 +2505,120 @@ def phase_parity(dev):
                                      f"never launched on the card: {launched}")
         del params, cpu_params
         torch.cuda.empty_cache()
+    parity_omega_paged(dev, rng)
+
+
+def parity_omega_paged(dev, rng):
+    """OLMoE at full width but 2 layers, f32, omega 0.5 and Mode B with a
+    1-byte device budget (every frame in page-locked host memory, streamed
+    through the window): the card (host rows on the CPU, K3p on the device
+    rows) against the CPU (plain versions), prefill and 3 decode steps of a
+    ragged batch: identical greedy tokens, K3p launched on the card, every
+    logit within 1e-3 of the scale.
+
+    The host mechanism rounds its operands to bf16 (the paper's §B), so
+    inputs a few f32 ulps apart (the card's projections against the CPU's)
+    would flip some roundings.  So the mechanism's inputs (q and the
+    assembled K/V span, slot written) are held apart from its output: each
+    call's inputs on the card within 1e-3 of the CPU run's own, which a
+    wrong slot, row split or stale page would miss by the scale of the
+    values; then the CPU run's mechanism takes the card's inputs of the same
+    call, so that the host rows' logits differ only where the engines do.
+    Each layer's host frames cross once a tick, the first on demand."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.dag_builder import Plan
+    from repro_torch.core.engine import ModuleBatchingEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving import weights as wmod
+    from repro_torch.serving.cache import CacheConfig
+
+    cfg = replace(get_config("olmoe-1b-7b"), num_layers=2, dtype="float32")
+    B, S, steps = 4, 48, 3
+    prompts = rng.integers(0, cfg.vocab_size, (B, S))
+    lengths = np.array([48, 30, 41, 17])
+    plan = Plan(B=B, b_a=B, b_e=B, omega=0.5)
+    cc = CacheConfig(page_tokens=16, device_pool_bytes=1.0)
+    before, pinned = torch.cuda.memory_allocated(), wmod.pinned_bytes()
+    params = M.init_params(cfg, seed=1, device=dev)
+    out, inputs = {}, {}
+
+    def tap(eng, feed):
+        """Record each host-mechanism call's inputs; with ``feed``, run the
+        mechanism on the inputs ``feed`` recorded for the same call."""
+        attend, seen = eng._host_attend, []
+
+        def host_attend(p, q, kc, vc, pos_np, heads=False):
+            seen.append((q.clone(), kc.clone(), vc.clone()))
+            if feed is not None:
+                q, kc, vc = feed[len(seen) - 1]
+            return attend(p, q, kc, vc, pos_np, heads)
+
+        eng._host_attend = host_attend
+        return seen
+
+    for where, p in ((dev, params), ("cpu", _to_cpu(params))):
+        key = "cpu" if where == "cpu" else "card"
+        ops.reset_launch_counts()
+        eng = ModuleBatchingEngine(cfg, p, plan, max_seq=S + 8, device=where, cache_config=cc)
+        inputs[key] = tap(eng, inputs.get("card"))
+        lg = [eng.prefill(prompts, lengths=lengths).float().cpu()]
+        toks = [lg[0].argmax(-1)]
+        for t in range(steps):
+            lg.append(eng.decode_step(toks[-1], lengths + t).float().cpu())
+            toks.append(lg[-1].argmax(-1))
+        eng.sync_stats()
+        out[key] = (lg, toks, ops.launch_counts(), eng.stats.host_attn_tokens,
+                    eng.stats.kv_htod_bytes, eng.pages.demand_fetches,
+                    eng.pages.host_pool_bytes() // eng._n_attn)
+        del eng._host_attend                # the tap holds the engine: break the cycle
+        del eng, p
+    del params
+    scale = float(out["cpu"][0][0].abs().max())
+    n_host = int(round(plan.omega * B))
+
+    def err(rows):
+        return [float((a[rows] - b[rows]).abs().max()) / scale
+                for a, b in zip(out["card"][0][1:], out["cpu"][0][1:])]
+
+    pre = float((out["card"][0][0] - out["cpu"][0][0]).abs().max()) / scale
+    dev_err, host_err = err(slice(n_host, B)), err(slice(0, n_host))
+    in_err = [max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(card, cpu))
+              for card, cpu in zip(inputs["card"], inputs["cpu"])]
+    same = all(torch.equal(a, b) for a, b in zip(out["card"][1], out["cpu"][1]))
+    k3p = out["card"][2]["decode_attention_paged"]
+    htod, demand, layer_bytes = out["card"][4:7]
+    htod_want = (cfg.num_layers * steps + 1) * layer_bytes
+    emit({"phase": "parity", "arch": cfg.name, "layers": 2, "case": "omega-0.5-mode-B",
+          "B": B, "S": S, "lengths": lengths.tolist(), "host_rows": n_host,
+          "prefill_rel_err": pre, "device_rows_rel_err_per_step": dev_err,
+          "host_rows_rel_err_per_step": host_err,
+          "host_mechanism_calls": [len(inputs["card"]), len(inputs["cpu"])],
+          "host_mechanism_inputs_rel_err_per_call": in_err, "tolerance": 1e-3,
+          "tokens_match": same, "card_k3p_launches": k3p,
+          "host_attn_tokens": [out["card"][3], out["cpu"][3]],
+          "kv_htod_bytes": [htod, out["cpu"][4]], "kv_htod_reckoned": htod_want,
+          "kv_demand_fetches": [demand, out["cpu"][5]]})
+    calls = cfg.num_layers * steps
+    if not (max([pre] + dev_err + host_err + in_err) < 1e-3 and same
+            and len(inputs["card"]) == len(inputs["cpu"]) == calls
+            and out["card"][3] == out["cpu"][3] > 0):
+        raise AssertionError(f"card vs CPU (omega 0.5, Mode B): prefill {pre}, device rows "
+                             f"{dev_err}, host rows {host_err}, host mechanism inputs "
+                             f"{in_err} ({len(inputs['card'])} calls of {calls}), "
+                             f"tokens match {same}")
+    if dev.type == "cuda" and not (k3p > 0 and htod == out["cpu"][4] == htod_want
+                                   and demand == out["cpu"][5] == 1):
+        raise AssertionError(f"card vs CPU (omega 0.5, Mode B): K3p launched {k3p} times, "
+                             f"KV bytes {htod} and {out['cpu'][4]} (reckoned {htod_want}), "
+                             f"demand fetches {demand} and {out['cpu'][5]} (1 expected)")
+    torch.cuda.empty_cache()
+    freed("parity", "omega + Mode B engine", before)
+    if wmod.pinned_bytes() != pinned:
+        raise AssertionError("parity: the omega + Mode B engine left page-locked bytes")
 
 
 def kernels_line(rows, launches, path_rows=None) -> list:
@@ -2100,13 +2627,14 @@ def kernels_line(rows, launches, path_rows=None) -> list:
     that path's count (from its static run), "launches_by_path" every
     path's.  ``path_rows`` ({path: rows of check_path_kernels}) adds, per
     kernel, its first row on that path's own inputs (e.g. Mixtral's)."""
-    home = {"flash_attention": "serve_long", "ssd_scan": "serve_ssm"}
+    home = {"flash_attention": "serve_long", "ssd_scan": "serve_ssm",
+            "decode_attention_paged": "serve_paged"}
     seen, line_rows = set(), []
     for r in rows:
         if r["name"] in seen:
             continue
         seen.add(r["name"])
-        by_path = {k: c[r["name"]] for k, c in launches.items()}
+        by_path = {k: c.get(r["name"], 0) for k, c in launches.items() if c}
         line_rows.append({
             "name": r["name"], "route": "cuda", "source": SOURCE[r["name"]],
             "replaces": REPLACES[r["name"]],
@@ -2120,6 +2648,8 @@ def kernels_line(rows, launches, path_rows=None) -> list:
             "design": r["design"],
             "prev_ms": r.get("prev_ms"), "ms_again": r.get("ms_again"),
         })
+        if "k3_ms" in r:                       # K3p: K3 on the gathered copy
+            line_rows[-1].update({"k3_ms": r["k3_ms"], "library": r["library"]})
         for path, prow in (path_rows or {}).items():
             mine = next((x for x in prow if x["name"] == r["name"]), None)
             if mine is not None:
@@ -2132,8 +2662,8 @@ def kernels_line(rows, launches, path_rows=None) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="kernels,serve,serve_long,serve_streamed,serve_ssm,"
-                                        "serve_mixtral,parity,profile")
+    ap.add_argument("--phases", default="kernels,serve,serve_omega,serve_long,serve_paged,"
+                                        "serve_streamed,serve_ssm,serve_mixtral,parity,profile")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -2181,19 +2711,24 @@ def main() -> int:
         emit({"kernel_cases": rows})
     launches = {}                           # per path: counts from its static run
     path_rows = {}                          # per streamed path: its kernel rows
-    if phases & {"serve", "serve_long", "serve_streamed"}:
+    if phases & {"serve", "serve_long", "serve_streamed", "serve_omega", "serve_paged"}:
         params = init_weights(dev)
-        resident = None
+        resident = long_reports = None
         if "serve" in phases:
             resident = phase_serve(dev, params, profile="profile" in phases)
             launches["serve"] = resident[0]["static"]
+        if "serve_omega" in phases:
+            launches["serve_omega"], _ = phase_serve_omega(dev, params, resident)
         if "serve_long" in phases:
-            launches["serve_long"], _ = phase_serve_long(dev, params,
-                                                         profile="profile" in phases)
+            launches["serve_long"], long_reports = phase_serve_long(
+                dev, params, profile="profile" in phases)
+        if "serve_paged" in phases:
+            launches["serve_paged"], path_rows["serve_paged"] = phase_serve_paged(
+                dev, params, long_reports)
         if "serve_streamed" in phases:
             launches["serve_streamed"], path_rows["serve_streamed"] = phase_serve_streamed(
                 dev, params, resident)
-        del params, resident
+        del params, resident, long_reports
         torch.cuda.empty_cache()
     if "serve_ssm" in phases:
         launches["serve_ssm"], _ = phase_serve_ssm(dev, profile="profile" in phases)

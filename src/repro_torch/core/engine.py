@@ -54,8 +54,26 @@ experts it uses and prefetches the predicted ones.  A streamed engine
 decodes per module and captures no graph.  Streamed and resident engines
 give the same tokens.
 
-Out of the port so far, each raising ``NotImplementedError`` that names its
-slice: host attention (omega > 0), paged KV, and the loop expert path.
+Host attention (the paper's omega split, §4.2 and §B): the first
+``round(omega * B)`` rows of the batch run their attention mechanism on the
+host CPU (``core.host_attention``).  Their norm, projections and rope run on
+the device; q, k_new and v_new come down in one planned read a layer and
+micro-batch, the slot is written into the host-resident KV and the CPU
+attends; the output goes back up by one copy from page-locked memory and
+``wo`` runs on the device.  With a contiguous cache those rows' KV lives in
+a page-locked host buffer (n_host, span, K, hd) per attention layer, filled
+by prefill and never read from the device.  A micro-batch that straddles
+the boundary is split at it.  In a fused chunk the host rows run their T
+ticks per module first, then the device rows replay the fused graph.
+
+Paged KV (``serving.cache``, ``cache_config``): in Mode A the page table is
+bookkeeping only and everything above holds bit for bit; in Mode B the KV
+lives only in the table's pools, decode runs per module, each layer's host
+frames are prefetched a layer ahead beside the weights, and the device rows
+of a micro-batch run the paged decode-attention kernel (K3p) over the
+device pool and the window's copy of the layer's host frames.
+
+Out of the port so far: the loop expert path (``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -70,8 +88,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import workload as W
 from repro_torch.core.dag_builder import Plan
-from repro_torch.device import resolve_device
+from repro_torch.core.host_attention import (
+    host_decode_attention,
+    host_decode_attention_heads,
+    round_bf16,
+    to_heads,
+)
+from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.kernels import build
+from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import reserve_tickets
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -79,13 +104,12 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.blocks import ffn_apply, init_layer_cache, layer_forward, mixer_forward
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.model import head
-from repro_torch.serving.kvcache import evict_rows, insert_prefill_rows
+from repro_torch.serving.cache import CacheConfig, KVPageTable, copy_rows_to_host
+from repro_torch.serving.kvcache import aligned_kv, evict_rows, insert_prefill_rows
 from repro_torch.serving.sampling import BatchSampler, greedy, sample_tokens
-from repro_torch.serving.weights import ParamStore
+from repro_torch.serving.weights import ParamStore, _HostBuffer
 
-HOST_ATTENTION_SLICE = "host attention (omega > 0) is the host-attention slice of the port"
 LOOP_SLICE = "the 'loop' expert path is not ported; use expert_path='grouped'"
-PAGING_SLICE = "paged KV caches are the paging slice of the port"
 
 
 @dataclass
@@ -95,6 +119,8 @@ class EngineStats:
     expert_tokens: int = 0               # routed token-copies processed
     expert_tokens_dropped: int = 0       # routed copies over the b_e capacity
     device_attn_tokens: int = 0
+    host_attn_tokens: int = 0            # rows x attention layers on the host
+    host_attn_s: float = 0.0             # host CPU seconds in the mechanism
     expert_tokens_dropped_by_layer: Optional[np.ndarray] = None
     #                                      (n_moe,) int64 per-MoE-layer drops
     expert_load: Optional[np.ndarray] = None
@@ -111,7 +137,9 @@ class EngineStats:
     expert_pred_misses: int = 0          # routed experts fetched on demand
     expert_lru_hits: int = 0             # routed experts served from the LRU
     expert_lru_bytes: int = 0            # device bytes the LRU holds
-    planned_reads: int = 0               # predictive stage's host reads
+    planned_reads: int = 0               # planned host reads of decode
+    kv_htod_bytes: int = 0               # host KV frames copied to the device
+    kv_dtoh_bytes: int = 0               # KV pages written to the host tier
 
 
 # one side stream per device on which every engine warms up and captures
@@ -177,9 +205,11 @@ class ModuleBatchingEngine:
     ``stream_weights``, ``resident_bytes`` and ``prefetch`` go to
     ``ParamStore.build`` (predictive streaming follows the plan's
     ``predict_topk``), or pass a built ``store`` (``params`` may then be
-    None).  ``predictor`` is a test seam: a callable ``(next layer, khat)
-    -> expert ids`` that replaces the device's prediction for what to
-    prefetch, never what is computed.
+    None).  ``cache_config`` (``serving.cache.CacheConfig``) pages the KV
+    cache.  ``plan.omega`` sends the first ``round(omega * B)`` rows'
+    attention to the host.  ``predictor`` is a test seam: a callable
+    ``(next layer, khat) -> expert ids`` that replaces the device's
+    prediction for what to prefetch, never what is computed.
     """
 
     def __init__(
@@ -192,22 +222,19 @@ class ModuleBatchingEngine:
         store: Optional[ParamStore] = None,
         stream_weights: bool = False,
         resident_bytes: Optional[float] = None,
-        cache_config=None,
+        cache_config: Optional[CacheConfig] = None,
         device="cuda",
         fused_decode: bool = True,
         prefetch: bool = True,
     ) -> None:
         if expert_path != "grouped":
             raise NotImplementedError(LOOP_SLICE)
-        if plan.omega > 0:
-            raise NotImplementedError(HOST_ATTENTION_SLICE)
-        if cache_config is not None:
-            raise NotImplementedError(PAGING_SLICE)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.plan = plan
         self.max_seq = max_seq
         self.fused_decode = fused_decode
+        self.cache_config = cache_config
         if store is None:
             store = ParamStore.build(
                 cfg, params, plan, stream_weights=stream_weights,
@@ -217,6 +244,14 @@ class ModuleBatchingEngine:
         self.predictor = None
         self.schema = store.schema                  # [(kind, ffn)] per layer
         self.cache: Optional[List[Dict[str, torch.Tensor]]] = None
+        self._batch = 0                             # rows of the cache
+        self.pages: Optional[KVPageTable] = None
+        # contiguous cache with omega > 0: the host rows' KV per attention
+        # layer on the host, in the mechanism's layout (n_host, K, span, hd)
+        # f32 of bf16 values, and the page-locked buffers behind it and
+        # behind the host output's upload
+        self._host_kv: Dict[int, Dict[str, torch.Tensor]] = {}
+        self._host_bufs: Dict[str, _HostBuffer] = {}
         self.stats = EngineStats()
         # device-side counters, folded into `stats` by sync_stats(): drops and
         # routed-load histograms accumulate per MoE layer without a host sync
@@ -270,29 +305,126 @@ class ModuleBatchingEngine:
         self.stats.expert_pred_misses += ec["pred_misses"]
         self.stats.expert_lru_hits += ec["lru_hits"]
         self.stats.expert_lru_bytes = ec["lru_bytes_used"]
+        if self.pages is not None:
+            kv_htod, kv_dtoh, _ = self.pages.take_counters()
+            self.stats.kv_htod_bytes += kv_htod
+            self.stats.kv_dtoh_bytes += kv_dtoh
         return self.stats
 
     # -- cache management ---------------------------------------------
+    @property
+    def n_host(self) -> int:
+        """Rows ``[0, n_host)`` of the batch take the host attention path:
+        ``round(omega * B)``."""
+        return int(round(self.plan.omega * self._batch))
+
+    def _paged_b(self) -> bool:
+        """Mode B: the KV lives only in the page table's pools."""
+        return self.pages is not None and not self.pages.fully_resident
+
     def init_cache(self, batch: int) -> None:
         """A zeroed cache of ``batch`` rows.  A cache of that batch already
-        held is zeroed in place, so its ``data_ptr()``s -- which the
-        captured decode graphs read and write -- never change; a new batch
-        allocates new buffers and drops the graphs."""
-        if self.cache is not None and next(iter(self.cache[0].values())).shape[0] == batch:
+        held is zeroed in place (its page table reset), so its
+        ``data_ptr()``s -- which the captured decode graphs read and write
+        -- never change; a new batch allocates new buffers and drops the
+        graphs.  With ``cache_config`` paging on, the page table; with
+        omega > 0 and a contiguous cache, the host rows' KV."""
+        if self.cache is not None and self._batch == batch:
             for layer in self.cache:
                 for buf in layer.values():
                     buf.zero_()
+            for kv in self._host_kv.values():
+                for buf in kv.values():
+                    buf.zero_()
+            if self.pages is not None:
+                self.pages.reset()
             return
         self.cache = None                 # free the old buffers first
         self._graphs.clear()
-        self.cache = [init_layer_cache(self.cfg, kind, batch, self.max_seq,
-                                       self.device)
+        self._host_kv, self._host_bufs = {}, {}
+        if self.pages is not None:
+            self.pages.close()
+            self.pages = None
+        self._batch = batch
+        cc = self.cache_config
+        if cc is not None and cc.enabled and self._n_attn:
+            self.pages = KVPageTable(self.cfg, self.schema, batch, self.max_seq, cc,
+                                     device=self.device)
+        paged_b = self._paged_b()
+        self.cache = [{} if kind == "attn" and paged_b else
+                      init_layer_cache(self.cfg, kind, batch, self.max_seq, self.device)
                       for kind, _ in self.schema]
+        if self.n_host and self._n_attn:
+            self._init_host_buffers(kv=not paged_b)
+
+    def _init_host_buffers(self, kv: bool) -> None:
+        """The staging buffer of the host rows' output upload and, with
+        ``kv`` (a contiguous cache), the host rows' KV: K and V per attention
+        layer in the host mechanism's layout, (n_host, K, span, hd) f32 of
+        bf16 values (``host_attention.to_heads``: a decode step neither
+        widens nor transposes it), in one zeroed host buffer.  Both
+        page-locked on a card."""
+        cfg, n = self.cfg, self.n_host
+        item = torch.empty((), dtype=torch_dtype(cfg.dtype)).element_size()
+        bufs = {"out": _HostBuffer(n * cfg.num_heads * cfg.head_dim * item)}
+        attn = [li for li, (kind, _) in enumerate(self.schema) if kind == "attn"]
+        shape = (n, cfg.num_kv_heads, attn_mod.kv_span(cfg, self.max_seq), cfg.head_dim)
+        per = int(np.prod(shape)) * 4
+        if kv:
+            bufs["kv"] = _HostBuffer(2 * per * len(attn))
+            bufs["kv"].tensor.zero_()
+        if self.device.type == "cuda":
+            for buf in bufs.values():
+                buf.pin()
+        for j, li in enumerate(attn if kv else []):
+            flat = bufs["kv"].tensor[2 * j * per:2 * (j + 1) * per].view(torch.float32)
+            self._host_kv[li] = {"k": flat[:flat.numel() // 2].view(shape),
+                                 "v": flat[flat.numel() // 2:].view(shape)}
+        self._host_bufs = bufs
 
     def evict_slots(self, rows) -> None:
-        """Recycle batch slots: zero their rows in every layer, in place."""
+        """Recycle batch slots: zero their rows in every layer, in place
+        (the host rows' KV too), and return their page frames."""
         assert self.cache is not None
         evict_rows(self.cache, rows)
+        rows = np.asarray(rows, np.int64).reshape(-1)
+        host = torch.as_tensor(rows[rows < self.n_host])
+        if self._host_kv and host.numel():
+            for kv in self._host_kv.values():
+                for buf in kv.values():
+                    buf.index_fill_(0, host, 0)
+        if self.pages is not None:
+            self.pages.free_rows([int(r) for r in rows])
+
+    def reserve_slot_rows(self, rows) -> None:
+        """Reserve page frames for batch rows ``rows`` before their prefill
+        (nothing without paging; a reserved row keeps its placement).  The
+        host-attention rows prefer the host tier.  Raises
+        ``serving.cache.PageAllocOOM`` when both tiers are out of frames."""
+        if self.pages is None:
+            return
+        rows_l = [int(r) for r in np.asarray(rows).reshape(-1)]
+        self.pages.ensure_rows(rows_l, prefer_host=[r < self.n_host for r in rows_l])
+
+    def _write_cache_rows(self, li: int, kind: str, entry: Dict, rows: np.ndarray) -> None:
+        """A prefill micro-batch's raw ``entry`` into batch rows ``rows`` of
+        layer ``li``: the contiguous buffer (``insert_prefill_rows``), or
+        under paging the rows' frames (allocated on first touch); with a
+        host rows' KV, its rows by one device-to-host copy."""
+        if kind == "attn" and self.pages is not None:
+            self.reserve_slot_rows(rows)
+            if self._paged_b():
+                nk, nv = aligned_kv(self.cfg, entry["k"], entry["v"], self.pages.span)
+                self.pages.insert_rows(li, nk, nv, [int(r) for r in rows])
+                return
+        insert_prefill_rows(self.cfg, self.cache[li], entry, rows)
+        host = np.flatnonzero(rows < self.n_host)
+        if kind == "attn" and self._host_kv and host.size:
+            span = self._host_kv[li]["k"].shape[2]
+            nk, nv = aligned_kv(self.cfg, entry["k"], entry["v"], span)
+            dst = [int(r) for r in rows[host]]
+            copy_rows_to_host(self._host_kv[li]["k"], dst, to_heads(nk), host.tolist())
+            copy_rows_to_host(self._host_kv[li]["v"], dst, to_heads(nv), host.tolist())
 
     # -- phases ---------------------------------------------------------
     def _tensor(self, a, dtype=torch.long) -> torch.Tensor:
@@ -353,7 +485,7 @@ class ModuleBatchingEngine:
                                                        live[j])
                 else:
                     x, entry, _ = layer_forward(cfg, kind, ffn, p, x, positions, ln)
-                insert_prefill_rows(cfg, self.cache[li], entry, rows[lo:hi])
+                self._write_cache_rows(li, kind, entry, rows[lo:hi])
                 outs.append(x)
             xs = outs
         self.stats.attn_microbatches += len(spans)
@@ -408,46 +540,83 @@ class ModuleBatchingEngine:
         on the card): fused decode on, grouped expert dispatch, and every
         weight resident (a streamed layer keeps the per-module loop: the
         prefetch needs the layer boundary to hide behind, and a graph would
-        hold the window's slots at fixed addresses).  omega is always 0 and
-        no cache is paged in this port so far (both raise at construction)."""
-        return (self.fused_decode and self.store.fully_resident)
+        hold the window's slots at fixed addresses), and no KV page on the
+        host (Mode B decodes per module for the same reasons).  The host
+        attention rows of omega > 0 run per module beside the graph."""
+        return (self.fused_decode and self.store.fully_resident
+                and (self.pages is None or self.pages.fully_resident))
 
     # -- decode -----------------------------------------------------------
     def decode_step(self, tokens, pos) -> torch.Tensor:
         """One per-module decode step for all B sequences; returns logits.
         ``pos`` is a scalar or a per-sequence (B,) vector of positions."""
         tokens = self._tensor(tokens)
-        lg = self._decode_rows(tokens, self._tensor(pos), 0)
-        self._count_module_tick(tokens.shape[0])
+        n = tokens.shape[0]
+        pos_host = self._pos_host(pos, n)
+        lg = self._decode_rows(tokens, self._tensor(pos), 0, pos_host)
+        self._count_module_tick(0, n)
         return lg
 
-    def _count_module_tick(self, n: int) -> None:
-        """Per-module accounting of one decode tick over ``n`` rows: one
-        attention launch set per layer and ``b_a`` micro-batch, one grouped
-        dispatch per MoE layer."""
-        mb = -(-n // max(1, min(self.plan.b_a, n)))
-        self.stats.attn_microbatches += self._n_attn * mb
-        self.stats.device_attn_tokens += self._n_attn * n
+    def _pos_host(self, pos, n: int) -> Optional[np.ndarray]:
+        """The rows' positions as a host (n,) vector, where the tick needs
+        them on the host (host attention rows or Mode B paging)."""
+        if not (self.n_host or self._paged_b()):
+            return None
+        if torch.is_tensor(pos):
+            pos = pos.cpu()
+        return np.broadcast_to(np.asarray(pos, np.int64).reshape(-1), (n,)).copy()
+
+    def _segments(self, row0: int, n: int) -> List[Tuple[int, int, bool]]:
+        """The attention micro-batches of rows ``[row0, row0 + n)``: ``b_a``
+        rows each, one that straddles ``n_host`` split at it, each
+        ``(lo, hi, host)`` in batch rows."""
+        b_a = max(1, min(self.plan.b_a, n))
+        n_host, segs = self.n_host, []
+        lo, end = row0, row0 + n
+        while lo < end:
+            hi = min(end, lo + b_a)
+            if lo < n_host < hi:
+                hi = n_host
+            segs.append((lo, hi, hi <= n_host))
+            lo = hi
+        return segs
+
+    def _count_module_tick(self, row0: int, n: int) -> None:
+        """Per-module accounting of one decode tick over rows ``[row0, row0
+        + n)``: one attention launch set per layer and micro-batch, the
+        host and device attention tokens, one grouped dispatch per MoE
+        layer."""
+        segs = self._segments(row0, n)
+        host = sum(hi - lo for lo, hi, h in segs if h)
+        self.stats.attn_microbatches += self._n_attn * len(segs)
+        self.stats.host_attn_tokens += self._n_attn * host
+        self.stats.device_attn_tokens += self._n_attn * (n - host)
         self.stats.expert_launches += len(self._moe_layers)
 
-    def _decode_rows(self, tokens: torch.Tensor, pos: torch.Tensor,
-                     row0: int) -> torch.Tensor:
+    def _decode_rows(self, tokens: torch.Tensor, pos: torch.Tensor, row0: int,
+                     pos_host: Optional[np.ndarray] = None) -> torch.Tensor:
         """Per-module decode over batch rows ``[row0, row0 + n)``: every
         module of one tick, in order (the fused tick captures exactly this:
         with every weight resident the store's calls do nothing on the
-        device).  A streamed layer's prefetch of layer ``li + 1`` goes out
-        after its mixer, before its FFN; a predictively streamed MoE layer
-        makes the tick's one planned host read of that layer."""
+        device).  ``pos_host`` mirrors ``pos`` on the host where host rows
+        or Mode B pages need it.  A streamed layer's prefetch of layer ``li
+        + 1`` (weights, and host KV frames) goes out after its mixer, before
+        its FFN; a predictively streamed MoE layer makes the tick's one
+        planned host read of that layer."""
         cfg = self.cfg
         x = self.store.base["embed"][tokens]
+        # only device rows read the streamed host frames
+        device_rows = self.pages is not None and row0 + tokens.shape[0] > self.n_host
         for li, (kind, ffn) in enumerate(self.schema):
             predictive = ffn == "moe" and self.store.streams_experts(li)
             p = self.store.acquire(li, experts=not predictive)
             if kind == "attn":
-                x = x + self._attention_stage(li, p, x, pos, row0)
+                x = x + self._attention_stage(li, p, x, pos, row0, pos_host)
             else:
                 x = x + self._ssm_stage(li, p, x, row0)
             self.store.prefetch(li + 1)     # before the FFN / grouped launch
+            if device_rows:
+                self.pages.prefetch(li + 1)  # the next layer's host KV frames
             if predictive:
                 x = x + self._expert_stage_predictive(li, x)
             elif ffn == "moe":
@@ -457,23 +626,149 @@ class ModuleBatchingEngine:
         return head(cfg, self.store.base, x)
 
     # -- module stages ---------------------------------------------------
-    def _attention_stage(self, li, p, x, pos, row0: int = 0) -> torch.Tensor:
-        """Micro-batched device attention over rows ``[row0, row0 + n)``;
-        each micro-batch updates its own rows of the cache in place."""
-        cfg, plan = self.cfg, self.plan
+    def _attention_stage(self, li, p, x, pos, row0: int = 0,
+                         pos_host: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Micro-batched attention over rows ``[row0, row0 + n)`` with the
+        omega split (``_segments``): a host micro-batch runs the host
+        mechanism, a device one K3 on its rows of the cache in place, or
+        under Mode B paging K3p over the pool and the layer's streamed host
+        frames.  Those are acquired once for the layer, before any host
+        micro-batch writes a host frame: a write after the acquire leaves
+        the prefetched copy in use (the device rows read only their own
+        frames), one before it would stale the copy and fetch it again."""
         n = x.shape[0]
         posv = pos.reshape(-1).expand(n) if pos.numel() == 1 else pos
-        b_a = max(1, min(plan.b_a, n))
-        k, v = self.cache[li]["k"], self.cache[li]["v"]
+        segs = self._segments(row0, n)
+        window = None
+        if self._paged_b() and not all(host for _, _, host in segs):
+            window = self.pages.acquire(li)
         outs = []
-        for lo in range(0, n, b_a):
-            hi = min(n, lo + b_a)
-            h = rms_norm(x[lo:hi, None, :], p["norm1"], cfg.norm_eps)
-            rows = slice(row0 + lo, row0 + hi)
-            y, _ = attn_mod.attn_decode(cfg, p["attn"], h,
-                                        {"k": k[rows], "v": v[rows]}, posv[lo:hi])
-            outs.append(y[:, 0])
+        for lo, hi, host in segs:
+            a, b = lo - row0, hi - row0
+            h = rms_norm(x[a:b, None, :], p["norm1"], self.cfg.norm_eps)
+            if host:
+                y = self._host_rows(li, p, h, posv[a:b], pos_host[a:b], lo, hi)
+            elif window is not None:
+                y = self._paged_rows(li, p, h, posv[a:b], pos_host[a:b], lo, hi, window)
+            else:
+                k, v = self.cache[li]["k"], self.cache[li]["v"]
+                y, _ = attn_mod.attn_decode(self.cfg, p["attn"], h,
+                                            {"k": k[lo:hi], "v": v[lo:hi]}, posv[a:b])
+                y = y[:, 0]
+            outs.append(y)
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+    def _planned_host(self, *ts: torch.Tensor) -> List[torch.Tensor]:
+        """``ts`` (each with the same first dimension) on the host in one
+        planned read, counted in ``stats.planned_reads``."""
+        n = ts[0].shape[0]
+        packed = torch.cat([t.reshape(n, -1) for t in ts], dim=1)
+        with planned_read(packed):
+            host = packed.cpu()
+        self.stats.planned_reads += 1
+        out, c = [], 0
+        for t in ts:
+            w = t[0].numel()
+            out.append(host[:, c:c + w].reshape(t.shape))
+            c += w
+        return out
+
+    def _host_attend(self, p, q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                     pos_np: np.ndarray, heads: bool = False) -> torch.Tensor:
+        """The host mechanism on host tensors (``heads``: the KV already in
+        its layout), then the output up by one copy from page-locked memory
+        (the staging buffer's last upload finished before this layer's
+        planned read returned) and ``wo`` on the device."""
+        cfg = self.cfg
+        n = q.shape[0]
+        t0 = time.perf_counter()
+        attend = host_decode_attention_heads if heads else host_decode_attention
+        out = attend(q, kc, vc, pos_np)                         # (n, H, hd) f32
+        self.stats.host_attn_s += time.perf_counter() - t0
+        dtype = p["attn"]["wo"].dtype
+        if self.device.type == "cuda":
+            width = cfg.num_heads * cfg.head_dim
+            stage = self._host_bufs["out"].tensor.view(dtype)[:n * width].view(n, width)
+            stage.copy_(out.reshape(n, width))
+            o = stage.to(self.device, non_blocking=True)
+        else:
+            o = out.reshape(n, -1).to(dtype)
+        return o @ p["attn"]["wo"]
+
+    def _host_rows(self, li, p, h, posv, pos_np, lo: int, hi: int) -> torch.Tensor:
+        """A host micro-batch, rows ``[lo, hi)``: projections and rope on the
+        device, q / k_new / v_new down in one planned read, the slot written
+        into the host-resident KV (the host rows' buffer, or the rows'
+        pages read by ``KVPageTable.read_rows`` under Mode B), the host
+        mechanism, ``wo`` on the device.  Under Mode B the written slot is
+        mirrored into whichever tier holds its page."""
+        cfg = self.cfg
+        q, k, v = attn_mod.decode_qkv(cfg, p["attn"], h, posv)
+        qh, kh, vh = self._planned_host(q[:, 0], k[:, 0], v[:, 0])
+        rows = np.arange(lo, hi)
+        if not self._paged_b():
+            kc, vc = self._host_kv[li]["k"], self._host_kv[li]["v"]
+            slot = torch.as_tensor(attn_mod.decode_slot(cfg, pos_np, kc.shape[2]))
+            kc[torch.as_tensor(rows), :, slot] = round_bf16(kh.float())
+            vc[torch.as_tensor(rows), :, slot] = round_bf16(vh.float())
+            return self._host_attend(p, qh, kc[lo:hi], vc[lo:hi], pos_np, heads=True)
+        pages = self.pages
+        span = pages.span
+        if pages.device_frames_of(rows, span):
+            with planned_read(q):
+                kc, vc = pages.read_rows(li, rows, span)
+            self.stats.planned_reads += 1
+        else:
+            kc, vc = pages.read_rows(li, rows, span)
+        slot = attn_mod.decode_slot(cfg, pos_np, span)
+        kc[torch.arange(hi - lo), torch.as_tensor(slot)] = kh
+        vc[torch.arange(hi - lo), torch.as_tensor(slot)] = vh
+        y = self._host_attend(p, qh, kc, vc, pos_np)
+        tg = pages.slot_targets(rows, slot)
+        on_host = torch.as_tensor(tg.host_i)
+        pages.write_host_slots(li, tg.host_flat, kh[on_host], vh[on_host])
+        if tg.pool_i.size:                   # a host row spilled onto the pool
+            sel = self._tensor(tg.pool_i)
+            self._scatter_slots(pages.pool_k[li], pages.pool_v[li], tg.pool_flat,
+                                k[sel, 0], v[sel, 0])
+        return y
+
+    def _scatter_slots(self, bk: torch.Tensor, bv: torch.Tensor, flat: np.ndarray,
+                       k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write rows k[j], v[j] (K, hd) into slots ``flat[j]`` of the frame
+        buffers bk/bv (F, pt, K, hd), in place on the device."""
+        idx = self._tensor(flat)
+        bk.view((-1,) + tuple(bk.shape[2:])).index_copy_(0, idx, k)
+        bv.view((-1,) + tuple(bv.shape[2:])).index_copy_(0, idx, v)
+
+    def _paged_rows(self, li, p, h, posv, pos_np, lo: int, hi: int, window) -> torch.Tensor:
+        """A Mode B device micro-batch, rows ``[lo, hi)``: projections and
+        rope, k_new / v_new written into the device buffer that holds the
+        written page this tick (its pool frame, or the window's copy of its
+        host frame), one K3p launch through the page table, ``wo``; a slot
+        whose page is host-side is then mirrored to the host pool, its
+        values down in one planned read."""
+        cfg, pages = self.cfg, self.pages
+        span = pages.span
+        ek, ev = window
+        q, k, v = attn_mod.decode_qkv(cfg, p["attn"], h, posv)
+        rows = np.arange(lo, hi)
+        tg = pages.slot_targets(rows, attn_mod.decode_slot(cfg, pos_np, span))
+        if tg.pool_i.size:
+            sel = self._tensor(tg.pool_i)
+            self._scatter_slots(pages.pool_k[li], pages.pool_v[li], tg.pool_flat,
+                                k[sel, 0], v[sel, 0])
+        if tg.host_i.size:
+            sel = self._tensor(tg.host_i)
+            self._scatter_slots(ek, ev, tg.host_flat, k[sel, 0], v[sel, 0])
+        frames = self._tensor(pages.gather_indices(rows), torch.int32)
+        o = ops.decode_attention_paged(q[:, 0].contiguous(), pages.pool_k[li],
+                                       pages.pool_v[li], ek, ev, frames, posv, span)
+        y = o.reshape(hi - lo, cfg.num_heads * cfg.head_dim) @ p["attn"]["wo"]
+        if tg.host_i.size:
+            kh, vh = self._planned_host(k[sel, 0], v[sel, 0])
+            pages.write_host_slots(li, tg.host_flat, kh, vh)
+        return y
 
     def _ssm_stage(self, li, p, x, row0: int = 0) -> torch.Tensor:
         """SSM decode over rows ``[row0, row0 + n)`` in one launch set (not
@@ -556,19 +851,34 @@ class ModuleBatchingEngine:
 
         The fused chunk when ``fused_eligible()`` (on the card: T replays
         of the tick's CUDA graph, no host read between them), else T
-        per-module ticks; both give the same tokens.  ``live`` (B,) bool
-        marks rows owned by unfinished requests: dead rows hold their stale
-        token and position, like per-tick stepping.  Positions are clamped
-        at ``max_seq - 1``."""
+        per-module ticks; both give the same tokens.  With omega > 0 and a
+        contiguous cache the host rows ``[0, n_host)`` run their T ticks
+        per module first, then the device rows replay the fused graph (or,
+        per module, run their T ticks); all rows run together per module
+        when every row is a host row, or under Mode B paging.  ``live`` (B,) bool marks rows owned by
+        unfinished requests: dead rows hold their stale token and position,
+        like per-tick stepping.  Positions are clamped at ``max_seq - 1``."""
         B = tokens.shape[0] if torch.is_tensor(tokens) else len(tokens)
         pos_np = np.asarray(pos.cpu() if torch.is_tensor(pos) else pos,
                             np.int64).reshape(-1)
         if pos_np.size == 1:
             pos_np = np.full(B, pos_np[0], np.int64)
-        if self.fused_eligible() and self.cache is not None:
+        n_host, fused = self.n_host, self.fused_eligible() and self.cache is not None
+        if fused and not n_host:
             return self._fused_chunk(tokens, pos_np, sampler, T, live)
-        return self._chunk_rows_per_module(self._tensor(tokens), pos_np, sampler,
-                                           T, 0, B, live)
+        toks = self._tensor(tokens)
+        if 0 < n_host < B and self.store.fully_resident and not self._paged_b():
+            # the rows split as the fused chunk splits them, fused or not, so
+            # the per-module oracle's modules see the fused chunk's shapes
+            host = self._chunk_rows_per_module(toks, pos_np, sampler, T, 0, n_host, live)
+            if fused:
+                dev = self._fused_chunk(toks[n_host:], pos_np[n_host:], sampler, T,
+                                        None if live is None else np.asarray(live)[n_host:],
+                                        row0=n_host)
+            else:
+                dev = self._chunk_rows_per_module(toks, pos_np, sampler, T, n_host, B, live)
+            return torch.cat([host, dev], dim=0)
+        return self._chunk_rows_per_module(toks, pos_np, sampler, T, 0, B, live)
 
     def _chunk_rows_per_module(self, tokens, pos_np: np.ndarray, sampler,
                                T: int, lo: int, hi: int,
@@ -584,31 +894,32 @@ class ModuleBatchingEngine:
         lv = None if adv is None else self._tensor(adv.astype(bool), torch.bool)
         cap = self.max_seq - 1
         cols = []
+        host_pos = bool(self.n_host or self._paged_b())
         for t in range(T):
             pt = np.minimum(pos_rows + (t if adv is None else t * adv), cap)
-            lg = self._decode_rows(cur, self._tensor(pt), lo)
-            self._count_module_tick(hi - lo)
+            lg = self._decode_rows(cur, self._tensor(pt), lo, pt if host_pos else None)
+            self._count_module_tick(lo, hi - lo)
             sampled = sampler.sample(lg, slots)
             cols.append(sampled)
             cur = sampled if lv is None else torch.where(lv, sampled, cur)
         return torch.stack(cols, dim=1)
 
     def _fused_chunk(self, tokens, pos_np: np.ndarray, sampler: BatchSampler,
-                     T: int, live=None) -> torch.Tensor:
-        """The fused chunk over all B rows: the carry goes up in one copy,
-        the tick runs T times (graph replays on the card), the sampler
-        advances T steps on the host, and the (B, T) tokens come back as one
-        tensor.  Accounting as the JAX package's fused chunk: one dispatch,
-        T ticks, a decode retrace per new (B, path, T) key, and per tick one
-        grouped dispatch per MoE layer and B attention tokens per attention
-        layer."""
+                     T: int, live=None, row0: int = 0) -> torch.Tensor:
+        """The fused chunk over the B rows ``[row0, row0 + B)``: the carry
+        goes up in one copy, the tick runs T times (graph replays on the
+        card), the sampler advances T steps on the host, and the (B, T)
+        tokens come back as one tensor.  Accounting as the JAX package's
+        fused chunk: one dispatch, T ticks, a decode retrace per new (B,
+        row0, T, ...) key, and per tick one grouped dispatch per MoE layer
+        and B attention tokens per attention layer."""
         B = pos_np.size
-        idx = np.arange(B)
+        idx = np.arange(row0, row0 + B)
         keys, steps, temps, topks = sampler.state(idx)
         use_topk = bool((topks > 0).any())
         greedy_only = not bool((temps > 0).any())
         capacity, cap = self._expert_capacity(B), self.max_seq - 1
-        ref_key = (B, 0, T, capacity, cap, use_topk, greedy_only)
+        ref_key = (B, row0, T, capacity, cap, use_topk, greedy_only)
         if ref_key not in self._fused_keys:
             self._fused_keys.add(ref_key)
             self.stats.decode_retraces += 1
@@ -625,13 +936,14 @@ class ModuleBatchingEngine:
         if not greedy_only:
             c.temps.copy_(torch.from_numpy(temps), non_blocking=True)
         if self.device.type == "cuda":
-            graph, launches = self._graph((B, capacity, cap, use_topk, greedy_only), c)
+            graph, launches = self._graph(
+                (B, row0, capacity, cap, use_topk, greedy_only), c)
             for _ in range(T):
                 graph.replay()
             build.add_launches(launches, T)
         else:
             for _ in range(T):
-                self._fused_tick(c, cap, use_topk, greedy_only)
+                self._fused_tick(c, cap, use_topk, greedy_only, row0)
         sampler.advance(idx, T)
         self.stats.fused_dispatches += 1
         self.stats.fused_ticks += T
@@ -639,17 +951,18 @@ class ModuleBatchingEngine:
         self.stats.device_attn_tokens += T * self._n_attn * B
         return c.out[:, :T].clone()
 
-    def _fused_tick(self, c: _Carry, cap: int, use_topk: bool,
-                    greedy_only: bool) -> None:
-        """One decode tick on the carry ``c``, in place: the per-module
-        modules (``_decode_rows``), then ``sample_tokens`` (argmax when no
+    def _fused_tick(self, c: _Carry, cap: int, use_topk: bool, greedy_only: bool,
+                    row0: int = 0) -> None:
+        """One decode tick on the carry ``c`` of rows ``[row0, row0 + n)``, in
+        place: the per-module modules (``_decode_rows``), then
+        ``sample_tokens`` (argmax when no
         slot samples), then the carry: live rows take their token and
         advance their position, dead rows hold both, every row's token
         index advances, the tokens land in column ``tick`` of ``c.out``.
         The reference's tick (``repro/core/engine.py::_fused_decode_chunk``)."""
         st = c.state
         toks, pos, live, steps, tick = st[:, 0], st[:, 1], st[:, 2], st[:, 3], st[:1, 7]
-        lg = self._decode_rows(toks, torch.clamp(pos, max=cap), 0)
+        lg = self._decode_rows(toks, torch.clamp(pos, max=cap), row0)
         if greedy_only:
             nxt = greedy(lg)
         else:
@@ -671,9 +984,10 @@ class ModuleBatchingEngine:
         return c
 
     def _graph(self, key: Tuple, c: _Carry):
-        """The CUDA graph of one tick for ``key`` (B, expert capacity,
-        position cap, top-k, greedy only) and the kernel launches it makes,
-        captured at its first use.
+        """The CUDA graph of one tick for ``key`` (B rows from row ``row0``,
+        expert capacity, position cap, top-k, greedy only) and the kernel
+        launches it makes, captured at its first use.  It holds views of
+        the cache rows ``[row0, row0 + B)`` at fixed addresses.
 
         First a warm-up tick runs eagerly on scratch copies of everything a
         tick writes (``_scratch``), on the capture stream and uncounted, so
@@ -689,7 +1003,7 @@ class ModuleBatchingEngine:
         rec = self._graphs.get(key)
         if rec is not None:
             return rec
-        B, _, cap, use_topk, greedy_only = key
+        B, row0, _, cap, use_topk, greedy_only = key
         dev = self.device
         if self._n_attn:
             reserve_tickets(B * self.cfg.num_kv_heads, dev)
@@ -697,7 +1011,7 @@ class ModuleBatchingEngine:
         stream.wait_stream(torch.cuda.current_stream(dev))
         t0 = time.perf_counter()
         with torch.cuda.stream(stream), build.launches_held(), self._scratch(c) as sc:
-            self._fused_tick(sc, cap, use_topk, greedy_only)
+            self._fused_tick(sc, cap, use_topk, greedy_only, row0)
         torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
         if not self._graphs:          # a pool no live graph holds may be released
@@ -706,7 +1020,7 @@ class ModuleBatchingEngine:
         with build.launches_held() as launches, torch.cuda.stream(stream):
             graph.capture_begin(pool=self._pool)
             try:
-                self._fused_tick(c, cap, use_topk, greedy_only)
+                self._fused_tick(c, cap, use_topk, greedy_only, row0)
             except BaseException:
                 with contextlib.suppress(RuntimeError):   # the tick's error, not
                     graph.capture_end()                   # the aborted capture's
@@ -716,8 +1030,8 @@ class ModuleBatchingEngine:
         pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                          if tuple(seg.get("segment_pool_id", ())) == tuple(self._pool))
         self.graph_captures.append({
-            "key": {"B": B, "capacity": key[1], "pos_cap": cap, "use_topk": use_topk,
-                    "greedy_only": greedy_only},
+            "key": {"B": B, "n_host": row0, "capacity": key[2], "pos_cap": cap,
+                    "use_topk": use_topk, "greedy_only": greedy_only},
             "warmup_s": t1 - t0, "capture_s": time.perf_counter() - t1,
             "pool_bytes": pool_bytes, "launches_per_replay": dict(launches)})
         rec = self._graphs[key] = (graph, launches)

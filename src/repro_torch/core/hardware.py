@@ -133,8 +133,11 @@ def _host_cores() -> int:
 #   host_mem_bytes, cpu_cores -- read from the OS when this module loads;
 #   htod_bw, dtoh_bw -- the dataclass default (not measured on this host);
 #   saturation_tokens -- a placeholder until it is measured on the card;
-#   cpu_flops, cpu_mem_bw -- placeholders; the host-attention path (omega > 0)
-#     that they price is not served by this package yet.
+#   cpu_flops, cpu_mem_bw -- placeholders: they price the host-attention
+#     path (omega > 0, ``core.host_attention`` on the host CPU) that the
+#     planner weighs against device attention and the engine serves.  They
+#     stay placeholders until the CPU's measured attention rate is recorded
+#     (PERF.md, from ``chip_smoke.py``'s serve_omega phase).
 H100_SXM_80GB = HardwareProfile(
     name="H100-SXM-80GB",
     device_flops=989e12,

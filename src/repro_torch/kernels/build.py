@@ -25,8 +25,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # launches per kernel wrapper: each wrapper adds one where it launches
 # (``expert_gate_up``, ``grouped_matmul``, ``decode_attention``,
-# ``flash_attention`` and ``ssd_scan`` count every launch of K1-K5, the
-# ``_wgmma``, ``_split`` and ``_mma`` names those of their redesigns, the
+# ``flash_attention`` and ``ssd_scan`` count every launch of K1-K5 and
+# ``decode_attention_paged`` every launch of K3p, the ``_wgmma``, ``_split``
+# and ``_mma`` names those of their redesigns, the
 # ``_prev`` names first designs launched only as a yardstick).  A CUDA graph
 # runs its kernels without Python: the capture records each key's launches
 # (``launches_held``) and every replay adds them (``add_launches``)
@@ -34,7 +35,8 @@ LAUNCHES: Dict[str, int] = {"expert_gate_up": 0, "expert_gate_up_wgmma": 0,
                             "expert_gate_up_prev": 0, "grouped_matmul": 0,
                             "grouped_matmul_wgmma": 0, "grouped_matmul_prev": 0,
                             "decode_attention": 0, "decode_attention_split": 0,
-                            "decode_attention_prev": 0, "flash_attention": 0,
+                            "decode_attention_prev": 0, "decode_attention_paged": 0,
+                            "decode_attention_paged_split": 0, "flash_attention": 0,
                             "flash_attention_wgmma": 0, "flash_attention_prev": 0,
                             "ssd_scan": 0, "ssd_scan_mma": 0, "ssd_scan_prev": 0}
 
@@ -47,6 +49,8 @@ _ARGTYPES = {
     "repro_grouped_matmul_wgmma": [_ptr, _ptr, _ptr, _ptr] + [_c_int] * 4 + [_ptr],
     "repro_decode_attention": [_ptr] * 5 + [_c_int] * 6 + [_ptr],
     "repro_decode_attention_split": [_ptr] * 7 + [_c_int] * 6 + [_ptr],
+    "repro_decode_attention_paged": [_ptr] * 8 + [_c_int] * 9 + [_ptr],
+    "repro_decode_attention_paged_split": [_ptr] * 10 + [_c_int] * 9 + [_ptr],
     "repro_flash_attention": [_ptr] * 5 + [_c_int] * 7 + [_ptr],
     "repro_flash_attention_wgmma": [_ptr] * 5 + [_c_int] * 6 + [_ptr],
     "repro_ssd_scan": [_ptr] * 8 + [_c_int] * 7 + [_ptr],
@@ -54,7 +58,9 @@ _ARGTYPES = {
 }
 _SYMBOLS = {"expert_gemm": ("repro_expert_gate_up", "repro_expert_gate_up_wgmma",
                             "repro_grouped_matmul", "repro_grouped_matmul_wgmma"),
-            "decode_attention": ("repro_decode_attention", "repro_decode_attention_split"),
+            "decode_attention": ("repro_decode_attention", "repro_decode_attention_split",
+                                 "repro_decode_attention_paged",
+                                 "repro_decode_attention_paged_split"),
             "flash_attention": ("repro_flash_attention", "repro_flash_attention_wgmma"),
             "ssd_scan": ("repro_ssd_scan", "repro_ssd_scan_mma")}
 

@@ -54,6 +54,16 @@
 // flight.  Each warp keeps its own running max/sum/accumulator per query
 // head; the four partial states merge by log-sum-exp in shared memory.
 //
+// The paged variant (K3p, repro_decode_attention_paged[_split]) is the same
+// two designs reading K and V through a page table instead of a (B, S, K, hd)
+// cache: slot s of row b sits at offset s % pt of frame frames[b, s / pt],
+// which indexes the device pool's P + 1 frames (the last is the null frame)
+// and then the frames of the layer's host pool that the stream window copied
+// to the device.  The address is worked out per slot for each 16-byte load,
+// so any page size works; everything else -- the split partition, the tiles,
+// the order of every sum -- is K3's, so K3p's output is bit-identical to
+// K3's on the gathered contiguous copy of the same slots.
+//
 // Numerics: the first design keeps the probabilities in f32 through the PV
 // product.  The JAX attn_decode (models/attention.py) casts them to the
 // cache dtype first, so the two agree exactly in f32 and differ by bf16
@@ -132,11 +142,56 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// grid (K, B), block NW*32.  q/out (B, H, hd); k/v (B, S, K, hd); pos (B,).
-template <typename T, int G, int EPL>
+// Where the K and V of one slot live.  at(b, s, off) gives the K and V
+// pointers of slot s of row b, `off` elements into the slot (KV head and
+// column); a slot is K * HD elements (`stride`).
+template <typename T>
+struct ContigKV {                          // a (B, S, K, HD) cache
+  const T* k;
+  const T* v;
+  int S;
+  size_t stride;
+  __device__ __forceinline__ const T* base() const { return k; }
+  __device__ __forceinline__ void at(int b, int s, size_t off, const T*& kp,
+                                     const T*& vp) const {
+    const size_t o = ((size_t)b * S + s) * stride + off;
+    kp = k + o;
+    vp = v + o;
+  }
+};
+
+template <typename T>
+struct PagedKV {                           // a page table over two frame sets
+  const T* pk;                             // the device pool, (p1, pt, K, HD)
+  const T* pv;
+  const T* ek;                             // the window's frames, (., pt, K, HD)
+  const T* ev;
+  const int* frames;                       // (rows, pages): < p1 the pool, else
+  int pages, pt, p1;                       //   frame f - p1 of the window
+  size_t stride;
+  __device__ __forceinline__ const T* base() const { return pk; }
+  __device__ __forceinline__ void at(int b, int s, size_t off, const T*& kp,
+                                     const T*& vp) const {
+    const int pg = s / pt;
+    const int f = __ldg(frames + (size_t)b * pages + pg);
+    const size_t slot = (size_t)(s - pg * pt);
+    if (f < p1) {
+      const size_t o = ((size_t)f * pt + slot) * stride + off;
+      kp = pk + o;
+      vp = pv + o;
+    } else {
+      const size_t o = ((size_t)(f - p1) * pt + slot) * stride + off;
+      kp = ek + o;
+      vp = ev + o;
+    }
+  }
+};
+
+// grid (K, B), block NW*32.  q/out (B, H, hd); the K/V slots through `kv`
+// (S of them per row); pos (B,).
+template <typename T, int G, int EPL, class KV>
 __global__ void __launch_bounds__(NW * 32)
-decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const int* __restrict__ pos,
+decode_attn_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__ pos,
                    T* __restrict__ out, int S, int K, float scale) {
   constexpr int HD = EPL * 32;
   __shared__ float sm_m[NW][G];
@@ -163,9 +218,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < EPL; ++i) acc[g][i] = 0.0f;
   }
 
-  const size_t row_stride = (size_t)K * HD;             // one slot
-  const T* kb = k + (size_t)b * S * row_stride + (size_t)kh * HD + lane * EPL;
-  const T* vb = v + (size_t)b * S * row_stride + (size_t)kh * HD + lane * EPL;
+  const size_t off = (size_t)kh * HD + lane * EPL;       // this lane's columns
 
   for (int base = warp; base < n; base += NW * UNROLL) {
     float kr[UNROLL][EPL], vr[UNROLL][EPL];
@@ -173,8 +226,10 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < UNROLL; ++u) {
       int s = base + u * NW;
       if (s < n) {
-        Vec<T, EPL>::load(kb + (size_t)s * row_stride, kr[u]);
-        Vec<T, EPL>::load(vb + (size_t)s * row_stride, vr[u]);
+        const T *kp, *vp;
+        kv.at(b, s, off, kp, vp);
+        Vec<T, EPL>::load(kp, kr[u]);
+        Vec<T, EPL>::load(vp, vr[u]);
       }
     }
 #pragma unroll
@@ -228,32 +283,30 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int G>
-int dispatch_hd(const void* q, const void* k, const void* v, const int* pos, void* out,
-                int B, int K, int S, int hd, cudaStream_t stream) {
+template <typename T, int G, class KV>
+int dispatch_hd(const void* q, const KV& kv, const int* pos, void* out, int B, int K, int S,
+                int hd, cudaStream_t stream) {
   dim3 grid(K, B);
   const float scale = 1.0f / sqrtf((float)hd);
   const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(out);
   switch (hd) {
-    case 32: decode_attn_kernel<T, G, 1><<<grid, NW * 32, 0, stream>>>(qt, kt, vt, pos, ot, S, K, scale); break;
-    case 64: decode_attn_kernel<T, G, 2><<<grid, NW * 32, 0, stream>>>(qt, kt, vt, pos, ot, S, K, scale); break;
-    case 128: decode_attn_kernel<T, G, 4><<<grid, NW * 32, 0, stream>>>(qt, kt, vt, pos, ot, S, K, scale); break;
+    case 32: decode_attn_kernel<T, G, 1, KV><<<grid, NW * 32, 0, stream>>>(qt, kv, pos, ot, S, K, scale); break;
+    case 64: decode_attn_kernel<T, G, 2, KV><<<grid, NW * 32, 0, stream>>>(qt, kv, pos, ot, S, K, scale); break;
+    case 128: decode_attn_kernel<T, G, 4, KV><<<grid, NW * 32, 0, stream>>>(qt, kv, pos, ot, S, K, scale); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_g(const void* q, const void* k, const void* v, const int* pos, void* out,
-               int B, int G, int K, int S, int hd, cudaStream_t stream) {
+template <typename T, class KV>
+int dispatch_g(const void* q, const KV& kv, const int* pos, void* out, int B, int G, int K,
+               int S, int hd, cudaStream_t stream) {
   switch (G) {
-    case 1: return dispatch_hd<T, 1>(q, k, v, pos, out, B, K, S, hd, stream);
-    case 2: return dispatch_hd<T, 2>(q, k, v, pos, out, B, K, S, hd, stream);
-    case 4: return dispatch_hd<T, 4>(q, k, v, pos, out, B, K, S, hd, stream);
-    case 8: return dispatch_hd<T, 8>(q, k, v, pos, out, B, K, S, hd, stream);
+    case 1: return dispatch_hd<T, 1>(q, kv, pos, out, B, K, S, hd, stream);
+    case 2: return dispatch_hd<T, 2>(q, kv, pos, out, B, K, S, hd, stream);
+    case 4: return dispatch_hd<T, 4>(q, kv, pos, out, B, K, S, hd, stream);
+    case 8: return dispatch_hd<T, 8>(q, kv, pos, out, B, K, S, hd, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -318,24 +371,28 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
   lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
-// Stage slots [s0, s0 + TILE) of one (row, KV head)'s K or V into shared
+// Stage slots [s0, s0 + TILE) of one (row, KV head)'s K and V into shared
 // memory; slots at or past n are zero-filled and never read.
-template <int HD>
-__device__ __forceinline__ void stage_tile(bf16* sm, const bf16* g, size_t stride, int s0,
-                                           int n, int tid) {
+template <int HD, class KV>
+__device__ __forceinline__ void stage_tile(bf16* ks, bf16* vs, const KV& kv, int b,
+                                           size_t off, int s0, int n, int tid) {
   constexpr int CH = HD / 8;              // 16-byte chunks per slot
   constexpr int LD = SplitSmem<HD>::LD;
 #pragma unroll
   for (int c = tid; c < TILE * CH; c += SPLIT_THREADS) {
     const int r = c / CH, col = (c % CH) * 8;
     const bool ok = s0 + r < n;
-    cp_async16(sm + r * LD + col, ok ? g + (size_t)(s0 + r) * stride + col : g, ok);
+    const bf16 *kp = nullptr, *vp = nullptr;
+    if (ok) kv.at(b, s0 + r, off + col, kp, vp);
+    cp_async16(ks + r * LD + col, ok ? kp : kv.base(), ok);
+    cp_async16(vs + r * LD + col, ok ? vp : kv.base(), ok);
   }
 }
 
 // grid (nsplit, K, B), block SPLIT_THREADS, dynamic smem SplitSmem<HD>::BYTES
 // (or the merge's 2 G nsplit + G floats where that is more).
-// q/out (B, H, HD); k/v (B, S, K, HD); pos (B,).  Block (split, kh, b)
+// q/out (B, H, HD); the K/V slots through `kv` (S of them per row); pos
+// (B,).  Block (split, kh, b)
 // computes split `split` of the G query heads of KV head kh in row b.  A row
 // whose n valid slots fill nv = ceil(n / split_len) splits: with nv == 1 the
 // one block writes out directly; otherwise each of the nv blocks writes its
@@ -344,10 +401,9 @@ __device__ __forceinline__ void stage_tile(bf16* sm, const bf16* g, size_t strid
 // ticket (B, K) int32, zero between launches; the nv-th arrival merges the
 // row's partials by log-sum-exp in split order and resets the ticket.
 // Splits at or past n return at once (split 0 writes zeros when n == 0).
-template <int G, int HD>
+template <int G, int HD, class KV>
 __global__ void __launch_bounds__(SPLIT_THREADS)
-decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const int* __restrict__ pos,
+decode_split_kernel(const bf16* __restrict__ q, const KV kv, const int* __restrict__ pos,
                     bf16* __restrict__ out, float* __restrict__ acc_part,
                     float2* __restrict__ ml_part, int* __restrict__ tickets, int S, int K,
                     int split_len, float scale_log2) {
@@ -379,16 +435,13 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int nv = (n + split_len - 1) / split_len;
   const int s_end = min(s0 + split_len, n);
   const int ntiles = (s_end - s0 + TILE - 1) / TILE;
-  const size_t stride = (size_t)K * HD;         // one slot
-  const bf16* kg = k + ((size_t)b * S * K + kh) * HD;
-  const bf16* vg = v + ((size_t)b * S * K + kh) * HD;
+  const size_t off = (size_t)kh * HD;           // this KV head's columns
 
 #pragma unroll
   for (int st = 0; st < KV_STAGES - 1; ++st) {  // prologue: fill the ring
-    if (st < ntiles) {
-      stage_tile<HD>(Ks + st * SM::TILE_ELEMS, kg, stride, s0 + st * TILE, n, tid);
-      stage_tile<HD>(Vs + st * SM::TILE_ELEMS, vg, stride, s0 + st * TILE, n, tid);
-    }
+    if (st < ntiles)
+      stage_tile<HD>(Ks + st * SM::TILE_ELEMS, Vs + st * SM::TILE_ELEMS, kv, b, off,
+                     s0 + st * TILE, n, tid);
     cp_async_commit();
   }
 
@@ -415,8 +468,8 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int pre = i + KV_STAGES - 1;          // refill the stage tile i - 1 used
     if (pre < ntiles) {
       const int st = pre % KV_STAGES;
-      stage_tile<HD>(Ks + st * SM::TILE_ELEMS, kg, stride, s0 + pre * TILE, n, tid);
-      stage_tile<HD>(Vs + st * SM::TILE_ELEMS, vg, stride, s0 + pre * TILE, n, tid);
+      stage_tile<HD>(Ks + st * SM::TILE_ELEMS, Vs + st * SM::TILE_ELEMS, kv, b, off,
+                     s0 + pre * TILE, n, tid);
     }
     cp_async_commit();
     const bf16* ks = Ks + (i % KV_STAGES) * SM::TILE_ELEMS;
@@ -556,10 +609,9 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (tid == 0) tickets[(size_t)b * K + kh] = 0;  // zero for the next launch
 }
 
-template <int G, int HD>
-int launch_split(const void* q, const void* k, const void* v, const int* pos, void* out,
-                 float* part, int* tickets, int B, int K, int S, int split_len,
-                 cudaStream_t stream) {
+template <int G, int HD, class KV>
+int launch_split(const void* q, const KV& kv, const int* pos, void* out, float* part,
+                 int* tickets, int B, int K, int S, int split_len, cudaStream_t stream) {
   const int nsplit = (S + split_len - 1) / split_len;
   const int H = K * G;
   // the ring, or the merge's 2 G nsplit + G floats where that is more
@@ -567,30 +619,53 @@ int launch_split(const void* q, const void* k, const void* v, const int* pos, vo
   const int smem = (int)(merge_bytes > SplitSmem<HD>::BYTES ? merge_bytes : SplitSmem<HD>::BYTES);
   static int smem_set = 0;                      // per instantiation: the limit set
   if (smem > smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(decode_split_kernel<G, HD>,
+    cudaError_t err = cudaFuncSetAttribute(decode_split_kernel<G, HD, KV>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     smem_set = smem;
   }
   float2* ml = reinterpret_cast<float2*>(part + (size_t)B * H * nsplit * HD);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)HD);
-  decode_split_kernel<G, HD><<<dim3(nsplit, K, B), SPLIT_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      pos, static_cast<bf16*>(out), part, ml, tickets, S, K, split_len, scale_log2);
+  decode_split_kernel<G, HD, KV><<<dim3(nsplit, K, B), SPLIT_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), kv, pos, static_cast<bf16*>(out), part, ml, tickets, S, K,
+      split_len, scale_log2);
   return (int)cudaGetLastError();
 }
 
-template <int G>
-int split_hd(const void* q, const void* k, const void* v, const int* pos, void* out,
-             float* part, int* tickets, int B, int K, int S, int hd, int split_len,
-             cudaStream_t stream) {
-  switch (hd) {
-    case 64:
-      return launch_split<G, 64>(q, k, v, pos, out, part, tickets, B, K, S, split_len, stream);
-    case 128:
-      return launch_split<G, 128>(q, k, v, pos, out, part, tickets, B, K, S, split_len, stream);
+template <class KV>
+int split_dispatch(const void* q, const KV& kv, const int* pos, void* out, float* part,
+                   int* tickets, int B, int H, int K, int S, int hd, int split_len,
+                   cudaStream_t s) {
+  if (B <= 0 || K <= 0 || S <= 0 || H % K != 0 || split_len <= 0 || split_len % TILE)
+    return (int)cudaErrorInvalidValue;
+  const int G = H / K;
+#define REPRO_SPLIT_HD(GG)                                                                   \
+  switch (hd) {                                                                             \
+    case 64: return launch_split<GG, 64>(q, kv, pos, out, part, tickets, B, K, S, split_len, s); \
+    case 128: return launch_split<GG, 128>(q, kv, pos, out, part, tickets, B, K, S, split_len, s); \
+    default: return (int)cudaErrorInvalidValue;                                              \
+  }
+  switch (G) {
+    case 1: REPRO_SPLIT_HD(1)
+    case 2: REPRO_SPLIT_HD(2)
+    case 4: REPRO_SPLIT_HD(4)
+    case 8: REPRO_SPLIT_HD(8)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef REPRO_SPLIT_HD
+}
+
+template <typename T>
+ContigKV<T> contig(const void* k, const void* v, int S, int K, int hd) {
+  return ContigKV<T>{static_cast<const T*>(k), static_cast<const T*>(v), S, (size_t)K * hd};
+}
+
+template <typename T>
+PagedKV<T> paged(const void* pk, const void* pv, const void* ek, const void* ev,
+                 const int* frames, int pages, int pt, int p1, int K, int hd) {
+  return PagedKV<T>{static_cast<const T*>(pk), static_cast<const T*>(pv),
+                    static_cast<const T*>(ek), static_cast<const T*>(ev), frames, pages, pt, p1,
+                    (size_t)K * hd};
 }
 
 }  // namespace
@@ -605,8 +680,8 @@ int repro_decode_attention(const void* q, const void* k, const void* v, const in
   if (B <= 0 || K <= 0 || S <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = H / K;
-  return is_bf16 ? dispatch_g<bf16>(q, k, v, pos, out, B, G, K, S, hd, s)
-                 : dispatch_g<float>(q, k, v, pos, out, B, G, K, S, hd, s);
+  return is_bf16 ? dispatch_g<bf16>(q, contig<bf16>(k, v, S, K, hd), pos, out, B, G, K, S, hd, s)
+                 : dispatch_g<float>(q, contig<float>(k, v, S, K, hd), pos, out, B, G, K, S, hd, s);
 }
 
 // The bf16 split-KV design: the same function for hd in {64, 128}.  `part`
@@ -617,16 +692,40 @@ int repro_decode_attention(const void* q, const void* k, const void* v, const in
 int repro_decode_attention_split(const void* q, const void* k, const void* v, const int* pos,
                                  void* out, float* part, int* tickets, int B, int H, int K,
                                  int S, int hd, int split_len, void* stream) {
-  if (B <= 0 || K <= 0 || S <= 0 || H % K != 0 || split_len <= 0 || split_len % TILE)
+  return split_dispatch(q, contig<bf16>(k, v, S, K, hd), pos, out, part, tickets, B, H, K, S,
+                        hd, split_len, static_cast<cudaStream_t>(stream));
+}
+
+// K3p, the first design: the n rows' slots through a page table.  pk/pv
+// (p1, pt, K, hd) the device pool, ek/ev the window's frames (null when no
+// frame index reaches them), frames (n, pages) int32, span the slots of a
+// row (pages * pt or fewer).
+int repro_decode_attention_paged(const void* q, const void* pk, const void* pv, const void* ek,
+                                 const void* ev, const int* frames, const int* pos, void* out,
+                                 int n, int H, int K, int span, int hd, int pt, int pages,
+                                 int p1, int is_bf16, void* stream) {
+  if (n <= 0 || K <= 0 || span <= 0 || H % K != 0 || pt <= 0 || pages * pt < span)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (H / K) {
-    case 1: return split_hd<1>(q, k, v, pos, out, part, tickets, B, K, S, hd, split_len, s);
-    case 2: return split_hd<2>(q, k, v, pos, out, part, tickets, B, K, S, hd, split_len, s);
-    case 4: return split_hd<4>(q, k, v, pos, out, part, tickets, B, K, S, hd, split_len, s);
-    case 8: return split_hd<8>(q, k, v, pos, out, part, tickets, B, K, S, hd, split_len, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int G = H / K;
+  return is_bf16
+             ? dispatch_g<bf16>(q, paged<bf16>(pk, pv, ek, ev, frames, pages, pt, p1, K, hd),
+                                pos, out, n, G, K, span, hd, s)
+             : dispatch_g<float>(q, paged<float>(pk, pv, ek, ev, frames, pages, pt, p1, K, hd),
+                                 pos, out, n, G, K, span, hd, s);
+}
+
+// K3p, the split design (bf16, hd 64/128): as repro_decode_attention_split
+// with the slots through the page table as in repro_decode_attention_paged.
+int repro_decode_attention_paged_split(const void* q, const void* pk, const void* pv,
+                                       const void* ek, const void* ev, const int* frames,
+                                       const int* pos, void* out, float* part, int* tickets,
+                                       int n, int H, int K, int span, int hd, int pt, int pages,
+                                       int p1, int split_len, void* stream) {
+  if (pt <= 0 || pages * pt < span) return (int)cudaErrorInvalidValue;
+  return split_dispatch(q, paged<bf16>(pk, pv, ek, ev, frames, pages, pt, p1, K, hd), pos, out,
+                        part, tickets, n, H, K, span, hd, split_len,
+                        static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -8,10 +8,16 @@ designs, chosen by dtype and head width alone (``decode_attention_design``):
 ``SPLIT_SLOTS``-slot splits fixed by slot index, mma.sync tiles, the last
 split of a row to finish merging the row's partials) and ``simt`` (f32 and
 hd 32: the first design, one block per (row, KV head)).
+
+``decode_attention_paged`` is K3p, the same kernel reading K and V through
+a page table (``serving.cache.KVPageTable``): from the device pool or from
+the window's copy of the layer's host frames, with no gathered copy.  It
+takes the same design as K3 at the same dtype and head width, and its
+output is bit-identical to K3's on the gathered contiguous copy.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -135,4 +141,66 @@ def decode_attention_prev(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     )
     build.check(err, "decode_attention_prev")
     build.LAUNCHES["decode_attention_prev"] += 1
+    return out
+
+
+def _check_paged(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
+                 ek: Optional[torch.Tensor], ev: Optional[torch.Tensor],
+                 frames: torch.Tensor, span: int) -> None:
+    n, H, hd = q.shape
+    pt, K = pk.shape[1], pk.shape[2]
+    ok = (pk.dim() == 4 and pk.shape[3] == hd and pv.shape == pk.shape and H % K == 0
+          and frames.dim() == 2 and frames.shape[0] == n
+          and 0 < span <= frames.shape[1] * pt and (ek is None) == (ev is None)
+          and (ek is None or (ek.shape[1:] == pk.shape[1:] and ev.shape == ek.shape)))
+    if not ok:
+        raise ValueError(f"decode_attention_paged: shapes q {tuple(q.shape)} pool "
+                         f"{tuple(pk.shape)} {tuple(pv.shape)} window "
+                         f"{None if ek is None else tuple(ek.shape)} frames "
+                         f"{tuple(frames.shape)} span {span}")
+
+
+def decode_attention_paged(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
+                           ek: Optional[torch.Tensor], ev: Optional[torch.Tensor],
+                           frames: torch.Tensor, pos, span: int) -> torch.Tensor:
+    """K3p: q (n, H, hd); the device pool pk/pv (P + 1, pt, K, hd); the
+    window's frames ek/ev (Hf, pt, K, hd) or None; ``frames`` (n, pages)
+    int32, an index below P + 1 naming a pool frame and P + 1 + h frame h of
+    the window; pos int or (n,) int; ``span`` the slots of a row.  Row b's
+    slot s is at offset s % pt of frame ``frames[b, s // pt]``.  Returns
+    (n, H, hd)."""
+    _check_paged(q, pk, pv, ek, ev, frames, span)
+    if _is_cpu(q):
+        return ref.decode_attention_paged_ref(q, pk, pv, ek, ev, frames, pos, span)
+    posv = _prepare("decode_attention_paged", q, pk, pv, pos)
+    if ek is not None:
+        _check_cuda("decode_attention_paged", (q, ek, ev), None)
+    if frames.device != q.device:
+        raise ValueError(f"decode_attention_paged: frames on {frames.device}, q on {q.device}")
+    n, H, hd = q.shape
+    pt, K = pk.shape[1], pk.shape[2]
+    frames = frames.to(torch.int32).contiguous()
+    pages = frames.shape[1]
+    out = torch.empty_like(q)
+    lib = build.library("decode_attention")
+    if decode_attention_design(q.dtype, H // K, hd) == "split":
+        nsplit = -(-span // SPLIT_SLOTS)
+        part = (None if nsplit == 1 else
+                torch.empty(n * H * nsplit * (hd + 2), dtype=torch.float32, device=q.device))
+        err = lib.repro_decode_attention_paged_split(
+            build.ptr(q), build.ptr(pk), build.ptr(pv), build.ptr(ek), build.ptr(ev),
+            build.ptr(frames), build.ptr(posv), build.ptr(out), build.ptr(part),
+            build.ptr(reserve_tickets(n * K, q.device)), n, H, K, span, hd, pt, pages,
+            pk.shape[0], SPLIT_SLOTS, build.stream_of(q),
+        )
+        build.check(err, "decode_attention_paged")
+        build.LAUNCHES["decode_attention_paged_split"] += 1
+    else:
+        err = lib.repro_decode_attention_paged(
+            build.ptr(q), build.ptr(pk), build.ptr(pv), build.ptr(ek), build.ptr(ev),
+            build.ptr(frames), build.ptr(posv), build.ptr(out), n, H, K, span, hd, pt, pages,
+            pk.shape[0], int(q.dtype == torch.bfloat16), build.stream_of(q),
+        )
+        build.check(err, "decode_attention_paged")
+    build.LAUNCHES["decode_attention_paged"] += 1
     return out

@@ -12,7 +12,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import launch_counts, reset_launch_counts  # noqa: F401
-from repro_torch.kernels.decode_attention import decode_attention  # noqa: F401
+from repro_torch.kernels.decode_attention import (  # noqa: F401
+    decode_attention,
+    decode_attention_paged,
+)
 from repro_torch.kernels.expert_gemm import expert_gate_up, grouped_matmul  # noqa: F401
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: F401

@@ -63,6 +63,26 @@ def decode_attention_ref(
     return o.reshape(B, H, D).to(q.dtype)
 
 
+def gather_pages(pk: torch.Tensor, ek: Optional[torch.Tensor], frames: torch.Tensor,
+                 span: int) -> torch.Tensor:
+    """The contiguous (n, span, K, hd) copy of n rows kept in pages: row b's
+    page i is frame ``frames[b, i]`` of the device pool ``pk`` (P + 1, pt, K,
+    hd) or, from index P + 1 on, of the window's frames ``ek``."""
+    allk = pk if ek is None else torch.cat([pk, ek], dim=0)
+    n, pages = frames.shape
+    g = allk[frames.long().reshape(-1)]
+    return g.reshape((n, pages * pk.shape[1]) + tuple(pk.shape[2:]))[:, :span]
+
+
+def decode_attention_paged_ref(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
+                               ek: Optional[torch.Tensor], ev: Optional[torch.Tensor],
+                               frames: torch.Tensor, pos, span: int) -> torch.Tensor:
+    """K3p's plain version: gather each row's span through the page table,
+    then ``decode_attention_ref``."""
+    return decode_attention_ref(q, gather_pages(pk, ek, frames, span),
+                                gather_pages(pv, ev, frames, span), pos)
+
+
 def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
                                split: int, partials: bool = False):
     """The split design's arithmetic in plain PyTorch (used by tests only).

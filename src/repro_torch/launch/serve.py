@@ -5,11 +5,17 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --requests 64 --prompt-lens 128,256,512 --decode-len 16 \
         --stream-weights --resident-gb 60
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --requests 32 --batch 32 --decode-len 64 --prompt-lens 1024,2048,3584 \
+        --omega 0 --kv-page-tokens 128 --device-kv-gb 7.5
 
 Runs the FULL-size model on seeded random weights.  The planner searches
-the plan on the full config with the ``H100-SXM-80GB`` profile; the
-launcher pins omega = 0 (host attention is a later slice of the port) and
-says so.  Every weight is resident unless ``--stream-weights`` (or
+the plan on the full config with the ``H100-SXM-80GB`` profile and the
+launcher serves its omega (the share of the batch whose attention runs on
+the host CPU), unless ``--omega`` overrides it.  ``--kv-page-tokens`` pages
+the KV cache and ``--device-kv-gb`` caps its device pool, the rest of the
+frames living in page-locked host memory.  Every weight is resident unless
+``--stream-weights`` (or
 ``--resident-gb`` / ``--predict-topk``): then the store keeps the greedy
 resident set on the card and the rest in page-locked host memory, built
 layer by layer (``ParamStore.seeded``) so that a model larger than the
@@ -41,11 +47,13 @@ def build_plan(cfg, hw, args) -> Plan:
           f"{res.estimate.throughput:.0f} tok/s")
     B = min(args.batch, args.requests)
     stream = streams(args)
+    omega = getattr(args, "omega", None)
+    omega = res.plan.omega if omega is None else float(omega)
     plan = Plan(
         B=B,
         b_a=max(1, min(res.plan.b_a, B)),
         b_e=args.b_e if args.b_e else res.plan.b_e,
-        omega=0.0,
+        omega=omega,
         s_params=(res.plan.s_params if stream else float(W.model_bytes(cfg))),
         s_expert=res.plan.s_expert if stream else 0.0,
         predict_topk=res.plan.predict_topk if stream else 0,
@@ -57,9 +65,9 @@ def build_plan(cfg, hw, args) -> Plan:
     where = ("weights streamed" if stream else
              f"every weight resident ({W.model_bytes(cfg) / 1e9:.1f} GB)")
     print(f"realised: B={plan.B} b_a={plan.b_a} b_e={plan.b_e}, fused decode chunk "
-          f"T={plan.decode_chunk} ({args.scheduler} cadence); pinned "
-          f"omega=0 (planned {res.plan.omega:.1f}: host attention is a later "
-          f"slice of the port); {where}")
+          f"T={plan.decode_chunk} ({args.scheduler} cadence); omega={plan.omega:g} "
+          f"(planned {res.plan.omega:g}): {int(round(plan.omega * plan.B))} of {plan.B} "
+          f"rows attend on the host; {where}")
     return plan
 
 
@@ -106,13 +114,24 @@ def main(argv=None) -> None:
     ap.add_argument("--lru-gb", type=float, default=None,
                     help="hot-expert device LRU of predictive streaming, GB "
                          "(default: the residency plan's spare bytes)")
+    ap.add_argument("--omega", type=float, default=None,
+                    help="share of the batch whose attention runs on the host "
+                         "CPU (default: the plan's)")
+    ap.add_argument("--kv-page-tokens", type=int, default=0,
+                    help="page the KV cache in frames of this many tokens "
+                         "(0: contiguous)")
+    ap.add_argument("--device-kv-gb", type=float, default=None,
+                    help="device GB of the KV page pool; the other frames live "
+                         "in page-locked host memory (default: every frame on "
+                         "the device)")
     args = ap.parse_args(argv)
     args.prompt_lens = [int(x) for x in args.prompt_lens.split(",")]
 
     import torch
 
     from repro_torch.models import model as M
-    from repro_torch.serving.scheduler import serve_dataset
+    from repro_torch.serving import weights as wmod
+    from repro_torch.serving.server import ServeConfig, Server
     from repro_torch.serving.weights import ParamStore
 
     cfg = get_config(args.arch)
@@ -144,9 +163,20 @@ def main(argv=None) -> None:
                        args.decode_len)
     requests = synthetic_requests(spec, cfg.vocab_size, seed=args.seed,
                                   prompt_lens=args.prompt_lens)
-    report = serve_dataset(cfg, params, requests, plan, args.decode_len,
-                           scheduler=args.scheduler, store=store,
-                           device=args.device)
+    server = Server(cfg, params, plan,
+                    serve=ServeConfig(scheduler=args.scheduler, decode_len=args.decode_len,
+                                      kv_page_tokens=args.kv_page_tokens,
+                                      device_kv_gb=args.device_kv_gb),
+                    store=store, device=args.device)
+    for r in requests:
+        server.submit(r)
+    server._ensure_engine()
+    engine = server._engine
+    pages = engine.pages
+    print(f"host attention: {engine.n_host} of {server._b} rows; KV "
+          f"{'contiguous' if pages is None else pages.describe()}; page-locked "
+          f"{wmod.pinned_bytes() / 1e9:.3f} GB")
+    report = server.run()
     print(f"[{report.scheduler}] served {len(report.request_results)} requests: "
           f"prefill {report.prefill_tokens} tokens in {report.prefill_s:.3f}s "
           f"({report.prefill_throughput:.1f} tok/s), decode "
@@ -165,6 +195,11 @@ def main(argv=None) -> None:
             print(f"predictive: hit rate {report.pred_hit_rate:.0%} "
                   f"({report.expert_pred_hits} hits, {report.expert_pred_misses} "
                   f"misses), LRU hit rate {report.lru_hit_rate:.0%}")
+    if report.kv_htod_bytes or report.host_attn_tokens:
+        print(f"KV pages: {report.kv_htod_gb:.3f} GB host-to-device, "
+              f"{report.kv_dtoh_bytes / 1e9:.3f} GB to the host tier; host "
+              f"attention {report.host_attn_tokens} row-layers, "
+              f"{engine.stats.host_attn_s:.3f}s of host CPU")
     toks = np.concatenate([r.tokens for r in report.request_results])
     print(f"generated token ids in [{toks.min()}, {toks.max()}]")
 

@@ -111,6 +111,26 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def decode_qkv(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+               posv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A decode step's projections with rope at positions ``posv`` (B,):
+    q (B, 1, H, hd), k and v (B, 1, K, hd)."""
+    q, k, v = _project_qkv(cfg, p, x)
+    posb = posv[:, None]
+    return apply_rope(q, posb, cfg.rope_theta), apply_rope(k, posb, cfg.rope_theta), v
+
+
+def decode_slot(cfg: ModelConfig, posv, span: int):
+    """The cache slot a decode step at ``posv`` writes: ``pos % span`` under a
+    sliding window (a ring), else ``pos`` clamped to the last slot.  Works on
+    tensors and numpy arrays alike."""
+    if cfg.sliding_window > 0:
+        return posv % span
+    if torch.is_tensor(posv):
+        return torch.clamp(posv, max=span - 1)
+    return posv.clip(max=span - 1)
+
+
 def attn_decode(
     cfg: ModelConfig,
     p: Dict[str, torch.Tensor],
@@ -125,17 +145,11 @@ def attn_decode(
     own slots ``<= pos``; the mechanism is ``ops.decode_attention``.
     Returns (y (B, 1, D), cache) -- the same cache tensors."""
     B = x.shape[0]
-    q, k, v = _project_qkv(cfg, p, x)                       # (B, 1, ., hd)
     posv = torch.as_tensor(pos, dtype=torch.long, device=x.device)
     posv = posv.reshape(-1).expand(B)
-    posb = posv[:, None]
-    q = apply_rope(q, posb, cfg.rope_theta)
-    k = apply_rope(k, posb, cfg.rope_theta)
+    q, k, v = decode_qkv(cfg, p, x, posv)                  # (B, 1, ., hd)
     span = cache["k"].shape[1]
-    if cfg.sliding_window > 0:
-        slot = posv % span
-    else:
-        slot = torch.clamp(posv, max=span - 1)
+    slot = decode_slot(cfg, posv, span)
     rows = torch.arange(B, device=x.device)
     cache["k"][rows, slot] = k[:, 0]
     cache["v"][rows, slot] = v[:, 0]

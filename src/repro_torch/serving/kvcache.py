@@ -88,6 +88,8 @@ def evict_rows(cache: List[Dict[str, torch.Tensor]], rows: Sequence[int]) -> Lis
     if len(rows) == 0:
         return cache
     for layer in cache:
+        if not layer:                      # a layer whose KV lives in pages
+            continue
         idx = _rows(rows, next(iter(layer.values())).device)
         for buf in layer.values():
             buf.index_fill_(0, idx, 0)

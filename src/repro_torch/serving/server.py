@@ -29,8 +29,15 @@ remaining decode, so every finish lands on a chunk boundary.
 Both modes give identical tokens per request when the plan's expert
 capacity ``b_e`` admits every routed copy.  Per-request latencies
 (``queue_wait_s``, ``ttft_s``, ``tpot_s``) are measured on the virtual
-clock.  Fault injection, preemption, online capacity re-planning, paged and
-prefix-cached KV and replicas are later slices of the port.
+clock.
+
+``ServeConfig.kv_page_tokens`` pages the KV cache (``serving.cache``) and
+``device_kv_gb`` caps its device pool, the rest of the frames living in
+page-locked host memory (Mode B); each admitted slot's frames are reserved
+before its prefill, and the Eq. 2 admission charge is page-rounded.  The
+plan's omega sends the first ``round(omega * B)`` slots' attention to the
+host CPU.  Fault injection, preemption, online capacity re-planning, the
+prefix cache and replicas are later slices of the port.
 """
 from __future__ import annotations
 
@@ -64,9 +71,7 @@ class Request:
 
 
 _LATER_SLICES = {
-    "kv_page_tokens": "paged KV caches are the paging slice of the port",
-    "device_kv_gb": "paged KV caches are the paging slice of the port",
-    "prefix_cache": "the prefix cache is the paging slice of the port",
+    "prefix_cache": "the prefix cache is the prefix-cache slice of the port",
     "replan_skew": "online capacity re-planning is a later slice of the port",
     "faults": "fault injection is the faults slice of the port",
 }
@@ -77,8 +82,10 @@ class ServeConfig:
     """Scheduling-side knobs, frozen.  ``decode_len`` is the fallback for
     requests whose own field is zero/None; ``hw`` enables Eq. 2
     memory-gated admission in the continuous scheduler.  ``from_plan``
-    sizes ``max_batch``/``max_seq`` with the planner up front.  The knobs
-    of later slices (paging, prefix cache, re-planning, faults) raise
+    sizes ``max_batch``/``max_seq`` with the planner up front.
+    ``kv_page_tokens > 0`` pages the KV cache; ``device_kv_gb`` caps the
+    device page pool (None: every frame on the device).  The knobs of later
+    slices (prefix cache, re-planning, faults) raise
     ``NotImplementedError`` when set."""
 
     scheduler: str = "static"
@@ -101,6 +108,7 @@ class ServeConfig:
 
     def __post_init__(self) -> None:
         assert self.scheduler in ("static", "continuous"), self.scheduler
+        assert self.kv_page_tokens >= 0, self.kv_page_tokens
         if self.max_batch is not None:
             assert self.max_batch >= 1, self.max_batch
         for name, why in _LATER_SLICES.items():
@@ -170,6 +178,9 @@ class ServeReport:
     admission_deferrals: int = 0  # admissions blocked by the Eq. 2 KV budget
     prefill_tokens: int = 0       # token-positions computed in prefill
     weight_htod_bytes: int = 0    # streamed weight bytes copied host->device
+    kv_htod_bytes: int = 0        # host KV-page bytes copied host->device
+    kv_dtoh_bytes: int = 0        # KV-page bytes written to the host tier
+    host_attn_tokens: int = 0     # decode rows x attention layers on the host
     prefetch_wait_s: float = 0.0  # compute stream's wait on weight copies
     expert_pred_hits: int = 0     # expert was staged by the l+1 prediction
     expert_pred_misses: int = 0   # fetched on demand (mispredicted or cold)
@@ -186,6 +197,11 @@ class ServeReport:
     def htod_gb(self) -> float:
         """Streamed weight traffic in GB (0 when everything is resident)."""
         return self.weight_htod_bytes / 1e9
+
+    @property
+    def kv_htod_gb(self) -> float:
+        """Host KV-page traffic in GB (0 without a host tier)."""
+        return self.kv_htod_bytes / 1e9
 
     @property
     def pred_hit_rate(self) -> float:
@@ -437,7 +453,10 @@ class Server:
                 f"max_prompt_len to truncate long prompts"
             )
         if self._kv_budget is not None:
-            need = W.kv_bytes_per_seq(self.cfg, len(prompt) + dec)
+            # the paged cache allocates whole pages: charge the page-rounded
+            # extent
+            need = W.kv_bytes_per_seq(self.cfg, len(prompt) + dec,
+                                      page_tokens=serve.kv_page_tokens)
             if need > self._kv_budget:
                 raise ValueError(
                     f"request {i}: KV bytes {need:.3e} can never fit the "
@@ -494,6 +513,7 @@ class Server:
             self.cfg, self.params, self.plan, max_seq=self._max_seq,
             expert_path=self.serve.expert_path,
             store=self._store,
+            cache_config=self._cache_config(),
             device=self.device,
         )
         self._engine.init_cache(self._b)
@@ -503,9 +523,20 @@ class Server:
         self._cur = np.zeros(self._b, np.int32)
         self._pos = np.zeros(self._b, np.int64)
 
+    def _cache_config(self):
+        """The ``CacheConfig`` of the serve knobs (None: contiguous)."""
+        if self.serve.kv_page_tokens <= 0:
+            return None
+        from repro_torch.serving.cache import CacheConfig
+
+        budget = (None if self.serve.device_kv_gb is None
+                  else float(self.serve.device_kv_gb) * 1e9)
+        return CacheConfig(page_tokens=self.serve.kv_page_tokens, device_pool_bytes=budget)
+
     # engine counters the report folds as deltas since the last drain
     _FOLDED = ("weight_htod_bytes", "prefetch_wait_s", "expert_pred_hits",
-               "expert_pred_misses", "expert_lru_hits")
+               "expert_pred_misses", "expert_lru_hits", "kv_htod_bytes",
+               "kv_dtoh_bytes", "host_attn_tokens")
 
     def _drain_engine_stats(self) -> int:
         """Fold the engine's cumulative counters into the report (deltas
@@ -588,6 +619,7 @@ class Server:
             h = self._pop_due(now)
             if h is None:
                 break
+            self._engine.reserve_slot_rows([len(handles)])  # frames before prefill
             handles.append(h)
         if not handles:
             return
@@ -615,6 +647,7 @@ class Server:
                     break              # head waits for an eviction
                 h = heapq.heappop(self._pending)[2]
                 slots.append(self._free.popleft())
+                self._engine.reserve_slot_rows(slots[-1:])  # frames before prefill
                 handles.append(h)
                 if self._kv_budget is not None:
                     self._live_kv += self._kv_need[i]

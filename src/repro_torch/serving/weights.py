@@ -229,6 +229,8 @@ class StreamWindow:
         self._free: List[int] = list(range(len(self._slots)))
         self._after: List[Optional["torch.cuda.Event"]] = [None] * len(self._slots)
         self._lease: Optional[int] = None
+        self._lease_key = None
+        self._lease_ready: Optional["torch.cuda.Event"] = None
         self.inflight: Dict = {}
         self._order: List = []
         self._waits: List[Tuple["torch.cuda.Event", "torch.cuda.Event"]] = []
@@ -304,14 +306,41 @@ class StreamWindow:
             if e.slot is None:
                 e.slot = self._claim()
                 self._issue(key, e)
-        if e.ready is not None:
-            cur = torch.cuda.current_stream(self.device)
-            reached = torch.cuda.Event(enable_timing=True)
-            reached.record(cur)
-            cur.wait_event(e.ready)
-            self._waits.append((reached, e.ready))
-        self._lease = e.slot
+        self._wait(e)
+        self._lease, self._lease_key, self._lease_ready = e.slot, key, e.ready
         return e.value
+
+    def _wait(self, e: _Entry) -> None:
+        """Make the compute stream wait for ``e``'s copy (timed)."""
+        if e.ready is None:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        reached = torch.cuda.Event(enable_timing=True)
+        reached.record(cur)
+        cur.wait_event(e.ready)
+        self._waits.append((reached, e.ready))
+
+    def refetch(self, key):
+        """Copy ``key`` again into the slot the consumer holds (what it
+        acquired went stale), counted as a demand fetch; returns the new
+        views, which the compute stream waits for."""
+        assert self._lease is not None and self._lease_key == key, (self._lease_key, key)
+        e = _Entry(self._lease)
+        self._issue(key, e)
+        self.htod_bytes += self._size(key)
+        self.demand += 1
+        self._wait(e)
+        self._lease_ready = e.ready
+        return e.value
+
+    def wait_copy(self, key) -> None:
+        """Block the host until every queued copy of ``key`` (in flight or
+        held by the consumer) has read its source, so that the host may
+        write the source again."""
+        for ready in ((self.inflight[key].ready if key in self.inflight else None),
+                      self._lease_ready if self._lease_key == key else None):
+            if ready is not None and not ready.query():
+                ready.synchronize()
 
     def release(self) -> None:
         """End the consumer's lease: later copies into its slot wait for the
@@ -323,7 +352,7 @@ class StreamWindow:
             ev.record(torch.cuda.current_stream(self.device))
             self._after[self._lease] = ev
         self._free.append(self._lease)
-        self._lease = None
+        self._lease, self._lease_key, self._lease_ready = None, None, None
 
     def take_counters(self) -> Tuple[int, float]:
         """Drain (htod_bytes, wait_s) since the last call.  A wait counts
@@ -350,7 +379,7 @@ class StreamWindow:
         self._slots, self._free, self._after = [], [], []
         self.inflight.clear()
         self._order.clear()
-        self._lease = None
+        self._lease, self._lease_key, self._lease_ready = None, None, None
 
 
 # ---------------------------------------------------------------------------

@@ -703,3 +703,215 @@ def test_cuda_deleted_streamed_server_frees_device_and_pinned_memory(cuda, khat)
     del server
     assert torch.cuda.memory_allocated() == before
     assert weights_mod.pinned_bytes() == pinned
+
+
+# ---------------------------------------------------------------------------
+# K3p, the paged decode attention, and the omega / paged engine
+# ---------------------------------------------------------------------------
+def _paged_inputs(cuda, n, H, K, hd, span, pt, dtype, win_frac=0.5, seed=0):
+    """A device pool and a window holding ``win_frac`` of n rows' frames,
+    the rows' frames shuffled over both."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    pages = -(-span // pt)
+    Hf = int(n * pages * win_frac)
+    P = n * pages - Hf
+
+    def rand(*s):
+        return torch.randn(s, generator=g, device=cuda).to(dtype)
+
+    pk, pv = rand(P + 1, pt, K, hd), rand(P + 1, pt, K, hd)
+    ek, ev = (rand(Hf, pt, K, hd), rand(Hf, pt, K, hd)) if Hf else (None, None)
+    ids = torch.randperm(n * pages, generator=torch.Generator().manual_seed(seed))
+    frames = torch.where(ids < P, ids, ids + 1).reshape(n, pages).to(torch.int32).to(cuda)
+    return rand(n, H, hd), pk, pv, ek, ev, frames
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pt,span,ring", [(4, 300, False), (8, 520, False), (128, 3648, False),
+                                          (8, 256, True)])
+def test_cuda_decode_attention_paged_bit_identical_to_k3(cuda, dtype, pt, span, ring):
+    """K3p against K3 on the gathered contiguous copy, bit for bit (same
+    design, same sums), and against its plain version; a ring (positions past
+    the span: every slot valid) and a dead row (pos -1: zeros)."""
+    n = 6
+    q, pk, pv, ek, ev, frames = _paged_inputs(cuda, n, 16, 16, 128, span, pt, dtype)
+    pos = torch.tensor([span + 40, span - 1, 0, -1, 255, 1000] if ring
+                       else [span - 1, 0, SPLIT_SLOTS - 1, -1, SPLIT_SLOTS, span // 2],
+                       dtype=torch.int32, device=cuda)
+    build.reset_launch_counts()
+    got = ops.decode_attention_paged(q, pk, pv, ek, ev, frames, pos, span)
+    counts = build.launch_counts()
+    gk = ref.gather_pages(pk, ek, frames, span).contiguous()
+    gv = ref.gather_pages(pv, ev, frames, span).contiguous()
+    assert torch.equal(got, ops.decode_attention(q, gk, gv, pos))
+    assert counts["decode_attention_paged"] == 1
+    assert counts["decode_attention_paged_split"] == int(dtype == torch.bfloat16)
+    live = pos >= 0
+    want = ref.decode_attention_paged_ref(q, pk, pv, ek, ev, frames, pos, span)
+    assert_close(got[live], want[live])
+    assert int(torch.count_nonzero(got[~live])) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_paged_pool_only_and_smoke_width(cuda):
+    """No window (every frame in the pool), and the smoke configs' hd 32."""
+    q, pk, pv, _, _, frames = _paged_inputs(cuda, 4, 16, 16, 128, 300, 8, torch.bfloat16,
+                                            win_frac=0.0)
+    pos = torch.tensor([299, 7, 150, 0], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention_paged(q, pk, pv, None, None, frames, pos, 300)
+    gk = ref.gather_pages(pk, None, frames, 300).contiguous()
+    gv = ref.gather_pages(pv, None, frames, 300).contiguous()
+    assert torch.equal(got, ops.decode_attention(q, gk, gv, pos))
+    for dtype in (torch.float32, torch.bfloat16):
+        q, pk, pv, ek, ev, frames = _paged_inputs(cuda, 4, 8, 2, 32, 100, 8, dtype)
+        pos = torch.tensor([99, 3, 50, 64], dtype=torch.int32, device=cuda)
+        got = ops.decode_attention_paged(q, pk, pv, ek, ev, frames, pos, 100)
+        gk, gv = ref.gather_pages(pk, ek, frames, 100), ref.gather_pages(pv, ev, frames, 100)
+        assert torch.equal(got, ops.decode_attention(q, gk.contiguous(), gv.contiguous(), pos))
+
+
+def _paged_engine(cfg, params, plan, cuda, page_tokens=0, frac=None, fused=True):
+    """An engine with a contiguous cache (page_tokens 0), Mode A (frac
+    None) or Mode B with ``frac`` of the frames in the device pool."""
+    from repro_torch.core.engine import ModuleBatchingEngine
+    from repro_torch.serving.cache import CacheConfig, KVPageTable
+
+    cc = None
+    if page_tokens:
+        budget = None
+        if frac is not None:
+            probe = KVPageTable(cfg, [(cfg.layer_kind(i), cfg.ffn_kind(i))
+                                      for i in range(cfg.num_layers)], plan.B, 64,
+                                CacheConfig(page_tokens=page_tokens), device=cuda)
+            budget = max(1.0, int(probe.total_frames * frac) * probe.frame_bytes)
+        cc = CacheConfig(page_tokens=page_tokens, device_pool_bytes=budget)
+    return ModuleBatchingEngine(cfg, params, plan, max_seq=64, device=cuda, cache_config=cc,
+                                fused_decode=fused)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("omega", [0.0, 0.5])
+def test_cuda_paged_and_omega_olmoe_match_contiguous(cuda, omega):
+    """Full-width OLMoE, 4 layers, bf16: Mode B (half the frames on the
+    host, 16-slot pages; and every frame on the host, 8-slot pages) and Mode
+    A give the contiguous engine's tokens at the same omega, bit for bit;
+    the omega engine's fused chunk gives the per-module tokens."""
+    from dataclasses import replace
+
+    cfg, params, toks, lens, plan, _ = _olmoe_4_layers(cuda)
+    plan = replace(plan, omega=omega)
+    want = _paged_engine(cfg, params, plan, cuda, fused=False).generate(toks, 9, lengths=lens)
+    fused = _paged_engine(cfg, params, plan, cuda)
+    assert torch.equal(fused.generate(toks, 9, lengths=lens), want)
+    assert fused.stats.fused_dispatches > 0
+    assert fused.stats.host_attn_tokens == 8 * int(round(omega * 8)) * 4
+    for pt, frac in ((16, 0.5), (8, 0.0), (16, None)):
+        eng = _paged_engine(cfg, params, plan, cuda, pt, frac)
+        build.reset_launch_counts()
+        assert torch.equal(eng.generate(toks, 9, lengths=lens), want), (pt, frac)
+        assert (eng.stats.kv_htod_bytes > 0) == (frac is not None)
+        if frac is not None:
+            assert eng.stats.fused_dispatches == 0
+            split = build.launch_counts()
+            assert split["decode_attention_paged"] == split["decode_attention_paged_split"] > 0
+
+
+def _mode_b_planned_reads(eng, pos, T):
+    """The planned reads a Mode B per-module chunk of T ticks must make: per
+    tick and attention layer, one per host micro-batch (q/k/v down) and one
+    per device micro-batch holding a row whose written page is host-side."""
+    import numpy as np
+
+    pages, n = eng.pages, len(pos)
+    reads = 0
+    for t in range(T):
+        p = np.minimum(np.asarray(pos) + t, eng.max_seq - 1)
+        slot = np.minimum(p, pages.span - 1)
+        f = pages.page_map[np.arange(n), slot // pages.page_tokens]
+        for lo, hi, host in eng._segments(0, n):
+            reads += 1 if host else int((f[lo:hi] >= pages.device_frames).any())
+    return reads * eng._n_attn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["omega", "paged", "paged-omega"])
+def test_cuda_omega_and_paged_decode_make_only_planned_syncs(cuda, mode):
+    """The "no hidden host syncs" contract on an omega chunk (host rows per
+    module, device rows replaying the graph) and a Mode B chunk: under
+    ``set_sync_debug_mode("error")`` the only host waits are the planned
+    reads, and their count is exactly the reckoned one.  In Mode B each
+    layer's host frames cross once a tick, all prefetched: no host row's
+    write stales a prefetch into a second copy."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.serving.sampling import BatchSampler
+
+    cfg, params, toks, lens, plan, _ = _olmoe_4_layers(cuda)
+    omega = 0.0 if mode == "paged" else 0.5
+    plan = replace(plan, omega=omega)
+    eng = _paged_engine(cfg, params, plan, cuda, *((16, 0.5) if "paged" in mode else ()))
+    cur = eng.prefill(toks, lengths=lens).argmax(-1)
+    eng.decode_chunk(cur, lens, BatchSampler.uniform(8, None), 2)       # captures
+    eng.sync_stats()
+    reads, htod = eng.stats.planned_reads, eng.stats.kv_htod_bytes
+    demand = 0 if eng.pages is None else eng.pages.demand_fetches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = eng.decode_chunk(cur, np.asarray(lens), BatchSampler.uniform(8, None), 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.shape == (8, 4)
+    if mode == "omega":
+        assert eng.stats.fused_dispatches == 2
+        assert eng.stats.planned_reads - reads == 4 * eng._n_attn      # b_a 4: one a layer
+    else:
+        assert eng.stats.fused_dispatches == 0
+        assert eng.stats.planned_reads - reads == _mode_b_planned_reads(eng, lens, 4) > 0
+        eng.sync_stats()
+        layer_bytes = eng.pages.host_pool_bytes() // eng._n_attn
+        assert eng.pages.demand_fetches == demand
+        assert eng.stats.kv_htod_bytes - htod == 4 * eng._n_attn * layer_bytes > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("omega", [0.0, 0.5])
+def test_cuda_deleted_paged_server_frees_device_and_pinned_memory(cuda, omega):
+    """A Mode B server (and its omega host buffers), deleted without
+    ``gc.collect()``, returns the card's allocated bytes (pools, window
+    slots) and the page-locked host bytes (host frames, host rows' KV) to
+    their values before it was built."""
+    from dataclasses import replace
+
+    from repro_torch.data.datasets import DatasetSpec, synthetic_requests
+    from repro_torch.serving import weights as weights_mod
+    from repro_torch.serving.server import ServeConfig, Server
+
+    cfg, params, _, _, plan, _ = _olmoe_4_layers(cuda)
+    plan = replace(plan, omega=omega)
+    reqs = synthetic_requests(DatasetSpec("t", 8, 48, 4), cfg.vocab_size,
+                              prompt_lens=[24, 48, 33, 40])
+
+    def serve():
+        server = Server(cfg, params, plan,
+                        serve=ServeConfig(decode_len=4, kv_page_tokens=16, device_kv_gb=0.002),
+                        device=cuda)
+        for r in reqs:
+            server.submit(r)
+        rep = server.run()
+        assert rep.kv_htod_gb > 0 and weights_mod.pinned_bytes() > pinned
+        return server, rep
+
+    pinned = weights_mod.pinned_bytes()
+    server, _ = serve()
+    del server
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    server, rep = serve()
+    assert rep.host_attn_tokens == (3 * 4 * 4 if omega else 0)
+    del server
+    assert torch.cuda.memory_allocated() == before
+    assert weights_mod.pinned_bytes() == pinned

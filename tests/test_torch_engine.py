@@ -184,11 +184,6 @@ def test_default_device_is_cuda_and_never_falls_back():
 
 def test_later_slices_raise():
     _, cfg, _, tp, _ = _setup("olmoe-1b-7b")
-    with pytest.raises(NotImplementedError, match="host-attention"):
-        ModuleBatchingEngine(cfg, tp, Plan(B=2, b_a=2, b_e=2, omega=0.5), device="cpu")
-    with pytest.raises(NotImplementedError, match="paging"):
-        ModuleBatchingEngine(cfg, tp, Plan(B=2, b_a=2, b_e=2), cache_config=object(),
-                             device="cpu")
     with pytest.raises(NotImplementedError, match="loop"):
         ModuleBatchingEngine(cfg, tp, Plan(B=2, b_a=2, b_e=2), expert_path="loop",
                              device="cpu")

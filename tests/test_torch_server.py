@@ -165,5 +165,7 @@ def test_synthetic_requests_and_validation():
                     serve=ServeConfig(max_seq=10), device="cpu")
     with pytest.raises(ValueError, match="max_seq"):
         server.submit(Request(np.zeros(9, np.int32), 4))
-    with pytest.raises(NotImplementedError, match="paging"):
-        ServeConfig(kv_page_tokens=16)
+    with pytest.raises(NotImplementedError, match="prefix-cache"):
+        ServeConfig(kv_page_tokens=16, prefix_cache=True)
+    with pytest.raises(NotImplementedError, match="re-planning"):
+        ServeConfig(replan_skew=2.0)
