@@ -14,7 +14,10 @@ Phases, in order (any failure exits non-zero with its traceback):
                planner's b_a): 64 ragged requests, static then continuous;
                the kernels' launch counts are read around each run; then
                16 requests with mixed greedy / temperature / top-k
-               sampling against the per-module oracle;
+               sampling against the per-module oracle; then the same 64
+               requests with online capacity re-planning (``replan_skew``,
+               one tick a step): static, continuous and the per-module
+               oracle re-plan alike and give the same tokens;
 5. serve_long -- the same server and weights on 32 long prompts (1024..3584
                tokens, decode 64, max_seq 3648): prefill through K4 at every
                layer, decode through K3 at spans up to 3648; its own launch
@@ -33,12 +36,19 @@ Phases, in order (any failure exits non-zero with its traceback):
                host, streamed a layer ahead and read in place by K3p; the
                tokens bit-identical to serve_long's contiguous ones under
                both schedulers, then Mode A (no cap) on the fused graph;
+   serve_prefix -- 64 requests of one 1024-token shared instruction plus a
+               16..128-token question, B 32, 128-token pages: a wave of 32
+               misses, then 32 prefix hits (the stored prefix copied in,
+               the suffix prefilled through K4 with a query offset); cold
+               and with the prefix cache under both schedulers, the
+               per-module oracle and Mode B, all with the same tokens;
 7. parity   -- card (kernels) against CPU (plain versions), f32: OLMoE at
                full width but 2 layers (32 tokens, a ragged 1536-token
                prompt), Mamba2 at full width but 2 layers (600 and 300
                tokens), and the Jamba smoke config (one interleave period,
                lengths 100 and 77), which runs K1-K5 in one model; OLMoE at
-               2 layers with omega 0.5 and every KV frame on the host;
+               2 layers with omega 0.5 and every KV frame on the host, and
+               an OLMoE prefix hit (640 + 77 tokens) at 2 layers;
 8. profile  -- (inside phases 4-6) torch.profiler over each path's decode
                chunk and one prefill wave.
 
@@ -147,6 +157,15 @@ OMEGA, OMEGA_B_A = 0.5, 32
 # the paged path: serve_long's requests, KV in 128-slot pages, 7.5 GB of
 # device frames (447 of the 928 frames; the other 481 page-locked on the host)
 PAGE_TOKENS, DEVICE_KV_GB = 128, 7.5
+# the prefix-cache path: one seeded 1024-token shared instruction in front of
+# each request's own 16..128-token question (prompts 1040..1152, every key at
+# pspan 1024), decode 32, a wave of misses then a wave of hits
+PREFIX_LEN, PREFIX_REQUESTS, PREFIX_DECODE, PREFIX_MAX_SEQ = 1024, 64, 32, 1280
+PREFIX_QUESTIONS = (16, 128)
+PREFIX_SUFFIXES = (16, 64, 128)
+# online capacity re-planning on serve's requests: the drift (absolute share
+# of the hottest expert between checks) above which b_e is re-planned
+REPLAN_SKEW = 1e-6
 
 
 def emit(obj) -> None:
@@ -843,6 +862,85 @@ def check_flash_on(name, q, k, v, window=0, lens=None):
     return row
 
 
+def check_flash_offset(name, gen, B, Sq, q_offset, H, K, hd, dtype, dev, lengths=None):
+    """K4 with a query offset (a prefix-cache hit's suffix prefill): q (B, Sq,
+    H, hd) at absolute positions q_offset.. against k/v (B, q_offset + Sq, K,
+    hd), held to its plain version and timed beside SDPA with a lower-right
+    causal mask.  The same rows of a full causal call over the whole sequence
+    (queries for the prefix made up) must agree within the same tolerance;
+    whether they are bit-identical is recorded."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    Sk = q_offset + Sq
+    q, k, v = [torch.randn(s, generator=gen, device=dev).to(dtype)
+               for s in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd))]
+    lens = (None if lengths is None
+            else torch.tensor(lengths, device=dev, dtype=torch.int32))
+    design = fa.flash_attention_design(dtype, hd)
+
+    def kern():
+        return ops.flash_attention(q, k, v, lengths=lens, q_offset=q_offset)
+
+    def plain():
+        return ref.flash_attention_ref(q, k, v, lengths=lens, q_offset=q_offset)
+
+    got, want = kern(), plain()
+    q_pre = torch.randn((B, q_offset, H, hd), generator=gen, device=dev).to(dtype)
+    full = ops.flash_attention(torch.cat([q_pre, q], dim=1), k, v, lengths=lens)[:, q_offset:]
+    torch.cuda.synchronize()
+    err, tol = errors(got, want), tolerance(dtype)
+    full_err = errors(got, full)
+    live = [Sk] * B if lengths is None else [min(Sk, int(n)) for n in lengths]
+    zero_rows = all(int(torch.count_nonzero(got[b, max(0, n - q_offset):])) == 0
+                    for b, n in enumerate(live))
+    case = {"case": name, "B": B, "Sq": Sq, "q_offset": q_offset, "Sk": Sk, "H": H, "K": K,
+            "hd": hd, "lengths": lengths, "dtype": str(dtype).replace("torch.", ""),
+            "design": design, "max_abs_err": err[0], "rel_err": err[1],
+            "ref_peak": float(want.float().abs().max()), "zero_rows_past_lengths": zero_rows,
+            "vs_full_call_abs": full_err[0], "vs_full_call_rel": full_err[1],
+            "full_call_bit_identical": bool(torch.equal(got, full)),
+            "q_offset_multiple_of_query_block": q_offset % (128 if design == "wgmma" else 64)
+            == 0, "tolerance": tol}
+    if not (within(err, tol) and within(full_err, tol) and zero_rows):
+        emit(case)
+        raise AssertionError(f"{name}: K4 with q_offset {q_offset}: error {err}, against "
+                             f"the full call {full_err}, outside {tol}; zero rows {zero_rows}")
+    pairs = sum(float(q_offset + i + 1) for n in live for i in range(Sq) if q_offset + i < n)
+    es = q.element_size()
+    n_q = sum(max(0, min(Sq, n - q_offset)) for n in live)
+    nbytes = (n_q * H + sum(live) * 2 * K) * hd * es + B * Sq * H * hd * es
+    flops = 4.0 * H * hd * pairs
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library = "sdpa(attn_mask=causal_lower_right(Sq, Sk), enable_gqa)"
+    if lens is None:
+        from torch.nn.attention.bias import causal_lower_right
+
+        mask = causal_lower_right(Sq, Sk)
+    else:                                    # the same function with lengths
+        i = torch.arange(Sq, device=dev)[:, None] + q_offset
+        j = torch.arange(Sk, device=dev)[None, :]
+        mask = ((j <= i)[None] & (j[None] < lens[:, None, None].long()))[:, None]
+        library = "sdpa(attn_mask=boolean causal and length mask, enable_gqa)"
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=H != K)
+
+    case.update({"ms": time_ms(kern), "plain_ms": time_ms(plain, 5, 1),
+                 "library_ms": time_ms(lib), "library": library,
+                 "bound_ms": b_ms, "bound_by": b_by})
+    case["ms_again"] = time_ms(kern)
+    emit(case)
+    return {"name": "flash_attention", "case": name, "max_abs_err": err[0],
+            "rel_err": err[1], "tolerance": tol, "design": design, "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": case["library_ms"], "ms_again": case["ms_again"],
+            "q_offset": q_offset, "Sq": Sq,
+            "full_call_bit_identical": case["full_call_bit_identical"]}
+
+
 def ssm_lengths(n: int = SSM_REQUESTS):
     return [SSM_MIN + ((SSM_MAX - SSM_MIN) * i) // (n - 1) for i in range(n)]
 
@@ -1057,6 +1155,20 @@ def phase_kernels(dev, plan, span: int, prompt_len: int, long_b_a: int,
                             window=1024))
     rows.append(check_flash("olmoe-f32-S1536", gen, 2, 1536, 16, 16, 128, f32, dev,
                             lengths=[1536, 1100]))
+    # K4 with a query offset: serve_prefix's suffixes (16..128 queries after
+    # a 1024-token prefix), an offset that is no multiple of any tile, the
+    # Mixtral GQA shape, lengths, f32 and hd 32 (the first design)
+    for sq in PREFIX_SUFFIXES:
+        rows.append(check_flash_offset(f"olmoe-suffix-{sq}-at-{PREFIX_LEN}", gen, 1, sq,
+                                       PREFIX_LEN, 16, 16, 128, bf, dev))
+    rows.append(check_flash_offset("olmoe-suffix-64-at-1000", gen, 1, 64, 1000, 16, 16, 128,
+                                   bf, dev))
+    rows.append(check_flash_offset(f"mixtral-gqa-suffix-128-at-{PREFIX_LEN}", gen, 1, 128,
+                                   PREFIX_LEN, 32, 8, 128, bf, dev))
+    rows.append(check_flash_offset("olmoe-suffix-lengths", gen, 2, 100, 1000, 16, 16, 128, bf,
+                                   dev, lengths=[1100, 1040]))
+    rows.append(check_flash_offset("olmoe-suffix-f32", gen, 1, 64, 1000, 16, 16, 128, f32, dev))
+    rows.append(check_flash_offset("smoke-hd32-suffix", gen, 2, 20, 45, 4, 2, 32, bf, dev))
     # K5: the SSM path's heaviest prefill micro-batch (its b_a longest
     # prompts, padded to the wave's 1800), the same in f32 at 4 rows, the
     # Jamba/Mamba2 smoke shape (hp 32, ns 16, chunk 32), lengths of 1 and of
@@ -1078,20 +1190,23 @@ def phase_kernels(dev, plan, span: int, prompt_len: int, long_b_a: int,
 # ---------------------------------------------------------------------------
 # Phase 4: full-width serving through the port's Server
 # ---------------------------------------------------------------------------
-def serve_setup(lens, decode_len: int, arch: str = "olmoe-1b-7b", omega: float = 0.0):
+def serve_setup(lens, decode_len: int, arch: str = "olmoe-1b-7b", omega: float = 0.0,
+                batch=None):
     """A served path on a full-size config: the planner's plan on the H100
-    profile for these prompts, with b_e raised to B (one expert can take
-    every token of a step, so no copy drops and both schedulers must give
-    identical tokens) and ``omega`` host-attention rows (0 unless a phase
-    asks: the planner's own omega at these shapes is 1)."""
+    profile for these prompts at ``batch`` slots (default: one per prompt),
+    with b_e raised to B (one expert can take every token of a step, so no
+    copy drops and both schedulers must give identical tokens) and
+    ``omega`` host-attention rows (0 unless a phase asks: the planner's own
+    omega at these shapes is 1)."""
     from repro_torch.configs import get_config
     from repro_torch.core.hardware import H100_SXM_80GB
     from repro_torch.launch.serve import build_plan
 
     cfg = get_config(arch)
     n = len(lens)
+    B = batch or n
     args = argparse.Namespace(prompt_lens=lens, decode_len=decode_len,
-                              scheduler="static", batch=n, requests=n, b_e=n, omega=omega)
+                              scheduler="static", batch=B, requests=n, b_e=B, omega=omega)
     return cfg, build_plan(cfg, H100_SXM_80GB, args), lens, decode_len
 
 
@@ -1535,7 +1650,413 @@ def phase_serve(dev, params, profile=False):
     profile_path(dev, "serve", cfg, params, plan, requests,
                  max(lens) + decode_len, reports, profile)
     phase_sampled(dev, params)
+    phase_replan(dev, params)
     return counts, reports
+
+
+def watch_decode_syncs(server) -> dict:
+    """Record the Python lines where the host waited for the device inside
+    every decode chunk and every re-plan check of ``server`` (its engine
+    built), by PyTorch's sync debug mode; a graph capture (set-up, once per
+    key) runs with the mode off.  Returns {file:line: count}, filled as the
+    server runs; ``untap`` removes the wrappers."""
+    eng, seen = server._engine, {}
+    capture = eng._graph
+
+    def watched(fn):
+        def call(*a, **kw):
+            out = []
+            for k, n in sync_sites(lambda: out.append(fn(*a, **kw))).items():
+                seen[k] = seen.get(k, 0) + n
+            return out[0]
+        return call
+
+    def unwatched(*a, **kw):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return capture(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    eng.decode_chunk, eng._graph = watched(eng.decode_chunk), unwatched
+    server._maybe_replan = watched(server._maybe_replan)
+    return seen
+
+
+def untap(obj) -> None:
+    """Drop the instance attributes that wrap ``obj``'s methods (a tap's
+    wrapper holds the object, so it would outlive ``del``)."""
+    for name in [n for n, v in vars(obj).items() if callable(v) and hasattr(type(obj), n)]:
+        delattr(obj, name)
+
+
+def served(dev, cfg, params, plan, requests, serve_kw: dict, fused: bool = True,
+           phase: str = "serve", taps=None):
+    """One ``Server`` run of ``requests`` with ``ServeConfig(**serve_kw)``
+    (``fused=False``: the per-module oracle, its engine's fused decode off),
+    the launch counts set to 0 just before and read just after, the host
+    syncs inside its decode chunks and re-plan checks recorded
+    (``watch_decode_syncs``).  ``taps(server)``, when given, wraps what it wants
+    to watch before the run.  The deleted server must free its device and
+    page-locked bytes.  Returns a record of the run."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import weights as wmod
+    from repro_torch.serving.server import ServeConfig, Server
+
+    before, pinned = torch.cuda.memory_allocated(), wmod.pinned_bytes()
+    server = Server(cfg, params, plan, serve=ServeConfig(**serve_kw), device=dev)
+    for r in requests:
+        server.submit(r)
+    server._ensure_engine()
+    server._engine.fused_decode = fused
+    seen = taps(server) if taps is not None else None
+    syncs = watch_decode_syncs(server)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = server.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng = server._engine
+    untap(server)
+    untap(eng)
+    rec = {"report": rep, "counts": ops.launch_counts(), "wall_s": wall,
+           "tokens": [r.tokens for r in rep.request_results],
+           "ticks": rep.decode_slot_steps // server._b, "syncs": dict(syncs),
+           "planned_reads": eng.stats.planned_reads, "fused_ticks": eng.stats.fused_ticks,
+           "graph_captures": list(eng.graph_captures), "b_e_override": eng._b_e_override,
+           "seen": seen,
+           "table": None if eng.pages is None else eng.pages.describe()}
+    del server, eng
+    freed(phase, f"{serve_kw.get('scheduler', 'static')} server", before)
+    if wmod.pinned_bytes() != pinned:
+        raise AssertionError(f"{phase}: the deleted server left "
+                             f"{wmod.pinned_bytes() - pinned} page-locked bytes")
+    return rec
+
+
+def phase_replan(dev, params):
+    """Serve's 64 requests with online capacity re-planning: one decode tick
+    a step (re-plan checks at steps 8, 16 and 24 of the 31), ``replan_skew``
+    below the drift of the hottest expert's share that the seeded routing
+    shows.  Static and continuous (fused) and the per-module oracle
+    (static, the same re-plans) give identical tokens; each run re-plans at
+    least once, captures one graph per distinct capacity, makes one
+    planned read per 8 steps and no other host wait inside its decode
+    chunks and re-plan checks.  The measured shares are printed."""
+    import numpy as np
+
+    from repro_torch.data.datasets import DatasetSpec, synthetic_requests
+
+    cfg, plan, lens, decode_len = serve_setup(short_lengths(), 32)
+    requests = synthetic_requests(DatasetSpec("smoke", len(lens), max(lens), decode_len),
+                                  cfg.vocab_size, seed=0, prompt_lens=lens)
+    kw = {"decode_len": decode_len, "decode_chunk": 1, "replan_skew": REPLAN_SKEW}
+
+    def taps(server):
+        """The hottest expert's share at each check, and each b_e pushed."""
+        shares, pushed = [], []
+        check, push = server._maybe_replan, server._engine.set_expert_capacity
+
+        def watch_check():
+            check()
+            load = server.report.expert_load
+            if server._replan_ticks % 8 == 0 and load is not None:
+                per = load.sum(axis=0)
+                shares.append(float(per.max() / per.sum()))
+
+        def watch_push(b_e):
+            pushed.append(b_e)
+            push(b_e)
+
+        server._maybe_replan, server._engine.set_expert_capacity = watch_check, watch_push
+        return {"shares": shares, "pushed": pushed}
+
+    runs = {}
+    for name, sched, fused in (("static", "static", True), ("continuous", "continuous", True),
+                               ("per-module", "static", False)):
+        rec = served(dev, cfg, params, plan, requests, dict(kw, scheduler=sched), fused,
+                     "serve_replan", taps)
+        runs[name] = rec
+        rep, seen = rec["report"], rec["seen"]
+        caps = [c["key"]["capacity"] for c in rec["graph_captures"]]
+        drift = [b - a for a, b in zip(seen["shares"], seen["shares"][1:])]
+        emit({"phase": "serve_replan", "run": name, "replan_skew": REPLAN_SKEW,
+              "hottest_share_at_checks": seen["shares"], "drift_between_checks": drift,
+              "b_e_pushed": seen["pushed"], "capacity_replans": rep.capacity_replans,
+              "planned_reads": rec["planned_reads"], "decode_steps": rec["ticks"],
+              "graph_capacities": caps, "sync_sites": rec["syncs"],
+              "dropped": rep.expert_tokens_dropped, "decode_tok_s": rep.decode_throughput,
+              "fused_ticks": rec["fused_ticks"], "launches": rec["counts"]})
+        cuda = dev.type == "cuda"
+        if not (rep.capacity_replans >= 1 and rep.capacity_replans == len(seen["pushed"])
+                and rec["planned_reads"] == rec["ticks"] // 8 and not rec["syncs"]):
+            raise AssertionError(f"serve_replan {name}: {rep.capacity_replans} re-plans "
+                                 f"({seen['pushed']}), {rec['planned_reads']} planned reads in "
+                                 f"{rec['ticks']} steps, sync sites {rec['syncs']}")
+        if fused and cuda and not (len(caps) == len(set(caps))
+                                   and set(caps) == {plan.B} | set(seen["pushed"])
+                                   and rec["fused_ticks"] == rec["ticks"]):
+            raise AssertionError(f"serve_replan {name}: graph capacities {caps} for pushes "
+                                 f"{seen['pushed']}; {rec['fused_ticks']} of {rec['ticks']} "
+                                 f"ticks replayed")
+    for name in ("continuous", "per-module"):
+        for i, (a, b) in enumerate(zip(runs["static"]["tokens"], runs[name]["tokens"])):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"serve_replan: static and {name} tokens differ for "
+                                     f"request {i}")
+        if runs[name]["seen"]["pushed"] != runs["static"]["seen"]["pushed"]:
+            raise AssertionError(f"serve_replan: {name} pushed {runs[name]['seen']['pushed']}"
+                                 f", static {runs['static']['seen']['pushed']}")
+
+
+def prefix_requests(cfg):
+    """One seeded ``PREFIX_LEN``-token instruction in front of each of
+    ``PREFIX_REQUESTS`` seeded questions, their lengths even-spread over
+    ``PREFIX_QUESTIONS``."""
+    import numpy as np
+
+    from repro_torch.serving.server import Request
+
+    rng = np.random.default_rng(7)
+    head = rng.integers(0, cfg.vocab_size, PREFIX_LEN)
+    n, (lo, hi) = PREFIX_REQUESTS, PREFIX_QUESTIONS
+    lens = [lo + ((hi - lo) * i) // (n - 1) for i in range(n)]
+    return [Request(np.concatenate([head, rng.integers(0, cfg.vocab_size, m)]).astype(np.int32),
+                    PREFIX_DECODE) for m in lens]
+
+
+def first_logits(server):
+    """Record each request's first-token logits (its row of the prefill
+    logits, or a hit's) by request index: {index: (V,) f32 on the host}."""
+    eng, out, current = server._engine, {}, {}
+    wave, prefill, hit = server._prefill_wave, eng.prefill_slots, eng.prefill_prefix_hit
+
+    def prefill_wave(handles, slots):
+        current.update({s: h.index for h, s in zip(handles, slots)})
+        return wave(handles, slots)
+
+    def prefill_slots(tokens, rows, lengths=None):
+        lg = prefill(tokens, rows, lengths=lengths)
+        for s, row in zip(rows, lg.float().cpu()):
+            out[current[int(s)]] = row
+        return lg
+
+    def prefill_prefix_hit(slot, prompt, kvs, pos0):
+        from repro_torch.kernels import ops
+
+        k4 = ops.launch_counts()["flash_attention"]
+        lg = hit(slot, prompt, kvs, pos0)
+        out[current[slot]] = lg[0].float().cpu()
+        out.setdefault("k4_per_hit", []).append(ops.launch_counts()["flash_attention"] - k4)
+        return lg
+
+    server._prefill_wave = prefill_wave
+    eng.prefill_slots, eng.prefill_prefix_hit = prefill_slots, prefill_prefix_hit
+    return out
+
+
+def profile_hits(dev, cfg, params, plan, requests, n: int = 8):
+    """A fresh engine (Mode A pages): one miss prefilled and its prefix
+    captured, then ``n`` hits admitted into rows 1.., as the server admits
+    them (one at a time): the wall per hit, and under torch.profiler the
+    device-busy time and device operations (kernels, copies) per hit, its
+    split by kernel class, the top kernels and copies, and the Python lines
+    that made the host wait."""
+    from repro_torch.core.engine import ModuleBatchingEngine
+    from repro_torch.serving.cache import CacheConfig
+
+    before = torch.cuda.memory_allocated()
+    eng = ModuleBatchingEngine(cfg, params, plan, max_seq=PREFIX_MAX_SEQ, device=dev,
+                               cache_config=CacheConfig(page_tokens=PAGE_TOKENS))
+    eng.init_cache(plan.B)
+    eng.prefill_slots(requests[0].prompt[None], [0])
+    kvs = eng.read_prefix_rows(0, PREFIX_LEN)
+    hits = requests[plan.B:plan.B + n]
+
+    def admit():
+        for i, r in enumerate(hits):
+            eng.prefill_prefix_hit(1 + i % (plan.B - 1), r.prompt, kvs, PREFIX_LEN)
+
+    admit()                                          # warm
+    wall = host_ms(admit) / n
+    prof, _ = profile_region(admit, top=8)
+    busy = prof["device_busy_ms"] / n
+    syncs = sync_sites(admit)
+    emit({"phase": "profile", "what": f"serve_prefix: {n} prefix hits admitted one at a time, "
+          f"per hit", "suffix_tokens": [len(r.prompt) - PREFIX_LEN for r in hits],
+          "wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+          "device_ops_per_hit": sum(prof["calls_by_kernel"].values()) / n,
+          "by_class": {c: {"ms": v["ms"] / n, "share_of_busy": v["share_of_busy"]}
+                       for c, v in kernel_shares(prof["by_kernel"],
+                                                 prof["device_busy_ms"]).items()},
+          "sync_sites_per_hit": {k: v / n for k, v in syncs.items()},
+          "top_over_hits": prof["top"]})
+    del eng, kvs
+    torch.cuda.empty_cache()
+    freed("serve_prefix", "profiled hit engine", before)
+
+
+def cold_alone(dev, cfg, params, plan, prompts):
+    """Each prompt prefilled cold and alone (one row, the whole prompt) by a
+    fresh engine with serve_prefix's pages, its prefix captured, and the
+    prompt admitted again as a hit on that capture.  Returns, per prompt,
+    (cold logits, hit logits), (V,) f32 on the host: the two share their
+    prefix KV bit for bit, so they differ only where the suffix runs
+    through GEMMs of its own length, not the prompt's (an offset or RoPE
+    fault would show in every prompt)."""
+    from repro_torch.core.engine import ModuleBatchingEngine
+    from repro_torch.serving.cache import CacheConfig
+
+    before = torch.cuda.memory_allocated()
+    eng = ModuleBatchingEngine(cfg, params, plan, max_seq=PREFIX_MAX_SEQ, device=dev,
+                               cache_config=CacheConfig(page_tokens=PAGE_TOKENS))
+    eng.init_cache(2)
+    out = []
+    for p in prompts:
+        cold = eng.prefill_slots(p[None], [0])[0].float().cpu()
+        kvs = eng.read_prefix_rows(0, PREFIX_LEN)
+        out.append((cold, eng.prefill_prefix_hit(1, p, kvs, PREFIX_LEN)[0].float().cpu()))
+        del kvs
+    del eng
+    torch.cuda.empty_cache()
+    freed("serve_prefix", "cold-alone engine", before)
+    return out
+
+
+def phase_serve_prefix(dev, params, profile=False):
+    """Full-width, full-depth OLMoE-1B-7B, 64 requests of one 1024-token
+    shared instruction plus a 16..128-token question each, decode 32, B 32,
+    the planner's b_a, b_e = B, 128-token pages (Mode A), max_seq 1280: a
+    static wave of 32 misses, then a wave of 32 hits.  Cold (prefix cache
+    off) and with the prefix cache, under both schedulers, and the
+    per-module oracle with the prefix cache.  Gates: static = continuous =
+    the oracle with the prefix cache; 32 hits and 32 misses; 16 K4 launches
+    per hit; every hit's first-token logits within the bf16 row tolerance of
+    the cold run's; each prompt prefilled cold and alone against its hit on
+    that prefill's prefix (``cold_alone``): at least a quarter bit-identical
+    and the median within the row tolerance; one planned read (the one capture) and no other host
+    wait inside the decode chunks; every server freed.  Then Mode B (half
+    the frames on the host, K3p): tokens bit-identical to Mode A's."""
+    import numpy as np
+
+    cfg, _, _, _ = serve_setup([PREFIX_LEN + 16], PREFIX_DECODE)
+    requests = prefix_requests(cfg)
+    lens = [len(r.prompt) for r in requests]
+    _, plan, _, _ = serve_setup(lens, PREFIX_DECODE, batch=PREFIX_REQUESTS // 2)
+    B = plan.B
+    frame = cfg.num_layers * 2 * PAGE_TOKENS * cfg.num_kv_heads * cfg.head_dim * 2
+    frames = B * -(-PREFIX_MAX_SEQ // PAGE_TOKENS)
+    half_gb = (frames // 2) * frame / 1e9
+    emit({"phase": "serve_prefix", "requests": len(requests), "prefix_len": PREFIX_LEN,
+          "prompt_lens": [min(lens), max(lens)], "decode_len": PREFIX_DECODE,
+          "max_seq": PREFIX_MAX_SEQ, "page_tokens": PAGE_TOKENS,
+          "plan": {"B": B, "b_a": plan.b_a, "b_e": plan.b_e}, "frames": frames,
+          "mode_b_device_kv_gb": half_gb, "card": gpu_line()})
+    base = {"decode_len": PREFIX_DECODE, "max_seq": PREFIX_MAX_SEQ, "kv_page_tokens": PAGE_TOKENS}
+    runs = {}
+    for name, sched, prefix, fused, extra in (
+            ("cold-static", "static", False, True, {}),
+            ("cold-continuous", "continuous", False, True, {}),
+            ("prefix-static", "static", True, True, {}),
+            ("prefix-continuous", "continuous", True, True, {}),
+            ("prefix-per-module", "static", True, False, {}),
+            ("prefix-mode-B", "static", True, True, {"device_kv_gb": half_gb})):
+        kw = dict(base, scheduler=sched, prefix_cache=prefix, **extra)
+        rec = served(dev, cfg, params, plan, requests, kw, fused, "serve_prefix", first_logits)
+        runs[name] = rec
+        rep, c = rec["report"], rec["counts"]
+        waves = [{"prefill_s": w.prefill_s, "decode_s": w.decode_s} for w in rep.results]
+        k4_hits = rec["seen"].pop("k4_per_hit", [])
+        emit({"phase": "serve_prefix", "run": name, "wall_s": rec["wall_s"],
+              "prefix_hits": rep.prefix_hits, "prefix_misses": rep.prefix_misses,
+              "prefill_tokens": rep.prefill_tokens, "prefill_s": rep.prefill_s,
+              "prefill_tok_s": rep.prefill_throughput, "waves": waves,
+              "decode_tok_s": rep.decode_throughput, "decode_ticks": rec["ticks"],
+              "fused_ticks": rec["fused_ticks"], "planned_reads": rec["planned_reads"],
+              "sync_sites": rec["syncs"], "k4_launches_per_hit": sorted(set(k4_hits)),
+              "kv_htod_gb": rep.kv_htod_gb, "kv_dtoh_gb": rep.kv_dtoh_bytes / 1e9,
+              "table": rec["table"], "dropped": rep.expert_tokens_dropped, "launches": c})
+        cuda = dev.type == "cuda"
+        want_k3 = "decode_attention_paged" if "device_kv_gb" in kw else "decode_attention"
+        if cuda and not all(c[k] > 0 for k in ("expert_gate_up", "grouped_matmul",
+                                                want_k3, "flash_attention")):
+            raise AssertionError(f"serve_prefix {name}: a kernel of the path was never "
+                                 f"launched: {c}")
+        if cuda and any(c[k] != c[f"{k}_{d}"] for k, d in NEW_DESIGNS):
+            raise AssertionError(f"serve_prefix {name}: a launch did not take its new "
+                                 f"design: {c}")
+        if len(rec["tokens"]) != len(requests) or rep.expert_tokens_dropped:
+            raise AssertionError(f"serve_prefix {name}: {len(rec['tokens'])} requests served, "
+                                 f"{rep.expert_tokens_dropped} copies dropped")
+        if rec["syncs"]:
+            raise AssertionError(f"serve_prefix {name}: host syncs inside the decode chunks: "
+                                 f"{rec['syncs']}")
+        if not prefix:
+            continue
+        hits = len(requests) - B
+        if (rep.prefix_hits, rep.prefix_misses) != (hits, B) or (
+                cuda and k4_hits != [cfg.num_layers] * hits):
+            raise AssertionError(f"serve_prefix {name}: {rep.prefix_hits} hits, "
+                                 f"{rep.prefix_misses} misses; K4 launches per hit {k4_hits}")
+        if "device_kv_gb" not in kw and rec["planned_reads"] != 1:
+            raise AssertionError(f"serve_prefix {name}: {rec['planned_reads']} planned reads, "
+                                 f"1 capture expected")
+    # tokens: static = continuous = the per-module oracle with the prefix
+    # cache; Mode B = Mode A bit for bit; the share equal to the cold run's
+    want = runs["prefix-static"]["tokens"]
+    for name in ("prefix-continuous", "prefix-per-module", "prefix-mode-B"):
+        bad = [i for i, (a, b) in enumerate(zip(want, runs[name]["tokens"]))
+               if not np.array_equal(a, b)]
+        if bad:
+            raise AssertionError(f"serve_prefix: {name} tokens differ from prefix-static for "
+                                 f"requests {bad}")
+    cold = runs["cold-static"]["tokens"]
+    same = [bool(np.array_equal(a, b)) for a, b in zip(want, cold)]
+    # the hits' first-token logits against the cold run's, row tolerance
+    lg, lg_cold = runs["prefix-static"]["seen"], runs["cold-static"]["seen"]
+    hit_idx = [i for i in range(B, len(requests))]
+    rel = [errors(lg[i][None], lg_cold[i][None])[1] for i in hit_idx]
+    alone = cold_alone(dev, cfg, params, plan, [requests[i].prompt for i in hit_idx])
+    rel_alone = [errors(h[None], c[None])[1] for c, h in alone]
+    rel_wave_alone = [errors(lg[i][None], c[None])[1] for i, (c, _) in zip(hit_idx, alone)]
+    miss_rel = [errors(lg[i][None], lg_cold[i][None])[1] for i in range(B)]
+    wave = {name: [w.prefill_s for w in runs[name]["report"].results]
+            for name in ("cold-static", "prefix-static")}
+    toks = [sum(lens[:B]), sum(lens[B:]), sum(n - PREFIX_LEN for n in lens[B:])]
+    emit({"phase": "serve_prefix", "share_equal_to_cold_tokens": {
+              "misses": float(np.mean(same[:B])), "hits": float(np.mean(same[B:]))},
+          "hit_first_logits_rel_err": [min(rel), max(rel)],
+          "alone_hit_vs_cold_rel_err": rel_alone,
+          "alone_hit_bit_identical": sum(r == 0.0 for r in rel_alone),
+          "wave_hit_vs_alone_cold_rel_err": rel_wave_alone,
+          "miss_first_logits_rel_err": [min(miss_rel), max(miss_rel)],
+          "tolerance": REL_BF16,
+          "cold_wave2_prefill_s": wave["cold-static"][1],
+          "cold_wave2_prompt_tok_s": toks[1] / wave["cold-static"][1],
+          "hit_wave_prefill_s": wave["prefix-static"][1],
+          "hit_wave_prompt_tok_s": toks[1] / wave["prefix-static"][1],
+          "hit_wave_computed_tok_s": toks[2] / wave["prefix-static"][1],
+          "hit_over_cold_prefill_wall": wave["prefix-static"][1] / wave["cold-static"][1],
+          "miss_wave_prefill_s": wave["prefix-static"][0],
+          "cold_wave1_prefill_s": wave["cold-static"][0]})
+    if max(rel) >= REL_BF16:
+        raise AssertionError(f"serve_prefix: hit first-token logits {max(rel)} off the cold "
+                             f"run's, outside {REL_BF16} of the row peak")
+    # against each prompt's cold prefill alone, on that prefill's prefix: a
+    # fault of the suffix path (offset, RoPE, the stored rows) moves every
+    # prompt; the suffix's own GEMM shapes move some, by bf16 rounding and
+    # the routing near-ties it tips, and leave the rest bit for bit
+    exact = sum(r == 0.0 for r in rel_alone)
+    if exact < len(rel_alone) // 4 or float(np.median(rel_alone)) >= REL_BF16:
+        raise AssertionError(f"serve_prefix: {exact} of {len(rel_alone)} hits bit-identical "
+                             f"to their prompt's cold prefill alone (at least a quarter "
+                             f"expected), median {float(np.median(rel_alone))} of the row "
+                             f"peak (within {REL_BF16} expected)")
+    if profile:
+        profile_hits(dev, cfg, params, plan, requests)
+    return runs["prefix-static"]["counts"]
 
 
 # ---------------------------------------------------------------------------
@@ -2506,6 +3027,65 @@ def phase_parity(dev):
         del params, cpu_params
         torch.cuda.empty_cache()
     parity_omega_paged(dev, rng)
+    parity_prefix_hit(dev, rng)
+
+
+def parity_prefix_hit(dev, rng):
+    """OLMoE at full width but 2 layers, f32, 128-token pages: prefill a
+    prompt into row 0, capture its 640-token prefix, admit a second prompt
+    with the same prefix (and its own 77 tokens) into row 1 as a hit.  The
+    card (K4 with q_offset 640, one launch a layer) against the CPU (plain
+    versions): the hit's logits within 1e-3 of the scale, the same greedy
+    token; the card's hit also against the card's cold prefill of the
+    second prompt."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.dag_builder import Plan
+    from repro_torch.core.engine import ModuleBatchingEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.cache import CacheConfig
+
+    cfg = replace(get_config("olmoe-1b-7b"), num_layers=2, dtype="float32")
+    pspan = 5 * PAGE_TOKENS
+    head = rng.integers(0, cfg.vocab_size, pspan)
+    pa = np.concatenate([head, rng.integers(0, cfg.vocab_size, 40)])
+    pb = np.concatenate([head, rng.integers(0, cfg.vocab_size, 77)])
+    plan = Plan(B=2, b_a=2, b_e=2, omega=0.0)
+    cc = CacheConfig(page_tokens=PAGE_TOKENS, prefix_cache=True)
+    before = torch.cuda.memory_allocated()
+    params = M.init_params(cfg, seed=1, device=dev)
+    out = {}
+    for where, p in ((dev, params), ("cpu", _to_cpu(params))):
+        eng = ModuleBatchingEngine(cfg, p, plan, max_seq=len(pb) + 8, device=where,
+                                   cache_config=cc)
+        eng.init_cache(2)
+        eng.prefill_slots(pa[None], [0])
+        kvs = eng.read_prefix_rows(0, pspan)
+        ops.reset_launch_counts()
+        lg = eng.prefill_prefix_hit(1, pb, kvs, pspan).float().cpu()
+        k4 = ops.launch_counts()["flash_attention"]
+        cold = eng.prefill_slots(pb[None], [1]).float().cpu()
+        out["cpu" if where == "cpu" else "card"] = (lg, cold, k4, eng.stats.planned_reads)
+        del eng, kvs, p
+    del params
+    scale = float(out["cpu"][0].abs().max())
+    err = float((out["card"][0] - out["cpu"][0]).abs().max()) / scale
+    vs_cold = float((out["card"][0] - out["card"][1]).abs().max()) / scale
+    same = bool(torch.equal(out["card"][0].argmax(-1), out["cpu"][0].argmax(-1)))
+    emit({"phase": "parity", "arch": cfg.name, "layers": 2, "case": "prefix-hit",
+          "prefix": pspan, "suffix": len(pb) - pspan, "hit_rel_err": err,
+          "hit_vs_card_cold_prefill_rel_err": vs_cold, "tolerance": 1e-3, "tokens_match": same,
+          "card_k4_launches_in_hit": out["card"][2], "planned_reads": out["card"][3]})
+    if not (err < 1e-3 and vs_cold < 1e-3 and same):
+        raise AssertionError(f"card vs CPU (prefix hit): {err}, against the cold prefill "
+                             f"{vs_cold}, tokens match {same}")
+    if dev.type == "cuda" and not (out["card"][2] == cfg.num_layers and out["card"][3] == 1):
+        raise AssertionError(f"card vs CPU (prefix hit): K4 launched {out['card'][2]} times "
+                             f"in the hit, {out['card'][3]} planned reads")
+    torch.cuda.empty_cache()
+    freed("parity", "prefix-hit engine", before)
 
 
 def parity_omega_paged(dev, rng):
@@ -2650,6 +3230,13 @@ def kernels_line(rows, launches, path_rows=None) -> list:
         })
         if "k3_ms" in r:                       # K3p: K3 on the gathered copy
             line_rows[-1].update({"k3_ms": r["k3_ms"], "library": r["library"]})
+        offsets = [x for x in rows if x["name"] == r["name"] and "q_offset" in x]
+        if offsets:                            # K4 with a query offset (serve_prefix)
+            line_rows[-1]["q_offset_cases"] = [
+                {k: x.get(k) for k in ("case", "q_offset", "Sq", "design", "ms", "ms_again",
+                                       "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                       "max_abs_err", "rel_err", "full_call_bit_identical")}
+                for x in offsets]
         for path, prow in (path_rows or {}).items():
             mine = next((x for x in prow if x["name"] == r["name"]), None)
             if mine is not None:
@@ -2663,7 +3250,8 @@ def kernels_line(rows, launches, path_rows=None) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="kernels,serve,serve_omega,serve_long,serve_paged,"
-                                        "serve_streamed,serve_ssm,serve_mixtral,parity,profile")
+                                        "serve_prefix,serve_streamed,serve_ssm,serve_mixtral,"
+                                        "parity,profile")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -2711,7 +3299,8 @@ def main() -> int:
         emit({"kernel_cases": rows})
     launches = {}                           # per path: counts from its static run
     path_rows = {}                          # per streamed path: its kernel rows
-    if phases & {"serve", "serve_long", "serve_streamed", "serve_omega", "serve_paged"}:
+    if phases & {"serve", "serve_long", "serve_streamed", "serve_omega", "serve_paged",
+                  "serve_prefix"}:
         params = init_weights(dev)
         resident = long_reports = None
         if "serve" in phases:
@@ -2725,6 +3314,9 @@ def main() -> int:
         if "serve_paged" in phases:
             launches["serve_paged"], path_rows["serve_paged"] = phase_serve_paged(
                 dev, params, long_reports)
+        if "serve_prefix" in phases:
+            launches["serve_prefix"] = phase_serve_prefix(dev, params,
+                                                          profile="profile" in phases)
         if "serve_streamed" in phases:
             launches["serve_streamed"], path_rows["serve_streamed"] = phase_serve_streamed(
                 dev, params, resident)

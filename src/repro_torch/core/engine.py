@@ -73,6 +73,15 @@ frames are prefetched a layer ahead beside the weights, and the device rows
 of a micro-batch run the paged decode-attention kernel (K3p) over the
 device pool and the window's copy of the layer's host frames.
 
+Prefix cache (``serving.cache.PrefixStore``): ``read_prefix_rows`` copies a
+freshly prefilled row's prefix KV into page-locked host memory in one
+planned read, and ``prefill_prefix_hit`` admits a hit by uploading the
+stored prefix (one asynchronous copy a layer) and prefilling only the
+suffix, its queries at absolute positions against prefix and suffix keys
+(K4 with a query offset).  ``set_expert_capacity`` overrides the plan's
+``b_e`` (the server's online re-plan); a new capacity captures one new
+decode graph.
+
 Out of the port so far: the loop expert path (``NotImplementedError``).
 """
 from __future__ import annotations
@@ -171,6 +180,17 @@ def capture_stream(device: torch.device) -> "torch.cuda.Stream":
     if s is None:
         s = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
     return s
+
+
+class PrefixRows(list):
+    """A captured prefix: per attention layer ``(k, v)`` (pspan, K, hd), as
+    views of ``pairs`` (layers, 2, pspan, K, hd), which lies in ``host`` (a
+    page-locked ``_HostBuffer`` on a card, kept alive with the rows)."""
+
+    def __init__(self, pairs: torch.Tensor, host: _HostBuffer) -> None:
+        super().__init__((pairs[li, 0], pairs[li, 1]) for li in range(pairs.shape[0]))
+        self.pairs = pairs
+        self.host = host
 
 
 @dataclass
@@ -273,20 +293,40 @@ class ModuleBatchingEngine:
         self._graphs: Dict[Tuple, Tuple["torch.cuda.CUDAGraph", Dict[str, int]]] = {}
         self._pool: Optional[Tuple[int, int]] = None
         self.graph_captures: List[Dict] = []
+        self._b_e_override: Optional[int] = None
 
     def _expert_capacity(self, batch: int) -> int:
-        """Per-expert capacity C: the plan's b_e, clamped to the most tokens
-        one expert can receive (top-k ids are distinct per token)."""
-        return max(1, min(self.plan.b_e, batch))
+        """Per-expert capacity C: the plan's b_e (or the online re-plan's
+        override), clamped to the most tokens one expert can receive (top-k
+        ids are distinct per token)."""
+        b_e = self.plan.b_e if self._b_e_override is None else self._b_e_override
+        return max(1, min(b_e, batch))
 
-    def sync_stats(self) -> EngineStats:
-        """Materialize the device-side expert counters (one host sync) and
-        drain the store's transfer and prediction counters."""
-        self.stats.expert_tokens += int(self._kept_dev)
+    def set_expert_capacity(self, b_e: Optional[int]) -> None:
+        """The online capacity re-plan's entry point: override the plan's
+        ``b_e`` for later decode dispatches; ``None`` restores the plan's.
+        Capacity is part of the decode graph's key, so a new capacity
+        captures one new graph (``graph_captures``) and the old one stays
+        valid for a return to the old capacity."""
+        self._b_e_override = None if b_e is None else max(1, int(b_e))
+
+    def sync_stats(self, planned: bool = False) -> EngineStats:
+        """Materialize the device-side expert counters (one host read of
+        one packed vector) and drain the store's transfer and prediction
+        counters.  ``planned``: the read is one the decode path plans (the
+        server's re-plan check), made under ``planned_read`` and counted in
+        ``stats.planned_reads``."""
         n_moe = len(self._moe_layers)
+        packed = torch.cat([self._kept_dev.reshape(1), self._dropped_dev,
+                            self._load_dev.reshape(-1)])
+        with planned_read(packed) if planned else contextlib.nullcontext():
+            host = packed.cpu().numpy().astype(np.int64)
+        if planned:
+            self.stats.planned_reads += 1
+        self.stats.expert_tokens += int(host[0])
         if n_moe:
-            dropped = self._dropped_dev.cpu().numpy().astype(np.int64)
-            load = self._load_dev.cpu().numpy().astype(np.int64)
+            dropped = host[1:1 + n_moe]
+            load = host[1 + n_moe:].reshape(self._load_dev.shape)
             self.stats.expert_tokens_dropped += int(dropped.sum())
             if self.stats.expert_tokens_dropped_by_layer is None:
                 self.stats.expert_tokens_dropped_by_layer = np.zeros(n_moe, np.int64)
@@ -417,7 +457,7 @@ class ModuleBatchingEngine:
                 nk, nv = aligned_kv(self.cfg, entry["k"], entry["v"], self.pages.span)
                 self.pages.insert_rows(li, nk, nv, [int(r) for r in rows])
                 return
-        insert_prefill_rows(self.cfg, self.cache[li], entry, rows)
+        insert_prefill_rows(self.cfg, self.cache[li], entry, self._tensor(rows))
         host = np.flatnonzero(rows < self.n_host)
         if kind == "attn" and self._host_kv and host.size:
             span = self._host_kv[li]["k"].shape[2]
@@ -504,18 +544,20 @@ class ModuleBatchingEngine:
         mask = np.arange(S)[None, :] < lens[:, None]
         return self._tensor(np.flatnonzero(mask))
 
-    def _prefill_moe_layer(self, kind, p, x, positions, lengths, live=None):
+    def _prefill_moe_layer(self, kind, p, x, positions, lengths, live=None,
+                           prefix_kv=None, cap=None):
         """A grouped-prefill MoE layer as two launches: mixer (attention or
-        SSM, by ``kind``) + route, then
-        the grouped FFN at capacity ``next_pow2(max expert load)`` -- zero
-        drops, and the same output as any capacity >= that load.
+        SSM, by ``kind``; ``prefix_kv`` as ``mixer_forward``'s) + route, then
+        the grouped FFN at capacity ``cap``, by default ``next_pow2(max
+        expert load)`` -- zero drops, and the same output as any capacity
+        >= that load.
 
         Only the positions in ``live`` (those below ``lengths``) are routed:
         padded positions are never read, and since their attention rows are
         zeros they would all route to the same experts and inflate the
         capacity probe.  Their MoE output is zero."""
         cfg = self.cfg
-        y, entry = mixer_forward(cfg, kind, p, x, positions, lengths)
+        y, entry = mixer_forward(cfg, kind, p, x, positions, lengths, prefix_kv)
         x = x + y
         B, S, D = x.shape
         xt = rms_norm(x, p["norm2"], cfg.norm_eps).reshape(-1, D)
@@ -523,8 +565,9 @@ class ModuleBatchingEngine:
             xt = xt.index_select(0, live)
         moe = p["moe"]
         gates, idx, _ = moe_mod.route(cfg, moe["router"], xt)
-        load = torch.bincount(idx.reshape(-1), minlength=cfg.num_experts)
-        cap = W.next_pow2(int(load.max()))           # the planned capacity probe
+        if cap is None:
+            load = torch.bincount(idx.reshape(-1), minlength=cfg.num_experts)
+            cap = W.next_pow2(int(load.max()))       # the planned capacity probe
         y, _, _, _ = moe_mod.grouped_dispatch(
             cfg, xt, gates, idx, moe["experts_w_gate"], moe["experts_w_up"],
             moe["experts_w_down"], cap,
@@ -533,6 +576,92 @@ class ModuleBatchingEngine:
             y = torch.zeros((B * S, D), dtype=y.dtype,
                             device=y.device).index_copy_(0, live, y)
         return x + y.reshape(B, S, D).to(x.dtype), entry
+
+    # -- prefix caching ---------------------------------------------------
+    def read_prefix_rows(self, slot: int, pspan: int) -> List[Tuple[torch.Tensor,
+                                                                    torch.Tensor]]:
+        """The first ``pspan`` KV slots of batch row ``slot`` in every
+        attention layer, as ``(k, v)`` host tensors (pspan, K, hd) -- the
+        capture side of the prefix cache, safe to keep across decode ticks.
+        They land in one host buffer (page-locked on a card), each layer's
+        K then V, so that ``prefill_prefix_hit`` uploads a layer in one
+        copy.  From the cache rows (contiguous or Mode A) by one planned
+        read, counted in ``stats.planned_reads``; under Mode B through
+        ``KVPageTable.read_rows``, one planned read for each layer with a
+        page on a device frame.  Admission calls it, never a decode tick."""
+        cfg = self.cfg
+        assert all(kind == "attn" for kind, _ in self.schema), (
+            "prefix capture requires an attention-only model")
+        shape = (pspan, cfg.num_kv_heads, cfg.head_dim)
+        dtype = torch_dtype(cfg.dtype)
+        per = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+        buf = _HostBuffer(2 * per * len(self.schema))
+        if self.device.type == "cuda":
+            buf.pin()
+        flat = buf.tensor.view(dtype).view((len(self.schema), 2) + shape)
+        out = PrefixRows(flat, buf)
+        if self._paged_b():
+            on_device = self.pages.device_frames_of([slot], pspan)
+            for li in range(len(self.schema)):
+                with planned_read(self.pages.pool_k[li]) if on_device else \
+                        contextlib.nullcontext():
+                    k, v = self.pages.read_rows(li, [slot], pspan)
+                self.stats.planned_reads += int(on_device)
+                flat[li, 0].copy_(k[0])
+                flat[li, 1].copy_(v[0])
+            return out
+        for li, layer in enumerate(self.cache):
+            for j, name in enumerate(("k", "v")):
+                flat[li, j].copy_(layer[name][slot, :pspan], non_blocking=True)
+        src = self.cache[0]["k"]
+        with planned_read(src):
+            if src.device.type == "cuda":
+                torch.cuda.current_stream(src.device).synchronize()
+        self.stats.planned_reads += 1
+        return out
+
+    def prefill_prefix_hit(self, slot: int, prompt, prefix_kvs, pos0: int) -> torch.Tensor:
+        """Admit a prefix-cache hit into batch row ``slot``: the stored
+        prefix KV (``read_prefix_rows`` of an earlier row with the same
+        first ``pos0`` tokens) goes up, one asynchronous copy a layer, and
+        only the suffix ``prompt[pos0:]`` is prefilled, its queries at
+        absolute positions ``pos0..`` attending prefix and suffix keys (K4
+        with ``q_offset = pos0``).  KV at position p depends only on tokens
+        <= p, so the row's KV and logits are what a full prefill computes.
+        Each layer is prefill's with ``prefix_kv`` set; the MoE runs at
+        capacity ``next_pow2(len(suffix))``, known on the host, so a hit
+        makes no capacity probe.  The row's whole KV is written through
+        ``_write_cache_rows`` (pages and Mode A/B as in prefill).  The
+        launches do not depend on ``pos0``.  Returns the (1, V) last-token
+        logits."""
+        cfg = self.cfg
+        assert self.cache is not None, "init_cache before prefill_prefix_hit"
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        assert 0 < pos0 < len(prompt), (pos0, len(prompt))
+        suffix = self._tensor(prompt[pos0:])[None, :]
+        S = suffix.shape[1]
+        positions = pos0 + torch.arange(S, device=self.device)[None, :]
+        # top-k ids are distinct per token, so no expert receives more than
+        # S copies: a zero-drop capacity known on the host, without a probe
+        cap = W.next_pow2(S)
+        rows = np.asarray([slot])
+        pairs = getattr(prefix_kvs, "pairs", None)
+        x = self.store.base["embed"][suffix]
+        for li, (kind, ffn) in enumerate(self.schema):
+            assert kind == "attn", "the prefix cache requires an attention-only model"
+            p = self.store.acquire(li)
+            self.store.prefetch(li + 1)
+            kv = (torch.stack([torch.as_tensor(t) for t in prefix_kvs[li]])
+                  if pairs is None else pairs[li]).to(self.device, non_blocking=True)
+            pkv = (kv[0][None], kv[1][None])
+            if ffn == "moe":
+                x, entry = self._prefill_moe_layer(kind, p, x, positions, None,
+                                                   prefix_kv=pkv, cap=cap)
+            else:
+                x, entry, _ = layer_forward(cfg, kind, ffn, p, x, positions, prefix_kv=pkv)
+            self._write_cache_rows(li, kind, entry, rows)
+        self.stats.attn_microbatches += 1
+        return head(cfg, self.store.base, x[:, -1])
 
     # -- path selection ---------------------------------------------------
     def fused_eligible(self) -> bool:

@@ -51,8 +51,8 @@ _ARGTYPES = {
     "repro_decode_attention_split": [_ptr] * 7 + [_c_int] * 6 + [_ptr],
     "repro_decode_attention_paged": [_ptr] * 8 + [_c_int] * 9 + [_ptr],
     "repro_decode_attention_paged_split": [_ptr] * 10 + [_c_int] * 9 + [_ptr],
-    "repro_flash_attention": [_ptr] * 5 + [_c_int] * 7 + [_ptr],
-    "repro_flash_attention_wgmma": [_ptr] * 5 + [_c_int] * 6 + [_ptr],
+    "repro_flash_attention": [_ptr] * 5 + [_c_int] * 8 + [_ptr],
+    "repro_flash_attention_wgmma": [_ptr] * 5 + [_c_int] * 7 + [_ptr],
     "repro_ssd_scan": [_ptr] * 8 + [_c_int] * 7 + [_ptr],
     "repro_ssd_scan_mma": [_ptr] * 8 + [_c_int] * 6 + [_ptr],
 }

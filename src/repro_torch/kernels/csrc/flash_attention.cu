@@ -10,7 +10,13 @@
 //     sliding-window attention define it;
 //   * per-row lengths of a right-padded batch: keys j >= lengths[b] are
 //     masked, and output rows i >= lengths[b] are written as zeros (they are
-//     never read), so query blocks wholly past lengths[b] do no work.
+//     never read), so query blocks wholly past lengths[b] do no work;
+//   * a query offset (the suffix prefill of a prefix-cache hit): the Sq
+//     queries are absolute positions q_offset .. q_offset + Sq - 1 of the
+//     Sk = q_offset + Sq keys, as the reference's naive_attention(q_offset=)
+//     defines them.  Every mask, tile range and length test above runs on
+//     absolute positions; only the query and output rows are addressed
+//     relative to the first query.  q_offset = 0 is the plain prefill.
 // Scale hd**-0.5, f32 running max / sum / accumulator, output in q's dtype.
 //
 // What bounds it on an H100 at the serve shapes: tensor-core operations.
@@ -161,12 +167,12 @@ __device__ __forceinline__ void load_tile(bf16* sm, const bf16* g, size_t stride
 }
 
 // grid (H, B, ceil(S / BQ)), block THREADS, dynamic smem Smem<HD>::BYTES.
-// q/out (B, S, H, HD); k/v (B, S, K, HD); lengths (B,) or null.
+// q/out (B, S, H, HD); k/v (B, q_offset + S, K, HD); lengths (B,) or null.
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const int* __restrict__ lengths,
-                  bf16* __restrict__ out, int S, int H, int K, int window,
+                  bf16* __restrict__ out, int S, int q_offset, int H, int K, int window,
                   float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   using SM = Smem<HD>;
@@ -179,15 +185,17 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // heaviest blocks first
+  const int a0 = q_offset + q0;               // the block's first absolute position
+  const int Sk = q_offset + S;
   const int kh = h / (H / K);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  int len = lengths == nullptr ? S : lengths[b];
-  len = len < 0 ? 0 : (len > S ? S : len);
+  int len = lengths == nullptr ? Sk : lengths[b];
+  len = len < 0 ? 0 : (len > Sk ? Sk : len);
 
   const size_t qstride = (size_t)H * HD, kvstride = (size_t)K * HD;
   bf16* ob = out + ((size_t)b * S * H + h) * HD;
 
-  if (q0 >= len) {                            // every row past the sequence
+  if (a0 >= len) {                            // every row past the sequence
     constexpr int CH = HD / 8;
     const int rows = min(BQ, S - q0);
     for (int c = tid; c < rows * CH; c += THREADS) {
@@ -196,21 +204,21 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     return;
   }
-  const int q_last = min(q0 + BQ, len) - 1;   // last live row of the block
-  const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int q_last = min(a0 + BQ, len) - 1;   // last live row of the block
+  const int kv_lo = window > 0 ? max(0, a0 - window + 1) : 0;
   const int kb_lo = kv_lo / BKV, kb_hi = q_last / BKV + 1;
 
   const bf16* qg = q + ((size_t)b * S * H + h) * HD;
-  const bf16* kg = k + ((size_t)b * S * K + kh) * HD;
-  const bf16* vg = v + ((size_t)b * S * K + kh) * HD;
+  const bf16* kg = k + ((size_t)b * Sk * K + kh) * HD;
+  const bf16* vg = v + ((size_t)b * Sk * K + kh) * HD;
 
-  load_tile<HD>(Qs, qg, qstride, q0, len, tid);
+  load_tile<HD>(Qs, qg, qstride, q0, len - q_offset, tid);
   load_tile<HD>(Ks, kg, kvstride, kb_lo * BKV, len, tid);
   load_tile<HD>(Vs, vg, kvstride, kb_lo * BKV, len, tid);
   cp_async_commit();
 
   const int g = lane >> 2, t4 = lane & 3;
-  const int row_w = q0 + warp * 16;           // the warp's first row
+  const int row_w = a0 + warp * 16;           // the warp's first row (absolute)
   const int rows_w[2] = {row_w + g, row_w + g + 8};
   const bool warp_live = row_w <= q_last;
 
@@ -329,9 +337,9 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const int r = rows_w[rr];
-    if (r >= S) continue;                     // past the last partial block
+    if (r - q_offset >= S) continue;          // past the last partial block
     const float inv = (r < len && sum > 0.0f) ? 1.0f / sum : 0.0f;   // rows past
-    bf16* orow = ob + (size_t)r * qstride;                            // len: zeros
+    bf16* orow = ob + (size_t)(r - q_offset) * qstride;               // len: zeros
 #pragma unroll
     for (int i = 0; i < OT; ++i) {
       *reinterpret_cast<__nv_bfloat162*>(orow + i * 8 + t4 * 2) =
@@ -354,31 +362,34 @@ template <int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ lengths,
-                 float* __restrict__ out, int S, int H, int K, int window, float scale) {
+                 float* __restrict__ out, int S, int q_offset, int H, int K, int window,
+                 float scale) {
   constexpr int EPL = HD / 32;
   const int h = blockIdx.x, b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int i = (gridDim.z - 1 - blockIdx.z) * NWARP + warp;   // heaviest first
   if (i >= S) return;
+  const int ia = q_offset + i;                // the row's absolute position
+  const int Sk = q_offset + S;
   const int kh = h / (H / K);
-  int len = lengths == nullptr ? S : lengths[b];
-  len = len < 0 ? 0 : (len > S ? S : len);
+  int len = lengths == nullptr ? Sk : lengths[b];
+  len = len < 0 ? 0 : (len > Sk ? Sk : len);
   float* orow = out + (((size_t)b * S + i) * H + h) * HD + lane * EPL;
-  if (i >= len) {
+  if (ia >= len) {
 #pragma unroll
     for (int e = 0; e < EPL; ++e) orow[e] = 0.0f;
     return;
   }
-  const int j_lo = window > 0 ? max(0, i - window + 1) : 0;
-  const int j_hi = i + 1;                     // i < len: every key <= i is live
+  const int j_lo = window > 0 ? max(0, ia - window + 1) : 0;
+  const int j_hi = ia + 1;                    // ia < len: every key <= ia is live
 
   const float* qrow = q + (((size_t)b * S + i) * H + h) * HD + lane * EPL;
   float qr[EPL];
 #pragma unroll
   for (int e = 0; e < EPL; ++e) qr[e] = qrow[e];
   const size_t kvstride = (size_t)K * HD;
-  const float* kb = k + ((size_t)b * S * K + kh) * HD + lane * EPL;
-  const float* vb = v + ((size_t)b * S * K + kh) * HD + lane * EPL;
+  const float* kb = k + ((size_t)b * Sk * K + kh) * HD + lane * EPL;
+  const float* vb = v + ((size_t)b * Sk * K + kh) * HD + lane * EPL;
 
   float m = -INFINITY, l = 0.0f, acc[EPL];
 #pragma unroll
@@ -418,7 +429,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, const int* lengths, void* out,
-                int B, int S, int H, int K, int window, cudaStream_t stream) {
+                int B, int S, int q_offset, int H, int K, int window, cudaStream_t stream) {
   static bool smem_set = false;               // once per instantiation
   if (!smem_set) {
     cudaError_t e = cudaFuncSetAttribute(flash_bf16_kernel<HD>,
@@ -431,19 +442,19 @@ int launch_bf16(const void* q, const void* k, const void* v, const int* lengths,
   const float scale_log2 = LOG2E / sqrtf((float)HD);
   flash_bf16_kernel<HD><<<grid, THREADS, Smem<HD>::BYTES, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), lengths, static_cast<bf16*>(out), S, H, K, window,
-      scale_log2);
+      static_cast<const bf16*>(v), lengths, static_cast<bf16*>(out), S, q_offset, H, K,
+      window, scale_log2);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, const int* lengths, void* out,
-               int B, int S, int H, int K, int window, cudaStream_t stream) {
+               int B, int S, int q_offset, int H, int K, int window, cudaStream_t stream) {
   dim3 grid(H, B, (S + NWARP - 1) / NWARP);
   flash_f32_kernel<HD><<<grid, THREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), lengths, static_cast<float*>(out), S, H, K, window,
-      1.0f / sqrtf((float)HD));
+      static_cast<const float*>(v), lengths, static_cast<float*>(out), S, q_offset, H, K,
+      window, 1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
@@ -465,25 +476,28 @@ struct WgSmem {
   static constexpr int BYTES = 1024 + 2 * Q_BYTES + WSTAGES * STAGE_BYTES + (2 * WSTAGES + 4) * 8;
 };
 
-// One work item: query head h, batch row b, rows q0 .. q0 + WQ - 1; items
-// are numbered heaviest (last query block) first.
+// One work item: query head h, batch row b, query rows q0 .. q0 + WQ - 1
+// (absolute positions a0 = q_offset + q0 ..); items are numbered heaviest
+// (last query block) first.  len is in absolute positions.
 struct Item {
-  int h, b, q0, len, kb_lo, ntiles;
+  int h, b, q0, a0, len, kb_lo, ntiles;
 };
 
-__device__ __forceinline__ Item item_of(int w, const int* lengths, int S, int H, int B,
-                                        int window) {
+__device__ __forceinline__ Item item_of(int w, const int* lengths, int S, int q_offset, int H,
+                                        int B, int window) {
   const int NQ = (S + WQ - 1) / WQ;
+  const int Sk = q_offset + S;
   Item it;
   it.h = w % H;
   it.b = (w / H) % B;
   it.q0 = (NQ - 1 - w / (H * B)) * WQ;
-  int len = lengths == nullptr ? S : lengths[it.b];
-  it.len = len < 0 ? 0 : (len > S ? S : len);
+  it.a0 = q_offset + it.q0;
+  int len = lengths == nullptr ? Sk : lengths[it.b];
+  it.len = len < 0 ? 0 : (len > Sk ? Sk : len);
   it.kb_lo = it.ntiles = 0;
-  if (it.q0 < it.len) {
-    const int q_last = min(it.q0 + WQ, it.len) - 1;   // last live row
-    const int kv_lo = window > 0 ? max(0, it.q0 - window + 1) : 0;
+  if (it.a0 < it.len) {
+    const int q_last = min(it.a0 + WQ, it.len) - 1;   // last live row
+    const int kv_lo = window > 0 ? max(0, it.a0 - window + 1) : 0;
     it.kb_lo = kv_lo / WKV;
     it.ntiles = q_last / WKV + 1 - it.kb_lo;
   }
@@ -501,14 +515,15 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&p)
 // A persistent grid of min(SMs, items) blocks of W_THREADS; block c takes
 // items c, c + gridDim.x, ...  Dynamic smem WgSmem<HD>::BYTES.  qmap over
 // q (B, S, H, HD) as 4-D (HD, H, S, B), box (64, 1, WQ, 1); kmap / vmap over
-// k / v (B, S, K, HD) as (HD, K, S, B), box (64, 1, WKV, 1).
+// k / v (B, Sk, K, HD) as (HD, K, Sk, B), box (64, 1, WKV, 1), Sk = q_offset
+// + S.  Q boxes are addressed by query row, K/V boxes by absolute key.
 template <int HD>
 __global__ void __launch_bounds__(W_THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, const int* __restrict__ lengths,
-                   bf16* __restrict__ out, int B, int S, int H, int K, int window,
-                   float scale_log2) {
+                   bf16* __restrict__ out, int B, int S, int q_offset, int H, int K,
+                   int window, float scale_log2) {
   using SM = WgSmem<HD>;
   constexpr int NB = SM::NB, NT = WKV / 8, OT = HD / 8;
   extern __shared__ unsigned char smem_raw[];
@@ -541,7 +556,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (lane == 0) {
       uint32_t it = 0, qi = 0;
       for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
-        const Item t = item_of(w, lengths, S, H, B, window);
+        const Item t = item_of(w, lengths, S, q_offset, H, B, window);
         if (t.ntiles == 0) continue;            // rows past the sequence: no loads
         const int qs = qi & 1;
         hopper::mbar_wait(&qempty[qs], ((qi >> 1) & 1) ^ 1);
@@ -572,18 +587,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const size_t qstride = (size_t)H * HD;
     uint32_t it = 0, qi = 0;
     for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
-      const Item t = item_of(w, lengths, S, H, B, window);
-      const int rw0 = t.q0 + wg * 64;           // the warpgroup's first row
+      const Item t = item_of(w, lengths, S, q_offset, H, B, window);
+      const int rw0 = t.a0 + wg * 64;           // the warpgroup's first row (absolute)
       bf16* ob = out + ((size_t)t.b * S * H + t.h) * HD;
       if (t.ntiles == 0) {                      // every row past the sequence
         constexpr int CH = HD / 8;
-        const int rows = max(0, min(64, S - rw0));
+        const int rl0 = t.q0 + wg * 64;         // ... as a query row
+        const int rows = max(0, min(64, S - rl0));
         for (int c = tid % 128; c < rows * CH; c += 128)
-          *reinterpret_cast<uint4*>(ob + (size_t)(rw0 + c / CH) * qstride + (c % CH) * 8) =
+          *reinterpret_cast<uint4*>(ob + (size_t)(rl0 + c / CH) * qstride + (c % CH) * 8) =
               make_uint4(0, 0, 0, 0);
         continue;
       }
-      const int q_last = min(t.q0 + WQ, t.len) - 1;
+      const int q_last = min(t.a0 + WQ, t.len) - 1;
       const int rows_t[2] = {rw0 + wq * 16 + g, rw0 + wq * 16 + g + 8};
       const int qs = qi & 1;
       const unsigned char* qsm = Qs + qs * SM::Q_BYTES + wg * 8192;   // this warpgroup's rows
@@ -755,9 +771,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
         const int r = rows_t[rr];
-        if (r >= S) continue;                   // past the last partial block
+        if (r - q_offset >= S) continue;        // past the last partial block
         const float inv = (r < t.len && sum > 0.0f) ? 1.0f / sum : 0.0f;   // rows past
-        bf16* orow = ob + (size_t)r * qstride;                              // len: zeros
+        bf16* orow = ob + (size_t)(r - q_offset) * qstride;                 // len: zeros
 #pragma unroll
         for (int j = 0; j < OT; ++j) {
           *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + t4 * 2) =
@@ -770,7 +786,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, const int* lengths, void* out,
-                 int B, int S, int H, int K, int window, cudaStream_t stream) {
+                 int B, int S, int q_offset, int H, int K, int window, cudaStream_t stream) {
   using SM = WgSmem<HD>;
   static bool smem_set = false;               // once per instantiation
   if (!smem_set) {
@@ -783,8 +799,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* lengths
   const uint64_t qd[4] = {HD, (uint64_t)H, (uint64_t)S, (uint64_t)B};
   const uint64_t qs[3] = {HD * 2, (uint64_t)H * HD * 2, (uint64_t)S * H * HD * 2};
   const uint32_t qb[4] = {64, 1, WQ, 1};
-  const uint64_t kd[4] = {HD, (uint64_t)K, (uint64_t)S, (uint64_t)B};
-  const uint64_t ks[3] = {HD * 2, (uint64_t)K * HD * 2, (uint64_t)S * K * HD * 2};
+  const uint64_t Sk = (uint64_t)q_offset + S;
+  const uint64_t kd[4] = {HD, (uint64_t)K, Sk, (uint64_t)B};
+  const uint64_t ks[3] = {HD * 2, (uint64_t)K * HD * 2, Sk * K * HD * 2};
   const uint32_t kb[4] = {64, 1, WKV, 1};
   if (!hopper_host::make_map_bf16(&qm, q, 4, qd, qs, qb) ||
       !hopper_host::make_map_bf16(&km, k, 4, kd, ks, kb) ||
@@ -794,7 +811,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* lengths
   const int grid = (int)(items < hopper_host::sm_count() ? items : hopper_host::sm_count());
   const float scale_log2 = LOG2E / sqrtf((float)HD);
   flash_wgmma_kernel<HD><<<grid, W_THREADS, SM::BYTES, stream>>>(
-      qm, km, vm, lengths, static_cast<bf16*>(out), B, S, H, K, window, scale_log2);
+      qm, km, vm, lengths, static_cast<bf16*>(out), B, S, q_offset, H, K, window, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -803,15 +820,18 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* lengths
 extern "C" {
 
 // out (B, S, H, hd) = causal softmax(q k^T * hd**-0.5) v per query head,
-// query head h reading KV head h / (H / K); keys limited to
+// query head h reading KV head h / (H / K) of k, v (B, q_offset + S, K, hd);
+// query row r is absolute position i = q_offset + r; keys limited to
 // i - window < j <= i (window > 0) and j < lengths[b] (lengths non-null);
-// rows i >= lengths[b] written as zeros.  Supported: H / K in {1, 2, 4, 8},
-// hd in {32, 64, 128} (32: the smoke configs); q, k, v, out contiguous and
-// 16-byte aligned.
+// rows with i >= lengths[b] written as zeros.  Supported: H / K in {1, 2, 4,
+// 8}, hd in {32, 64, 128} (32: the smoke configs); q, k, v, out contiguous
+// and 16-byte aligned.
 int repro_flash_attention(const void* q, const void* k, const void* v, const int* lengths,
                           void* out, int B, int S, int H, int K, int hd, int window,
-                          int is_bf16, void* stream) {
-  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
+                          int q_offset, int is_bf16, void* stream) {
+  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0 || q_offset < 0 ||
+      (long long)q_offset + S > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   const int G = H / K;
   if (G != 1 && G != 2 && G != 4 && G != 8) return (int)cudaErrorInvalidValue;
   // grid limits: y (B) and z (query blocks of 64 rows, or of 4 in f32)
@@ -819,16 +839,17 @@ int repro_flash_attention(const void* q, const void* k, const void* v, const int
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     switch (hd) {
-      case 32: return launch_bf16<32>(q, k, v, lengths, out, B, S, H, K, window, s);
-      case 64: return launch_bf16<64>(q, k, v, lengths, out, B, S, H, K, window, s);
-      case 128: return launch_bf16<128>(q, k, v, lengths, out, B, S, H, K, window, s);
+      case 32: return launch_bf16<32>(q, k, v, lengths, out, B, S, q_offset, H, K, window, s);
+      case 64: return launch_bf16<64>(q, k, v, lengths, out, B, S, q_offset, H, K, window, s);
+      case 128:
+        return launch_bf16<128>(q, k, v, lengths, out, B, S, q_offset, H, K, window, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   switch (hd) {
-    case 32: return launch_f32<32>(q, k, v, lengths, out, B, S, H, K, window, s);
-    case 64: return launch_f32<64>(q, k, v, lengths, out, B, S, H, K, window, s);
-    case 128: return launch_f32<128>(q, k, v, lengths, out, B, S, H, K, window, s);
+    case 32: return launch_f32<32>(q, k, v, lengths, out, B, S, q_offset, H, K, window, s);
+    case 64: return launch_f32<64>(q, k, v, lengths, out, B, S, q_offset, H, K, window, s);
+    case 128: return launch_f32<128>(q, k, v, lengths, out, B, S, q_offset, H, K, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -838,15 +859,17 @@ int repro_flash_attention(const void* q, const void* k, const void* v, const int
 // never another design.
 int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
                                 const int* lengths, void* out, int B, int S, int H, int K,
-                                int hd, int window, void* stream) {
-  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
+                                int hd, int window, int q_offset, void* stream) {
+  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0 || q_offset < 0 ||
+      (long long)q_offset + S > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   const int G = H / K;
   if (G != 1 && G != 2 && G != 4 && G != 8) return (int)cudaErrorInvalidValue;
   if ((long long)H * B * ((S + WQ - 1) / WQ) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 64: return launch_wgmma<64>(q, k, v, lengths, out, B, S, H, K, window, s);
-    case 128: return launch_wgmma<128>(q, k, v, lengths, out, B, S, H, K, window, s);
+    case 64: return launch_wgmma<64>(q, k, v, lengths, out, B, S, q_offset, H, K, window, s);
+    case 128: return launch_wgmma<128>(q, k, v, lengths, out, B, S, q_offset, H, K, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

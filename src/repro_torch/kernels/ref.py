@@ -137,34 +137,37 @@ def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 def flash_attention_ref(
     q: torch.Tensor,       # (B, S, H, D)
-    k: torch.Tensor,       # (B, S, K, D), H % K == 0: head h reads KV head h // G
-    v: torch.Tensor,       # (B, S, K, D)
+    k: torch.Tensor,       # (B, q_offset + S, K, D), H % K == 0: head h reads KV head h // G
+    v: torch.Tensor,       # (B, q_offset + S, K, D)
     window: int = 0,
     lengths: Optional[torch.Tensor] = None,   # (B,) int: valid prefix per row
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Causal GQA attention, materialised f32 softmax, scale D**-0.5.
 
-    Query i sees key j iff ``j <= i``, ``i - window < j`` (when ``window``)
-    and ``j < lengths[b]`` (when ``lengths``); output rows ``i >= lengths[b]``
+    Query row r is absolute position ``i = q_offset + r``; it sees key j
+    iff ``j <= i``, ``i - window < j`` (when ``window``) and ``j <
+    lengths[b]`` (when ``lengths``); output rows with ``i >= lengths[b]``
     are zeros (the kernel skips them).  The twin of the JAX package's
-    ``kernels/ref.py::flash_attention_ref`` extended by window and lengths.
-    Queries go in chunks so the (B, K, G, chunk, S) scores stay near 256 MB;
-    each query row is computed whole, so the chunking changes no value."""
+    ``kernels/ref.py::flash_attention_ref`` extended by window, lengths and
+    the query offset of ``models/attention.py::naive_attention``.  Queries
+    go in chunks so the (B, K, G, chunk, Sk) scores stay near 256 MB; each
+    query row is computed whole, so the chunking changes no value."""
     B, S, H, D = q.shape
-    K = k.shape[2]
+    K, Sk = k.shape[2], k.shape[1]
     G = H // K
     dev = q.device
     kf, vf = k.float(), v.float()
-    kpos = torch.arange(S, device=dev)
+    kpos = torch.arange(Sk, device=dev)
     lens = None if lengths is None else torch.as_tensor(lengths, device=dev).reshape(B)
-    chunk = max(1, min(S, (1 << 26) // max(1, B * H * S)))
+    chunk = max(1, min(S, (1 << 26) // max(1, B * H * Sk)))
     out = torch.empty((B, S, H, D), dtype=torch.float32, device=dev)
     for lo in range(0, S, chunk):
         hi = min(S, lo + chunk)
         qf = q[:, lo:hi].reshape(B, hi - lo, K, G, D).float()
         s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * (D ** -0.5)
-        qpos = torch.arange(lo, hi, device=dev)
-        mask = kpos[None, :] <= qpos[:, None]                    # (q, S)
+        qpos = torch.arange(lo, hi, device=dev) + q_offset
+        mask = kpos[None, :] <= qpos[:, None]                    # (q, Sk)
         if window:
             mask = mask & (qpos[:, None] - kpos[None, :] < window)
         mask = mask[None]                                        # (1|B, q, S)
@@ -175,7 +178,8 @@ def flash_attention_ref(
         o = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
         out[:, lo:hi] = o.reshape(B, hi - lo, H, D)
     if lens is not None:
-        live = kpos[None, :] < lens[:, None]                     # (B, S)
+        qpos = torch.arange(S, device=dev) + q_offset
+        live = qpos[None, :] < lens[:, None]                     # (B, S)
         out = out * live[:, :, None, None]
     return out.to(q.dtype)
 

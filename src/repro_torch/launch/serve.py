@@ -14,7 +14,11 @@ the plan on the full config with the ``H100-SXM-80GB`` profile and the
 launcher serves its omega (the share of the batch whose attention runs on
 the host CPU), unless ``--omega`` overrides it.  ``--kv-page-tokens`` pages
 the KV cache and ``--device-kv-gb`` caps its device pool, the rest of the
-frames living in page-locked host memory.  Every weight is resident unless
+frames living in page-locked host memory; ``--prefix-cache`` (with
+``--kv-page-tokens``) admits a prompt whose page-aligned prefix was served
+before by copying the stored prefix KV and prefilling only the suffix (the
+synthetic prompts here share none, so it reports its lookups as misses).
+Every weight is resident unless
 ``--stream-weights`` (or
 ``--resident-gb`` / ``--predict-topk``): then the store keeps the greedy
 resident set on the card and the rest in page-locked host memory, built
@@ -124,6 +128,10 @@ def main(argv=None) -> None:
                     help="device GB of the KV page pool; the other frames live "
                          "in page-locked host memory (default: every frame on "
                          "the device)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="cache shared prompt prefixes at page granularity and "
+                         "admit a hit by copying its stored prefix KV instead of "
+                         "recomputing its prefill (requires --kv-page-tokens)")
     args = ap.parse_args(argv)
     args.prompt_lens = [int(x) for x in args.prompt_lens.split(",")]
 
@@ -166,7 +174,8 @@ def main(argv=None) -> None:
     server = Server(cfg, params, plan,
                     serve=ServeConfig(scheduler=args.scheduler, decode_len=args.decode_len,
                                       kv_page_tokens=args.kv_page_tokens,
-                                      device_kv_gb=args.device_kv_gb),
+                                      device_kv_gb=args.device_kv_gb,
+                                      prefix_cache=args.prefix_cache),
                     store=store, device=args.device)
     for r in requests:
         server.submit(r)
@@ -200,6 +209,14 @@ def main(argv=None) -> None:
               f"{report.kv_dtoh_bytes / 1e9:.3f} GB to the host tier; host "
               f"attention {report.host_attn_tokens} row-layers, "
               f"{engine.stats.host_attn_s:.3f}s of host CPU")
+    if report.expert_load is not None:
+        drops = "/".join(str(int(d)) for d in report.expert_dropped_by_layer)
+        print(f"routing skew {report.routing_skew:.2f}x balanced; per-MoE-layer drops "
+              f"{drops} ({report.capacity_replans} online capacity re-plans)")
+    if args.prefix_cache:
+        print(f"prefix cache: {report.prefix_hits} hits / "
+              f"{report.prefix_hits + report.prefix_misses} lookups (hit rate "
+              f"{report.prefix_hit_rate:.0%})")
     toks = np.concatenate([r.tokens for r in report.request_results])
     print(f"generated token ids in [{toks.min()}, {toks.max()}]")
 

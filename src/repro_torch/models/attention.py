@@ -60,15 +60,16 @@ def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor):
 # ---------------------------------------------------------------------------
 def full_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int = 0,
-    lengths: Optional[torch.Tensor] = None,
+    lengths: Optional[torch.Tensor] = None, q_offset: int = 0,
 ) -> torch.Tensor:
-    """Causal attention of every prefill, at any length: query i sees keys
+    """Causal attention of every prefill, at any length: query i (absolute
+    position ``q_offset + i``, keys from position 0) sees keys
     ``i - window < j <= i`` (no lower limit when ``window`` is 0) and
     ``j < lengths[b]``.  Output rows at or past ``lengths[b]`` are zeros
     (they are never read).  K4 on a CUDA tensor, its plain version on the
     CPU -- the reference's naive, blocked and sliding-window dispatch."""
     return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               window=window, lengths=lengths)
+                               window=window, lengths=lengths, q_offset=q_offset)
 
 
 # ---------------------------------------------------------------------------
@@ -80,18 +81,27 @@ def attn_forward(
     x: torch.Tensor,
     positions: Optional[torch.Tensor] = None,
     lengths: Optional[torch.Tensor] = None,
+    prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence attention.  Returns (output, {"k", "v"}) so prefill
     can cache.  ``lengths`` (B,) masks the keys at right-padded positions;
     outputs at padded query positions are never read (the attention writes
-    them as zeros)."""
+    them as zeros).  ``prefix_kv`` (k, v), each (B, P, K, hd): the cached
+    KV of the first P positions (a prefix-cache hit); ``x`` is then the
+    suffix at ``positions`` P.., its keys follow the prefix's, and the
+    entry returned is the whole row's."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = full_attention(q, k, v, window=cfg.sliding_window, lengths=lengths)
+    q_offset = 0
+    if prefix_kv is not None:
+        q_offset = prefix_kv[0].shape[1]
+        k, v = torch.cat([prefix_kv[0], k], dim=1), torch.cat([prefix_kv[1], v], dim=1)
+    out = full_attention(q, k, v, window=cfg.sliding_window, lengths=lengths,
+                         q_offset=q_offset)
     y = out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"]
     return y, {"k": k, "v": v}
 

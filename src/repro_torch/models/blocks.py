@@ -78,22 +78,29 @@ def layer_forward(
     x: torch.Tensor,
     positions: Optional[torch.Tensor] = None,
     lengths: Optional[torch.Tensor] = None,
+    prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """Full-sequence layer.  Returns (x, cache_entry, aux_loss); ``lengths``
-    (B,) masks right-padded positions of a ragged batch."""
-    y, cache = mixer_forward(cfg, kind, p, x, positions, lengths)
+    (B,) masks right-padded positions of a ragged batch; ``prefix_kv`` as
+    ``attention.attn_forward``'s."""
+    y, cache = mixer_forward(cfg, kind, p, x, positions, lengths, prefix_kv)
     x, aux = ffn_stage(cfg, ffn_kind, p, x + y)
     return x, cache, aux
 
 
 def mixer_forward(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor,
                   positions: Optional[torch.Tensor] = None,
-                  lengths: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+                  lengths: Optional[torch.Tensor] = None,
+                  prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  ) -> Tuple[torch.Tensor, Dict]:
     """The sequence-mixer half of a layer, without its residual: norm1 ->
-    attention (cache ``{"k", "v"}``) or SSM (cache ``{"h", "conv"}``)."""
+    attention (cache ``{"k", "v"}``; ``prefix_kv``: a cached prefix's KV in
+    front of the keys, as ``attention.attn_forward``'s) or SSM (cache
+    ``{"h", "conv"}``)."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "attn":
-        return attn_mod.attn_forward(cfg, p["attn"], h, positions, lengths)
+        return attn_mod.attn_forward(cfg, p["attn"], h, positions, lengths, prefix_kv)
+    assert prefix_kv is None, "a cached prefix needs an attention layer"
     return ssm_mod.ssm_forward(cfg, p["ssm"], h, lengths)
 
 

@@ -24,11 +24,15 @@ pages the KV cache into ``page_tokens``-slot frames behind a
 A layer's epoch advances with every write to its host frames and every
 admission or eviction; a prefetch issued under an older epoch is stale
 when it is acquired and is copied again, on demand, and counted as such.
-The prefix cache (``PrefixStore``) and the fault slice's page demotion are
-later slices of the port.
+
+On top of the page table, ``PrefixStore`` caches shared prompt prefixes at
+page granularity: a hit's stored prefix KV is copied into its row and only
+the suffix is prefilled (``ModuleBatchingEngine.prefill_prefix_hit``).
+The fault slice's page demotion is a later slice of the port.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -39,8 +43,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.serving.weights import StreamWindow, _HostBuffer, copy_stream
 
-PREFIX_SLICE = "the prefix cache is the prefix-cache slice of the port"
 WINDOW_DEPTH = 2        # layers of host frames in flight: the next one and this one
+PREFIX_ENTRIES = 64     # prefixes the server's PrefixStore keeps (LRU)
 
 
 class PageAllocOOM(RuntimeError):
@@ -84,7 +88,9 @@ class CacheConfig:
     ``device_pool_bytes=None`` keeps every frame on the device (Mode A), a
     finite budget sizes the device pool and puts the rest on the host
     (Mode B).  Mode B always prefetches each layer's host frames a layer
-    ahead, through a window of ``WINDOW_DEPTH`` layers."""
+    ahead, through a window of ``WINDOW_DEPTH`` layers.  ``prefix_cache``
+    enables the ``PrefixStore`` of ``PREFIX_ENTRIES`` prefixes (requires
+    ``page_tokens > 0``: prefixes are keyed at page granularity)."""
 
     page_tokens: int = 0
     device_pool_bytes: Optional[float] = None
@@ -93,7 +99,10 @@ class CacheConfig:
     def __post_init__(self) -> None:
         assert self.page_tokens >= 0, self.page_tokens
         if self.prefix_cache:
-            raise NotImplementedError(PREFIX_SLICE)
+            assert self.page_tokens > 0, (
+                "prefix_cache requires paging (page_tokens > 0): prefixes "
+                "are shared at page granularity"
+            )
 
     @property
     def enabled(self) -> bool:
@@ -449,3 +458,73 @@ class KVPageTable:
 
     def __del__(self) -> None:
         self.close()
+
+
+class PrefixStore:
+    """LRU prefix cache over page-aligned prompt prefixes.
+
+    Keys are the exact prefix token bytes (no hash collisions by
+    construction) at the largest page multiple strictly below the prompt
+    length: at least one suffix token always remains, so a hit still
+    produces the request's first-token logits through the engine's suffix
+    prefill.  Values are per-attention-layer ``(k, v)`` tensors of the
+    prefix span, (pspan, K, hd) each, in host memory (page-locked on a card,
+    so that admission copies them up without a host wait); KV at position p
+    depends only on tokens <= p, so copied rows are exactly what the full
+    prefill would write.
+
+    Restricted to all-attention models without a sliding window: SSM state
+    and ring-aligned windows make a stored prefix non-transplantable."""
+
+    def __init__(self, page_tokens: int, entries: int = PREFIX_ENTRIES) -> None:
+        assert page_tokens > 0
+        self.page_tokens = page_tokens
+        self.entries = max(1, entries)
+        self._store: "OrderedDict[bytes, List]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    @staticmethod
+    def supported(cfg: ModelConfig) -> bool:
+        return cfg.sliding_window == 0 and all(
+            cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+
+    def key(self, prompt) -> Optional[Tuple[bytes, int]]:
+        """(key bytes, prefix span) for ``prompt``, or None when no full
+        page fits strictly inside it."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        pspan = ((len(prompt) - 1) // self.page_tokens) * self.page_tokens
+        if pspan <= 0:
+            return None
+        return prompt[:pspan].tobytes(), pspan
+
+    def touch(self, key: bytes) -> bool:
+        """Whether ``key`` is stored; a stored key becomes the most recent,
+        as ``put`` of a stored key makes it (so a caller can skip reading
+        rows that ``put`` would drop)."""
+        if key not in self._store:
+            return False
+        self._store.move_to_end(key)
+        return True
+
+    def get(self, key: bytes) -> Optional[List]:
+        kvs = self._store.get(key)
+        if kvs is None:
+            self.misses += 1
+            return None
+        self._store.move_to_end(key)
+        self.hits += 1
+        return kvs
+
+    def put(self, key: bytes, kvs: List) -> None:
+        if key in self._store:
+            self._store.move_to_end(key)
+            return
+        self._store[key] = kvs
+        while len(self._store) > self.entries:
+            self._store.popitem(last=False)
+
+    @property
+    def hit_rate(self) -> float:
+        n = self.hits + self.misses
+        return self.hits / n if n else 0.0

@@ -36,8 +36,12 @@ clock.
 page-locked host memory (Mode B); each admitted slot's frames are reserved
 before its prefill, and the Eq. 2 admission charge is page-rounded.  The
 plan's omega sends the first ``round(omega * B)`` slots' attention to the
-host CPU.  Fault injection, preemption, online capacity re-planning, the
-prefix cache and replicas are later slices of the port.
+host CPU.  ``prefix_cache`` (with paging) admits a request whose
+page-aligned prompt prefix was seen before by copying the stored prefix KV
+into its row and prefilling only the suffix (``serving.cache.PrefixStore``);
+``replan_skew`` re-derives the decode capacity ``b_e`` from the measured
+routing every 8 decode steps when the hottest expert's share drifts.  Fault
+injection, preemption and replicas are later slices of the port.
 """
 from __future__ import annotations
 
@@ -71,8 +75,6 @@ class Request:
 
 
 _LATER_SLICES = {
-    "prefix_cache": "the prefix cache is the prefix-cache slice of the port",
-    "replan_skew": "online capacity re-planning is a later slice of the port",
     "faults": "fault injection is the faults slice of the port",
 }
 
@@ -84,9 +86,12 @@ class ServeConfig:
     memory-gated admission in the continuous scheduler.  ``from_plan``
     sizes ``max_batch``/``max_seq`` with the planner up front.
     ``kv_page_tokens > 0`` pages the KV cache; ``device_kv_gb`` caps the
-    device page pool (None: every frame on the device).  The knobs of later
-    slices (prefix cache, re-planning, faults) raise
-    ``NotImplementedError`` when set."""
+    device page pool (None: every frame on the device); ``prefix_cache``
+    (which needs paging) reuses shared prompt prefixes.  ``replan_skew``
+    re-plans ``b_e`` online whenever the hottest expert's measured share
+    drifts by more than it (absolute share), sized for an expected drop
+    rate of ``replan_drop_target``; None disables re-planning.  The knob of
+    a later slice (faults) raises ``NotImplementedError`` when set."""
 
     scheduler: str = "static"
     decode_len: int = 32
@@ -103,12 +108,17 @@ class ServeConfig:
     device_kv_gb: Optional[float] = None
     prefix_cache: bool = False
     replan_skew: Optional[float] = None
+    replan_drop_target: float = 0.01
     faults: Optional[object] = None
     decode_chunk: Optional[int] = None   # fused chunk T cap (None = plan's)
 
     def __post_init__(self) -> None:
         assert self.scheduler in ("static", "continuous"), self.scheduler
         assert self.kv_page_tokens >= 0, self.kv_page_tokens
+        if self.prefix_cache:
+            assert self.kv_page_tokens > 0, (
+                "prefix_cache requires paging (kv_page_tokens > 0)"
+            )
         if self.max_batch is not None:
             assert self.max_batch >= 1, self.max_batch
         for name, why in _LATER_SLICES.items():
@@ -176,7 +186,11 @@ class ServeReport:
     decode_slot_steps: int = 0    # decode steps x batch slots executed
     wasted_slot_steps: int = 0    # slot-steps spent on finished/empty slots
     admission_deferrals: int = 0  # admissions blocked by the Eq. 2 KV budget
-    prefill_tokens: int = 0       # token-positions computed in prefill
+    prefill_tokens: int = 0       # token-positions computed in prefill (the
+    #                               suffix only, for a prefix-cache hit)
+    prefix_hits: int = 0          # admissions served from the prefix cache
+    prefix_misses: int = 0        # eligible admissions that prefilled cold
+    capacity_replans: int = 0     # online b_e re-plans on measured skew drift
     weight_htod_bytes: int = 0    # streamed weight bytes copied host->device
     kv_htod_bytes: int = 0        # host KV-page bytes copied host->device
     kv_dtoh_bytes: int = 0        # KV-page bytes written to the host tier
@@ -202,6 +216,11 @@ class ServeReport:
     def kv_htod_gb(self) -> float:
         """Host KV-page traffic in GB (0 without a host tier)."""
         return self.kv_htod_bytes / 1e9
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        n = self.prefix_hits + self.prefix_misses
+        return self.prefix_hits / n if n else 0.0
 
     @property
     def pred_hit_rate(self) -> float:
@@ -402,6 +421,20 @@ class Server:
         self.stream = stream
         self.report = ServeReport(scheduler=serve.scheduler)
         self._store = store
+        # the prefix cache (paging on; attention-only, no sliding window: SSM
+        # state and ring alignment make a prefix non-transplantable, so an
+        # unsupported model serves without it)
+        self._prefix = None
+        cc = self._cache_config()
+        if cc is not None and cc.prefix_cache:
+            from repro_torch.serving.cache import PrefixStore
+
+            if PrefixStore.supported(cfg):
+                self._prefix = PrefixStore(cc.page_tokens)
+        # online capacity re-plan: the hottest expert's share at the last
+        # (re-)plan (None until the first measurement) and the step count
+        self._replan_share: Optional[float] = None
+        self._replan_ticks = 0
         self._engine = None               # ModuleBatchingEngine, built lazily
         self._sampler: Optional[BatchSampler] = None
         self._handles: List[RequestHandle] = []
@@ -531,19 +564,21 @@ class Server:
 
         budget = (None if self.serve.device_kv_gb is None
                   else float(self.serve.device_kv_gb) * 1e9)
-        return CacheConfig(page_tokens=self.serve.kv_page_tokens, device_pool_bytes=budget)
+        return CacheConfig(page_tokens=self.serve.kv_page_tokens, device_pool_bytes=budget,
+                           prefix_cache=self.serve.prefix_cache)
 
     # engine counters the report folds as deltas since the last drain
     _FOLDED = ("weight_htod_bytes", "prefetch_wait_s", "expert_pred_hits",
                "expert_pred_misses", "expert_lru_hits", "kv_htod_bytes",
                "kv_dtoh_bytes", "host_attn_tokens")
 
-    def _drain_engine_stats(self) -> int:
+    def _drain_engine_stats(self, planned: bool = False) -> int:
         """Fold the engine's cumulative counters into the report (deltas
-        since the last drain); returns the expert-drop delta."""
+        since the last drain); returns the expert-drop delta.  ``planned``:
+        the engine's read is a planned, counted one (between decode steps)."""
         if self._engine is None:
             return 0
-        st = self._engine.sync_stats()
+        st = self._engine.sync_stats(planned=planned)
         seen = self._seen
         d_drop = st.expert_tokens_dropped - seen.get("drop", 0)
         seen["drop"] = st.expert_tokens_dropped
@@ -558,6 +593,38 @@ class Server:
             )
             self.report.expert_load = st.expert_load.copy()
         return d_drop
+
+    def _maybe_replan(self) -> None:
+        """Online imbalance-aware capacity re-plan: when the hottest
+        expert's measured share has drifted more than ``replan_skew`` since
+        the last (re-)plan, re-derive ``b_e`` from the measured per-expert
+        load (``planner.capacity_for_load``) and push it into the engine
+        (``set_expert_capacity``: the next fused chunk captures one graph).
+        Checked every 8 decode steps; the counters come down in one planned
+        read, so the check is no hidden sync."""
+        self._replan_ticks += 1
+        if self._replan_ticks % 8:
+            return
+        self.report._expert_dropped += self._drain_engine_stats(planned=True)
+        if self.report.expert_load is None:
+            return
+        per_expert = self.report.expert_load.sum(axis=0)
+        total = per_expert.sum()
+        if total <= 0:
+            return
+        share = float(per_expert.max() / total)
+        if self._replan_share is None:
+            self._replan_share = share       # baseline, no re-plan yet
+            return
+        if abs(share - self._replan_share) <= self.serve.replan_skew:
+            return
+        from repro_torch.core.planner import capacity_for_load
+
+        b_e = capacity_for_load(per_expert, self._b, self.cfg.experts_per_token,
+                                max_drop_rate=self.serve.replan_drop_target)
+        self._engine.set_expert_capacity(b_e)
+        self._replan_share = share
+        self.report.capacity_replans += 1
 
     # -- the step-driven core ---------------------------------------------
     def _any_live(self) -> bool:
@@ -576,6 +643,8 @@ class Server:
         self._admit()
         if self._any_live():
             self._decode_tick(self._chunk_T())
+            if self.serve.replan_skew is not None:
+                self._maybe_replan()
         return self.has_work()
 
     def run(self, until_idle: bool = True) -> ServeReport:
@@ -592,6 +661,9 @@ class Server:
     def finalize(self) -> ServeReport:
         """Drain engine counters and order results; idempotent."""
         self.report._expert_dropped += self._drain_engine_stats()
+        if self._prefix is not None:
+            self.report.prefix_hits = self._prefix.hits
+            self.report.prefix_misses = self._prefix.misses
         self.report.request_results.sort(key=lambda r: r.index)
         return self.report
 
@@ -667,22 +739,50 @@ class Server:
                       slots: List[int]) -> None:
         """One batched prefill of ``handles`` into ``slots``: writes their
         KV rows, arms their sampler slots, and emits each request's FIRST
-        token (sampled from the prefill logits)."""
-        engine, sampler = self._engine, self._sampler
+        token (sampled from the prefill logits).
+
+        With the prefix cache on, the wave is partitioned: hits are admitted
+        one at a time through ``engine.prefill_prefix_hit`` (the stored
+        prefix KV is copied in and only the suffix is computed), misses take
+        the batched prefill and then store their prefix rows (one capture
+        per prefix not yet stored).  Tokens are the same either way."""
+        engine, sampler, prefix = self._engine, self._sampler, self._prefix
         t0 = self._now()
+        hits, misses, miss_slots = [], list(handles), list(slots)
+        if prefix is not None:
+            misses, miss_slots = [], []
+            for h, s in zip(handles, slots):
+                kp = prefix.key(h.prompt)
+                kvs = None if kp is None else prefix.get(kp[0])
+                if kvs is not None:
+                    hits.append((h, s, kp[1], kvs))
+                else:
+                    misses.append(h)
+                    miss_slots.append(s)
         for h, s in zip(handles, slots):
             sampler.set_slot(s, h.sampling)
-        self.report.prefill_tokens += sum(len(h.prompt) for h in handles)
-        ptoks, lens = pad_requests(handles, self.serve.pad_id)
-        lg = engine.prefill_slots(ptoks, slots, lengths=lens)
-        tok0 = sampler.sample(lg, slots).cpu().numpy()
+        tok0: Dict[int, int] = {}
+        if misses:
+            self.report.prefill_tokens += sum(len(h.prompt) for h in misses)
+            ptoks, lens = pad_requests(misses, self.serve.pad_id)
+            lg = engine.prefill_slots(ptoks, miss_slots, lengths=lens)
+            tok0.update(zip(miss_slots, sampler.sample(lg, miss_slots).cpu().tolist()))
+            if prefix is not None:
+                for h, s in zip(misses, miss_slots):
+                    kp = prefix.key(h.prompt)
+                    if kp is not None and not prefix.touch(kp[0]):
+                        prefix.put(kp[0], engine.read_prefix_rows(s, kp[1]))
+        for h, s, pspan, kvs in hits:
+            self.report.prefill_tokens += len(h.prompt) - pspan
+            lg = engine.prefill_prefix_hit(s, h.prompt, kvs, pspan)
+            tok0[s] = int(sampler.sample(lg, [s]).cpu()[0])
         now = self._now()
         self.report.prefill_s += now - t0
         if self._wave is not None:
             self._wave["prefill_s"] += now - t0
         eos = self.serve.eos_id
-        for h, s, tk in zip(handles, slots, tok0):
-            tk = int(tk)
+        for h, s in zip(handles, slots):
+            tk = tok0[s]
             self._slot_handle[s] = h
             self._pos[s] = len(h.prompt)
             self._cur[s] = tk

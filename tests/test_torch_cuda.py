@@ -285,6 +285,38 @@ def test_cuda_flash_attention_hd32_takes_the_mma_design(cuda):
     assert_close(got, ref.flash_attention_ref(q, k, v))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,q_offset,H,K,hd,lengths", [
+    (1, 16, 1024, 16, 16, 128, None),          # serve_prefix's shortest suffix
+    (1, 128, 1024, 32, 8, 128, None),          # Mixtral's GQA, a whole query tile
+    (1, 64, 1000, 8, 2, 64, None),             # an offset on no tile edge
+    (2, 100, 300, 8, 1, 128, [400, 333]),      # absolute lengths, G = 8
+    (2, 20, 45, 4, 2, 32, None),               # hd 32: the first (mma) design
+])
+def test_cuda_flash_attention_q_offset_matches_plain(cuda, dtype, B, Sq, q_offset, H, K, hd,
+                                                     lengths):
+    """K4 with a query offset (a prefix-cache hit's suffix prefill) in every
+    design against its plain version, query rows past lengths zero, and the
+    same rows of a full causal call over the whole sequence within the
+    same tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    Sk = q_offset + Sq
+    q, k, v = [torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd))]
+    lens = None if lengths is None else torch.tensor(lengths, device=cuda, dtype=torch.int32)
+    build.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, lengths=lens, q_offset=q_offset)
+    wgmma = dtype == torch.bfloat16 and hd in (64, 128)
+    assert build.launch_counts()["flash_attention_wgmma"] == int(wgmma)
+    assert_close(got, ref.flash_attention_ref(q, k, v, lengths=lens, q_offset=q_offset))
+    for b, n in enumerate(lengths or []):
+        assert torch.count_nonzero(got[b, max(0, n - q_offset):]) == 0
+    q_full = torch.cat([torch.randn((B, q_offset, H, hd), generator=g, device=cuda).to(dtype),
+                        q], dim=1)
+    assert_close(got, ops.flash_attention(q_full, k, v, lengths=lens)[:, q_offset:])
+
+
 def _ssd_inputs(cuda, Bt, S, nh, hp, ns, dtype):
     """tests/test_kernels.py's SSD inputs: x, B, C at scale 0.5,
     dt = softplus(normal), A = -exp(0.3 normal)."""
@@ -504,6 +536,83 @@ def test_cuda_decode_makes_no_hidden_host_sync(cuda, arch):
                 torch.cuda.set_sync_debug_mode("default")
             outs[name, sp is None] = out.cpu()
     assert all(torch.equal(outs["fused", g], outs["per-module", g]) for g in (True, False))
+
+
+def _prefix_replan_server(device, n=8, B=4, decode_len=26):
+    """A smoke OLMoE server (bf16 on the card) with the prefix cache and
+    online re-planning on: ``n`` prompts sharing a 16-token prefix (pages of
+    8), ``B`` slots, one decode tick a step, a drift threshold the seeded
+    routing crosses."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.dag_builder import Plan
+    from repro_torch.models import model as M
+    from repro_torch.serving.server import Request, ServeConfig, Server
+
+    cfg = get_config("olmoe-1b-7b", smoke=True)
+    params = M.init_params(cfg, seed=0, device=device)
+    rng = np.random.default_rng(4)
+    pre = rng.integers(5, cfg.vocab_size - 5, 16)
+    serve = ServeConfig(decode_len=decode_len, max_seq=64, kv_page_tokens=8, prefix_cache=True,
+                        replan_skew=1e-3, replan_drop_target=0.2, decode_chunk=1)
+    server = Server(cfg, params, Plan(B=B, b_a=2, b_e=B, omega=0.0, decode_chunk=1),
+                    serve=serve, device=device)
+    for i in range(n):
+        own = rng.integers(5, cfg.vocab_size - 5, 2 + i % 5)
+        server.submit(Request(np.concatenate([pre, own]).astype(np.int32), decode_len))
+    server._ensure_engine()
+    return server
+
+
+@pytest.mark.cuda
+def test_cuda_prefix_hit_and_replan_make_only_planned_syncs(cuda):
+    """Two static waves (misses, then prefix hits) with re-planning on: every
+    decode chunk and every re-plan check runs under
+    ``set_sync_debug_mode("error")`` (a graph capture, once per key, is
+    set-up and runs with the mode off), and the planned reads are the one
+    prefix capture plus one per re-plan check (every 8 decode steps)."""
+    import contextlib
+
+    server = _prefix_replan_server(cuda)
+    eng = server._engine
+
+    @contextlib.contextmanager
+    def mode(m):
+        old = torch.cuda.get_sync_debug_mode()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode(m)
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(old)
+
+    def under(m, fn):
+        def call(*a, **kw):
+            with mode(m):
+                return fn(*a, **kw)
+        return call
+
+    pushed = []
+    set_capacity = eng.set_expert_capacity
+
+    def record(b_e):
+        pushed.append(b_e)
+        set_capacity(b_e)
+
+    eng.set_expert_capacity = record
+    eng.decode_chunk = under("error", eng.decode_chunk)
+    eng._graph = under(0, eng._graph)
+    server._maybe_replan = under("error", server._maybe_replan)
+    rep = server.run()
+    steps = rep.decode_slot_steps // server._b
+    assert (rep.prefix_misses, rep.prefix_hits) == (4, 4)
+    assert rep.capacity_replans == len(pushed) >= 1 and steps == 50
+    assert eng.stats.planned_reads == 1 + steps // 8
+    # one graph capture per distinct capacity (every push is followed by ticks)
+    capacities = [c["key"]["capacity"] for c in eng.graph_captures]
+    assert len(capacities) == len(set(capacities))
+    assert set(capacities) == {server._b} | set(pushed)
 
 
 @pytest.mark.cuda

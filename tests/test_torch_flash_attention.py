@@ -123,3 +123,38 @@ def test_plain_rejects_mismatched_shapes():
         ops.flash_attention(q, torch.zeros((1, 8, 3, 32)), torch.zeros((1, 8, 3, 32)))
     with pytest.raises(ValueError):
         ops.flash_attention(q, q, q, window=-1)
+
+
+@pytest.mark.parametrize("S,q_offset,H,K", [(40, 24, 4, 2), (16, 1000, 8, 2), (64, 64, 4, 4),
+                                            (1, 37, 2, 1)])
+def test_plain_q_offset_matches_reference_and_full_call(S, q_offset, H, K):
+    """The suffix prefill of a prefix-cache hit: Sq queries at absolute
+    positions q_offset.. against q_offset + Sq keys.  Within 2e-5 of the
+    reference's ``naive_attention(causal=True, q_offset=)`` and of the last
+    Sq rows of a full causal call over the whole sequence."""
+    q, k, v = _qkv(2, q_offset + S, H, K, 32)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    got = ops.flash_attention(t[0][:, q_offset:].contiguous(), t[1], t[2],
+                              q_offset=q_offset).numpy()
+    want = _jax(jattn.naive_attention, q[:, q_offset:], k, v, causal=True, q_offset=q_offset)
+    full = ops.flash_attention(*t).numpy()[:, q_offset:]
+    np.testing.assert_allclose(got, want, atol=TOL["float32"])
+    np.testing.assert_allclose(got, full, atol=TOL["float32"])
+
+
+def test_plain_q_offset_with_lengths_and_its_refusals():
+    """With ``lengths`` (absolute), query rows at or past them are zeros and
+    the live rows equal the full call's; an offset with a window, or keys
+    that are not q_offset + Sq long, raise."""
+    q, k, v = _qkv(2, 48, 4, 2, 32)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    lens = torch.tensor([48, 35])
+    got = ops.flash_attention(t[0][:, 30:].contiguous(), t[1], t[2], lengths=lens,
+                              q_offset=30).numpy()
+    full = _port(q, k, v, lengths=[48, 35])[:, 30:]
+    np.testing.assert_allclose(got, full, atol=TOL["float32"])
+    assert not got[1, 5:].any()
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(t[0][:, 30:].contiguous(), t[1], t[2], window=16, q_offset=30)
+    with pytest.raises(ValueError):
+        ops.flash_attention(t[0][:, 30:].contiguous(), t[1], t[2], q_offset=20)

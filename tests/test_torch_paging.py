@@ -67,8 +67,10 @@ def test_cache_config_validation():
     assert CacheConfig(page_tokens=8).enabled
     with pytest.raises(AssertionError):
         CacheConfig(page_tokens=-1)
-    with pytest.raises(NotImplementedError, match="prefix-cache"):
-        CacheConfig(page_tokens=8, prefix_cache=True)
+    # the reference's rule: a prefix cache needs paging
+    assert CacheConfig(page_tokens=8, prefix_cache=True).prefix_cache
+    with pytest.raises(AssertionError, match="paging"):
+        CacheConfig(prefix_cache=True)
 
 
 @pytest.mark.parametrize("budget", [None, "half", "none"])
