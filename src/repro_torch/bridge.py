@@ -26,7 +26,7 @@ def to_tensor(a, device="cpu") -> torch.Tensor:
         t = t.view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(a).copy())
-    return t.to(device)
+    return t.to(device)  # lint: allow[MG105] the weight bridge places reference weights once, at set-up
 
 
 def _tree_to(tree, fn):

@@ -82,11 +82,24 @@ suffix, its queries at absolute positions against prefix and suffix keys
 ``b_e`` (the server's online re-plan); a new capacity captures one new
 decode graph.
 
+Preemption (``checkpoint_slot`` / ``restore_slot``): a row's KV and SSM
+state go to page-locked host memory and come back into a free row in place,
+so the captured graphs stay valid and a resume runs no prefill.
+
+Analysis (``repro_torch.analysis``): ``decode_step`` and ``decode_chunk``
+run inside a sanitizer ``decode_region``; every planned host read is an
+``allowed`` scope with a tag (and, on the decode path, counted in
+``EngineStats.planned_reads``); each graph capture adds its key to the
+``graph_keys`` registry set; under ``sanitize(pointers=True)`` every tick
+holds the cache, page pools and carries to their addresses, and under
+``poison=True`` a dropped cache is filled with NaN.
+
 Out of the port so far: the loop expert path (``NotImplementedError``).
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import time
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -94,6 +107,10 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import donation
+from repro_torch.analysis import runtime as sanitizer
+from repro_torch.analysis.markers import hot_path
+from repro_torch.analysis.registry import TraceKeySet
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import workload as W
 from repro_torch.core.dag_builder import Plan
@@ -149,27 +166,15 @@ class EngineStats:
     planned_reads: int = 0               # planned host reads of decode
     kv_htod_bytes: int = 0               # host KV frames copied to the device
     kv_dtoh_bytes: int = 0               # KV pages written to the host tier
+    transfer_retries: int = 0            # injected copy failures retried
+    transfer_timeouts: int = 0           # dead copies recovered by re-fetch
 
 
 # one side stream per device on which every engine warms up and captures
 # its decode graphs: cuBLAS keeps a workspace per (handle, stream) for the
 # life of the process, so a stream per engine would leave one per engine
 _CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
-
-
-@contextlib.contextmanager
-def planned_read(t: torch.Tensor) -> Iterator[None]:
-    """A host read the decode path plans: inside it the sync debug mode
-    (the port's guard against hidden host syncs) is off."""
-    if t.device.type != "cuda":
-        yield
-        return
-    mode = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode(0)
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(mode)
+_SERIALS = itertools.count()     # engine ids of the sanitizer's pointer book
 
 
 def capture_stream(device: torch.device) -> "torch.cuda.Stream":
@@ -191,6 +196,22 @@ class PrefixRows(list):
         super().__init__((pairs[li, 0], pairs[li, 1]) for li in range(pairs.shape[0]))
         self.pairs = pairs
         self.host = host
+
+
+class SlotCheckpoint:
+    """A preempted row's decode state in (pageable) host memory:
+    ``layers[li]`` is an attention layer's ``{"k", "v"}`` (span, K, hd) or
+    an SSM layer's ``{"h", "conv"}`` row.  (Page-locking a fresh buffer a
+    preemption, 478 MB for an OLMoE row at span 3648, took longer than its
+    copies on an H100: PERF.md.)"""
+
+    def __init__(self, layers: List[Dict[str, torch.Tensor]]) -> None:
+        self.layers = layers
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for layer in self.layers
+                   for t in layer.values())
 
 
 @dataclass
@@ -293,7 +314,14 @@ class ModuleBatchingEngine:
         self._graphs: Dict[Tuple, Tuple["torch.cuda.CUDAGraph", Dict[str, int]]] = {}
         self._pool: Optional[Tuple[int, int]] = None
         self.graph_captures: List[Dict] = []
+        # the registry's record of captured graph keys (a key whose graph is
+        # dropped is discarded, so capturing it again counts again)
+        self.graph_keys = TraceKeySet("engine.decode_graphs")
         self._b_e_override: Optional[int] = None
+        # the sanitizer's pointer check: this engine's id, and an epoch that
+        # advances where the engine itself reallocates what the graphs hold
+        self._serial = next(_SERIALS)
+        self._alloc_epoch = 0
 
     def _expert_capacity(self, batch: int) -> int:
         """Per-expert capacity C: the plan's b_e (or the online re-plan's
@@ -314,12 +342,12 @@ class ModuleBatchingEngine:
         """Materialize the device-side expert counters (one host read of
         one packed vector) and drain the store's transfer and prediction
         counters.  ``planned``: the read is one the decode path plans (the
-        server's re-plan check), made under ``planned_read`` and counted in
-        ``stats.planned_reads``."""
+        server's re-plan check), made in an ``allowed("replan-counters")``
+        scope and counted in ``stats.planned_reads``."""
         n_moe = len(self._moe_layers)
         packed = torch.cat([self._kept_dev.reshape(1), self._dropped_dev,
                             self._load_dev.reshape(-1)])
-        with planned_read(packed) if planned else contextlib.nullcontext():
+        with sanitizer.allowed("replan-counters") if planned else contextlib.nullcontext():
             host = packed.cpu().numpy().astype(np.int64)
         if planned:
             self.stats.planned_reads += 1
@@ -349,6 +377,11 @@ class ModuleBatchingEngine:
             kv_htod, kv_dtoh, _ = self.pages.take_counters()
             self.stats.kv_htod_bytes += kv_htod
             self.stats.kv_dtoh_bytes += kv_dtoh
+        for owner in (self.store, self.pages):
+            if owner is not None:
+                retries, timeouts = owner.take_fault_counters()
+                self.stats.transfer_retries += retries
+                self.stats.transfer_timeouts += timeouts
         return self.stats
 
     # -- cache management ---------------------------------------------
@@ -379,8 +412,9 @@ class ModuleBatchingEngine:
             if self.pages is not None:
                 self.pages.reset()
             return
+        self._drop_owned()
         self.cache = None                 # free the old buffers first
-        self._graphs.clear()
+        self._drop_graphs(list(self._graphs))
         self._host_kv, self._host_bufs = {}, {}
         if self.pages is not None:
             self.pages.close()
@@ -396,6 +430,45 @@ class ModuleBatchingEngine:
                       for kind, _ in self.schema]
         if self.n_host and self._n_attn:
             self._init_host_buffers(kv=not paged_b)
+
+    def _owned(self) -> Dict[str, torch.Tensor]:
+        """Every tensor the engine writes in place across decode ticks and
+        its captured graphs hold: the cache, the host rows' KV, the page
+        pools, the carries and the device counters."""
+        out: Dict[str, torch.Tensor] = {}
+        for li, layer in enumerate(self.cache or []):
+            out.update((f"cache.{li}.{name}", t) for name, t in layer.items())
+        for li, kv in self._host_kv.items():
+            out.update((f"host_kv.{li}.{name}", t) for name, t in kv.items())
+        if self.pages is not None:
+            out.update((f"pool_k.{li}", t) for li, t in self.pages.pool_k.items())
+            out.update((f"pool_v.{li}", t) for li, t in self.pages.pool_v.items())
+        for n, c in self._carries.items():
+            out.update({f"carry.{n}.state": c.state, f"carry.{n}.temps": c.temps,
+                        f"carry.{n}.out": c.out})
+        out.update(kept=self._kept_dev, dropped=self._dropped_dev, load=self._load_dev)
+        return out
+
+    def _check_pointers(self) -> None:
+        """After a decode tick, under ``sanitize(pointers=True)``: nothing
+        the graphs hold moved since this batch's first tick."""
+        san = sanitizer.current()
+        if san is not None and san.pointers:
+            donation.check_pointers(f"engine {self._serial}",
+                                    (self._batch, self._alloc_epoch), self._owned())
+
+    def _drop_owned(self) -> None:
+        """The cache is about to be replaced: poison it (under
+        ``sanitize(poison=True)``) and start a new pointer epoch."""
+        if self.cache is not None:
+            donation.poison(t for name, t in self._owned().items()
+                            if name.startswith(("cache.", "host_kv.", "pool_")))
+        self._alloc_epoch += 1
+
+    def _drop_graphs(self, keys) -> None:
+        for key in keys:
+            self._graphs.pop(key, None)
+            self.graph_keys.discard(key)
 
     def _init_host_buffers(self, kv: bool) -> None:
         """The staging buffer of the host rows' output upload and, with
@@ -440,7 +513,8 @@ class ModuleBatchingEngine:
         """Reserve page frames for batch rows ``rows`` before their prefill
         (nothing without paging; a reserved row keeps its placement).  The
         host-attention rows prefer the host tier.  Raises
-        ``serving.cache.PageAllocOOM`` when both tiers are out of frames."""
+        ``faults.PageAllocOOM`` when both tiers are out of frames, or when an
+        armed fault plan injects one, before any prefill work is spent."""
         if self.pages is None:
             return
         rows_l = [int(r) for r in np.asarray(rows).reshape(-1)]
@@ -473,7 +547,7 @@ class ModuleBatchingEngine:
         so an upload on the decode path is not a hidden sync."""
         if not torch.is_tensor(a):
             a = torch.from_numpy(np.array(a))
-        return a.to(device=self.device, dtype=dtype, non_blocking=True)
+        return a.to(device=self.device, dtype=dtype, non_blocking=True)  # lint: allow[MG105] the engine's one upload of host index, position and token vectors, asynchronous
 
     def prefill(self, tokens, lengths=None) -> torch.Tensor:
         """Prefill a fresh batch (micro-batched by b_a), filling the engine
@@ -567,7 +641,8 @@ class ModuleBatchingEngine:
         gates, idx, _ = moe_mod.route(cfg, moe["router"], xt)
         if cap is None:
             load = torch.bincount(idx.reshape(-1), minlength=cfg.num_experts)
-            cap = W.next_pow2(int(load.max()))       # the planned capacity probe
+            with sanitizer.allowed("prefill-capacity-probe"):
+                cap = W.next_pow2(int(load.max()))   # the planned capacity probe
         y, _, _, _ = moe_mod.grouped_dispatch(
             cfg, xt, gates, idx, moe["experts_w_gate"], moe["experts_w_up"],
             moe["experts_w_down"], cap,
@@ -599,26 +674,99 @@ class ModuleBatchingEngine:
         if self.device.type == "cuda":
             buf.pin()
         flat = buf.tensor.view(dtype).view((len(self.schema), 2) + shape)
-        out = PrefixRows(flat, buf)
+        self._kv_rows_to_host(slot, pspan, {li: (flat[li, 0], flat[li, 1])
+                                            for li in range(len(self.schema))},
+                              "prefix-capture")
+        return PrefixRows(flat, buf)
+
+    def _kv_rows_to_host(self, slot: int, n: int,
+                         dst: Dict[int, Tuple[torch.Tensor, torch.Tensor]],
+                         tag: Optional[str]) -> None:
+        """The first ``n`` KV slots of batch row ``slot`` of each attention
+        layer ``li`` of ``dst`` into its host tensors ``(k, v)`` (n, K, hd):
+        under Mode B through ``KVPageTable.read_rows``, one planned read for
+        each layer with a page on a device frame; else from the cache rows,
+        one copy each and one planned read.  Each planned read is an
+        ``allowed(tag)`` scope (None: the caller's), counted in
+        ``stats.planned_reads``."""
         if self._paged_b():
-            on_device = self.pages.device_frames_of([slot], pspan)
-            for li in range(len(self.schema)):
-                with planned_read(self.pages.pool_k[li]) if on_device else \
-                        contextlib.nullcontext():
-                    k, v = self.pages.read_rows(li, [slot], pspan)
+            on_device = self.pages.device_frames_of([slot], n)
+            for li, (dk, dv) in dst.items():
+                with sanitizer.allowed(tag) if on_device and tag else contextlib.nullcontext():
+                    k, v = self.pages.read_rows(li, [slot], n)
                 self.stats.planned_reads += int(on_device)
-                flat[li, 0].copy_(k[0])
-                flat[li, 1].copy_(v[0])
-            return out
-        for li, layer in enumerate(self.cache):
-            for j, name in enumerate(("k", "v")):
-                flat[li, j].copy_(layer[name][slot, :pspan], non_blocking=True)
-        src = self.cache[0]["k"]
-        with planned_read(src):
-            if src.device.type == "cuda":
-                torch.cuda.current_stream(src.device).synchronize()
+                dk.copy_(k[0])
+                dv.copy_(v[0])
+            return
+        for li, (dk, dv) in dst.items():
+            dk.copy_(self.cache[li]["k"][slot, :n], non_blocking=True)
+            dv.copy_(self.cache[li]["v"][slot, :n], non_blocking=True)
+        with sanitizer.allowed(tag) if tag else contextlib.nullcontext():
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
         self.stats.planned_reads += 1
-        return out
+
+    # -- preemption checkpoints -------------------------------------------
+    def checkpoint_slot(self, slot: int) -> SlotCheckpoint:
+        """Batch row ``slot``'s whole decode state in host memory: every
+        attention layer's KV row over the cache span (from the cache, the
+        host rows' KV or the pages, as the row lives) and every SSM layer's
+        ``h`` and ``conv`` rows.  The reads are planned (one ``ckpt-save``
+        scope, which waits for them); the snapshot is safe to keep across
+        ticks."""
+        assert self.cache is not None
+        slot, cfg = int(slot), self.cfg
+        span = attn_mod.kv_span(cfg, self.max_seq)
+        shape, dtype = (span, cfg.num_kv_heads, cfg.head_dim), torch_dtype(cfg.dtype)
+        layers = [{n: torch.empty(shape, dtype=dtype) for n in ("k", "v")} if kind == "attn"
+                  else {n: torch.empty(buf.shape[1:], dtype=buf.dtype)
+                        for n, buf in self.cache[li].items()}
+                  for li, (kind, _) in enumerate(self.schema)]
+        attn = {li: (layers[li]["k"], layers[li]["v"])
+                for li, (kind, _) in enumerate(self.schema) if kind == "attn"}
+        with sanitizer.allowed("ckpt-save"):
+            if attn and slot < self.n_host and self._host_kv:
+                for li, (dk, dv) in attn.items():      # the host rows' own KV
+                    dk.copy_(self._host_kv[li]["k"][slot].transpose(0, 1))
+                    dv.copy_(self._host_kv[li]["v"][slot].transpose(0, 1))
+                attn = {}
+            for li, (kind, _) in enumerate(self.schema):
+                if kind != "attn":
+                    for name, t in layers[li].items():
+                        t.copy_(self.cache[li][name][slot], non_blocking=True)
+            if attn:
+                self._kv_rows_to_host(slot, span, attn, None)
+            elif self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        return SlotCheckpoint(layers)
+
+    def restore_slot(self, slot: int, ckpt: SlotCheckpoint) -> None:
+        """Write a ``checkpoint_slot`` snapshot into batch row ``slot`` (a
+        resume): page frames are reserved first (``faults.PageAllocOOM``
+        leaves the row untouched and the resume queued), then every layer's
+        row is written in place (``ckpt-restore``), so the tensors the
+        captured graphs hold keep their addresses.  With the sampler and the
+        position restored by the scheduler, decode goes on as if the row had
+        never left: no prefill runs."""
+        assert self.cache is not None
+        slot = int(slot)
+        self.reserve_slot_rows([slot])
+        with sanitizer.allowed("ckpt-restore"):
+            for li, (kind, _) in enumerate(self.schema):
+                st = ckpt.layers[li]
+                if kind != "attn":
+                    for name, t in st.items():
+                        self.cache[li][name][slot].copy_(t, non_blocking=True)
+                elif self._paged_b():
+                    nk, nv = (st[n].to(self.device, non_blocking=True)[None]  # lint: allow[MG105] one upload of a checkpointed row at resume
+                              for n in ("k", "v"))
+                    self.pages.insert_rows(li, nk, nv, [slot])
+                else:
+                    self.cache[li]["k"][slot].copy_(st["k"], non_blocking=True)
+                    self.cache[li]["v"][slot].copy_(st["v"], non_blocking=True)
+                    if slot < self.n_host and li in self._host_kv:
+                        self._host_kv[li]["k"][slot].copy_(to_heads(st["k"][None])[0])
+                        self._host_kv[li]["v"][slot].copy_(to_heads(st["v"][None])[0])
 
     def prefill_prefix_hit(self, slot: int, prompt, prefix_kvs, pos0: int) -> torch.Tensor:
         """Admit a prefix-cache hit into batch row ``slot``: the stored
@@ -651,7 +799,7 @@ class ModuleBatchingEngine:
             assert kind == "attn", "the prefix cache requires an attention-only model"
             p = self.store.acquire(li)
             self.store.prefetch(li + 1)
-            kv = (torch.stack([torch.as_tensor(t) for t in prefix_kvs[li]])
+            kv = (torch.stack([torch.as_tensor(t) for t in prefix_kvs[li]])  # lint: allow[MG105] a hit's stored prefix KV, one asynchronous copy a layer from page-locked memory
                   if pairs is None else pairs[li]).to(self.device, non_blocking=True)
             pkv = (kv[0][None], kv[1][None])
             if ffn == "moe":
@@ -676,14 +824,17 @@ class ModuleBatchingEngine:
                 and (self.pages is None or self.pages.fully_resident))
 
     # -- decode -----------------------------------------------------------
+    @hot_path
     def decode_step(self, tokens, pos) -> torch.Tensor:
         """One per-module decode step for all B sequences; returns logits.
         ``pos`` is a scalar or a per-sequence (B,) vector of positions."""
         tokens = self._tensor(tokens)
         n = tokens.shape[0]
         pos_host = self._pos_host(pos, n)
-        lg = self._decode_rows(tokens, self._tensor(pos), 0, pos_host)
+        with sanitizer.decode_region():
+            lg = self._decode_rows(tokens, self._tensor(pos), 0, pos_host)
         self._count_module_tick(0, n)
+        self._check_pointers()
         return lg
 
     def _pos_host(self, pos, n: int) -> Optional[np.ndarray]:
@@ -692,7 +843,8 @@ class ModuleBatchingEngine:
         if not (self.n_host or self._paged_b()):
             return None
         if torch.is_tensor(pos):
-            pos = pos.cpu()
+            with sanitizer.allowed("decode-inputs"):
+                pos = pos.cpu()
         return np.broadcast_to(np.asarray(pos, np.int64).reshape(-1), (n,)).copy()
 
     def _segments(self, row0: int, n: int) -> List[Tuple[int, int, bool]]:
@@ -722,6 +874,7 @@ class ModuleBatchingEngine:
         self.stats.device_attn_tokens += self._n_attn * (n - host)
         self.stats.expert_launches += len(self._moe_layers)
 
+    @hot_path
     def _decode_rows(self, tokens: torch.Tensor, pos: torch.Tensor, row0: int,
                      pos_host: Optional[np.ndarray] = None) -> torch.Tensor:
         """Per-module decode over batch rows ``[row0, row0 + n)``: every
@@ -755,6 +908,7 @@ class ModuleBatchingEngine:
         return head(cfg, self.store.base, x)
 
     # -- module stages ---------------------------------------------------
+    @hot_path
     def _attention_stage(self, li, p, x, pos, row0: int = 0,
                          pos_host: Optional[np.ndarray] = None) -> torch.Tensor:
         """Micro-batched attention over rows ``[row0, row0 + n)`` with the
@@ -787,12 +941,13 @@ class ModuleBatchingEngine:
             outs.append(y)
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
-    def _planned_host(self, *ts: torch.Tensor) -> List[torch.Tensor]:
+    def _planned_host(self, *ts: torch.Tensor, tag: str) -> List[torch.Tensor]:
         """``ts`` (each with the same first dimension) on the host in one
-        planned read, counted in ``stats.planned_reads``."""
+        planned read, an ``allowed(tag)`` scope counted in
+        ``stats.planned_reads``."""
         n = ts[0].shape[0]
         packed = torch.cat([t.reshape(n, -1) for t in ts], dim=1)
-        with planned_read(packed):
+        with sanitizer.allowed(tag):
             host = packed.cpu()
         self.stats.planned_reads += 1
         out, c = [], 0
@@ -819,21 +974,23 @@ class ModuleBatchingEngine:
             width = cfg.num_heads * cfg.head_dim
             stage = self._host_bufs["out"].tensor.view(dtype)[:n * width].view(n, width)
             stage.copy_(out.reshape(n, width))
-            o = stage.to(self.device, non_blocking=True)
+            o = stage.to(self.device, non_blocking=True)  # lint: allow[MG105] the host rows' attention output, up from page-locked memory
         else:
             o = out.reshape(n, -1).to(dtype)
         return o @ p["attn"]["wo"]
 
+    @hot_path
     def _host_rows(self, li, p, h, posv, pos_np, lo: int, hi: int) -> torch.Tensor:
         """A host micro-batch, rows ``[lo, hi)``: projections and rope on the
         device, q / k_new / v_new down in one planned read, the slot written
         into the host-resident KV (the host rows' buffer, or the rows'
         pages read by ``KVPageTable.read_rows`` under Mode B), the host
         mechanism, ``wo`` on the device.  Under Mode B the written slot is
-        mirrored into whichever tier holds its page."""
+        mirrored into whichever tier holds its page.  Its host reads are
+        ``paged-host-rows`` scopes."""
         cfg = self.cfg
         q, k, v = attn_mod.decode_qkv(cfg, p["attn"], h, posv)
-        qh, kh, vh = self._planned_host(q[:, 0], k[:, 0], v[:, 0])
+        qh, kh, vh = self._planned_host(q[:, 0], k[:, 0], v[:, 0], tag="paged-host-rows")
         rows = np.arange(lo, hi)
         if not self._paged_b():
             kc, vc = self._host_kv[li]["k"], self._host_kv[li]["v"]
@@ -844,7 +1001,7 @@ class ModuleBatchingEngine:
         pages = self.pages
         span = pages.span
         if pages.device_frames_of(rows, span):
-            with planned_read(q):
+            with sanitizer.allowed("paged-host-rows"):
                 kc, vc = pages.read_rows(li, rows, span)
             self.stats.planned_reads += 1
         else:
@@ -870,6 +1027,7 @@ class ModuleBatchingEngine:
         bk.view((-1,) + tuple(bk.shape[2:])).index_copy_(0, idx, k)
         bv.view((-1,) + tuple(bv.shape[2:])).index_copy_(0, idx, v)
 
+    @hot_path
     def _paged_rows(self, li, p, h, posv, pos_np, lo: int, hi: int, window) -> torch.Tensor:
         """A Mode B device micro-batch, rows ``[lo, hi)``: projections and
         rope, k_new / v_new written into the device buffer that holds the
@@ -895,10 +1053,11 @@ class ModuleBatchingEngine:
                                        pages.pool_v[li], ek, ev, frames, posv, span)
         y = o.reshape(hi - lo, cfg.num_heads * cfg.head_dim) @ p["attn"]["wo"]
         if tg.host_i.size:
-            kh, vh = self._planned_host(k[sel, 0], v[sel, 0])
+            kh, vh = self._planned_host(k[sel, 0], v[sel, 0], tag="paged-host-writeback")
             pages.write_host_slots(li, tg.host_flat, kh, vh)
         return y
 
+    @hot_path
     def _ssm_stage(self, li, p, x, row0: int = 0) -> torch.Tensor:
         """SSM decode over rows ``[row0, row0 + n)`` in one launch set (not
         micro-batched: the state is O(1) per row); ``ssm_decode`` writes the
@@ -910,6 +1069,7 @@ class ModuleBatchingEngine:
         y, _ = ssm_mod.ssm_decode(cfg, p["ssm"], h, state)
         return y[:, 0]
 
+    @hot_path
     def _expert_stage_grouped(self, li, p, x) -> torch.Tensor:
         """One grouped-dispatch launch for the whole MoE stage; the kept,
         dropped and load counters stay on device."""
@@ -933,6 +1093,7 @@ class ModuleBatchingEngine:
         streamed = [m for m in self._moe_layers if self.store.streams_experts(m)]
         return streamed[(streamed.index(li) + 1) % len(streamed)]
 
+    @hot_path
     def _expert_stage_predictive(self, li, x) -> torch.Tensor:
         """The MoE stage of a predictively streamed layer: route this layer
         and predict the next streamed one, read back one packed int32
@@ -953,12 +1114,12 @@ class ModuleBatchingEngine:
                                                               dtype=torch.int32))
         pred = moe_mod.predict_experts(cfg, store.moe_shared(nli)["router"], x, khat)
         packed = torch.cat([used, pred])
-        with planned_read(packed):
-            packed_np = packed.cpu().numpy()
+        with sanitizer.allowed("expert-prefetch"):
+            packed_np = packed.cpu().numpy()  # lint: allow[MG101] the one planned read of a predictively streamed layer a tick: its used and predicted experts
         self.stats.planned_reads += 1
         ids = np.nonzero(packed_np[:E])[0]
         if self.predictor is not None:
-            pred_np = np.asarray(list(self.predictor(nli, khat)), np.int64)
+            pred_np = np.asarray(list(self.predictor(nli, khat)), np.int64)  # lint: allow[MG101] the test predictor's host ids, no tensor
         else:
             pred_np = packed_np[E:]
         wg, wu, wd = store.acquire_experts(li, ids)
@@ -984,14 +1145,32 @@ class ModuleBatchingEngine:
         contiguous cache the host rows ``[0, n_host)`` run their T ticks
         per module first, then the device rows replay the fused graph (or,
         per module, run their T ticks); all rows run together per module
-        when every row is a host row, or under Mode B paging.  ``live`` (B,) bool marks rows owned by
-        unfinished requests: dead rows hold their stale token and position,
-        like per-tick stepping.  Positions are clamped at ``max_seq - 1``."""
+        when every row is a host row, or under Mode B paging.  ``live`` (B,)
+        bool marks rows owned by unfinished requests: dead rows hold their
+        stale token and position, like per-tick stepping.  Positions are
+        clamped at ``max_seq - 1``.  The chunk runs in a sanitizer
+        ``decode_region``; under ``sanitize(pointers=True)`` it ends with the
+        pointer check."""
         B = tokens.shape[0] if torch.is_tensor(tokens) else len(tokens)
-        pos_np = np.asarray(pos.cpu() if torch.is_tensor(pos) else pos,
-                            np.int64).reshape(-1)
+        if torch.is_tensor(pos):
+            with sanitizer.allowed("decode-inputs"):
+                pos = pos.cpu()
+        pos_np = np.asarray(pos, np.int64).reshape(-1)
         if pos_np.size == 1:
             pos_np = np.full(B, pos_np[0], np.int64)
+        if not torch.is_tensor(tokens):
+            tokens = np.asarray(tokens).reshape(-1)
+        if live is not None:
+            live = np.asarray(live, bool).reshape(-1)
+        with sanitizer.decode_region():
+            out = self._decode_chunk_guarded(tokens, pos_np, sampler, T, live)
+        self._check_pointers()
+        return out
+
+    @hot_path
+    def _decode_chunk_guarded(self, tokens, pos_np: np.ndarray, sampler: BatchSampler,
+                              T: int, live=None) -> torch.Tensor:
+        B = pos_np.size
         n_host, fused = self.n_host, self.fused_eligible() and self.cache is not None
         if fused and not n_host:
             return self._fused_chunk(tokens, pos_np, sampler, T, live)
@@ -1002,13 +1181,14 @@ class ModuleBatchingEngine:
             host = self._chunk_rows_per_module(toks, pos_np, sampler, T, 0, n_host, live)
             if fused:
                 dev = self._fused_chunk(toks[n_host:], pos_np[n_host:], sampler, T,
-                                        None if live is None else np.asarray(live)[n_host:],
+                                        None if live is None else live[n_host:],
                                         row0=n_host)
             else:
                 dev = self._chunk_rows_per_module(toks, pos_np, sampler, T, n_host, B, live)
             return torch.cat([host, dev], dim=0)
         return self._chunk_rows_per_module(toks, pos_np, sampler, T, 0, B, live)
 
+    @hot_path
     def _chunk_rows_per_module(self, tokens, pos_np: np.ndarray, sampler,
                                T: int, lo: int, hi: int,
                                live=None) -> torch.Tensor:
@@ -1019,11 +1199,11 @@ class ModuleBatchingEngine:
         slots = np.arange(lo, hi)
         cur = tokens[lo:hi]
         pos_rows = pos_np[lo:hi]
-        adv = None if live is None else np.asarray(live, np.int64)[lo:hi]
+        adv = None if live is None else live[lo:hi].astype(np.int64)
         lv = None if adv is None else self._tensor(adv.astype(bool), torch.bool)
         cap = self.max_seq - 1
         cols = []
-        host_pos = bool(self.n_host or self._paged_b())
+        host_pos = self.n_host > 0 or self._paged_b()
         for t in range(T):
             pt = np.minimum(pos_rows + (t if adv is None else t * adv), cap)
             lg = self._decode_rows(cur, self._tensor(pt), lo, pt if host_pos else None)
@@ -1033,6 +1213,7 @@ class ModuleBatchingEngine:
             cur = sampled if lv is None else torch.where(lv, sampled, cur)
         return torch.stack(cols, dim=1)
 
+    @hot_path
     def _fused_chunk(self, tokens, pos_np: np.ndarray, sampler: BatchSampler,
                      T: int, live=None, row0: int = 0) -> torch.Tensor:
         """The fused chunk over the B rows ``[row0, row0 + B)``: the carry
@@ -1045,8 +1226,8 @@ class ModuleBatchingEngine:
         B = pos_np.size
         idx = np.arange(row0, row0 + B)
         keys, steps, temps, topks = sampler.state(idx)
-        use_topk = bool((topks > 0).any())
-        greedy_only = not bool((temps > 0).any())
+        use_topk = bool(np.any(topks > 0))
+        greedy_only = not bool(np.any(temps > 0))
         capacity, cap = self._expert_capacity(B), self.max_seq - 1
         ref_key = (B, row0, T, capacity, cap, use_topk, greedy_only)
         if ref_key not in self._fused_keys:
@@ -1055,9 +1236,9 @@ class ModuleBatchingEngine:
         c = self._carry(B, T)
         host = np.zeros((B, 8), np.int64)
         if not torch.is_tensor(tokens):
-            host[:, 0] = np.asarray(tokens).reshape(-1)
+            host[:, 0] = tokens
         host[:, 1] = pos_np
-        host[:, 2] = 1 if live is None else np.asarray(live, bool)
+        host[:, 2] = 1 if live is None else live
         host[:, 3], host[:, 4], host[:, 5:7] = steps, topks, keys
         c.state.copy_(torch.from_numpy(host), non_blocking=True)
         if torch.is_tensor(tokens):
@@ -1080,6 +1261,7 @@ class ModuleBatchingEngine:
         self.stats.device_attn_tokens += T * self._n_attn * B
         return c.out[:, :T].clone()
 
+    @hot_path
     def _fused_tick(self, c: _Carry, cap: int, use_topk: bool, greedy_only: bool,
                     row0: int = 0) -> None:
         """One decode tick on the carry ``c`` of rows ``[row0, row0 + n)``, in
@@ -1107,9 +1289,11 @@ class ModuleBatchingEngine:
         wider one replaces it (and the graphs that held it)."""
         c = self._carries.get(B)
         if c is None or c.out.shape[1] < T:
+            if c is not None:
+                donation.poison((c.state, c.temps, c.out))
+                self._alloc_epoch += 1
             c = self._carries[B] = _Carry.zeros(B, max(T, self.max_seq), self.device)
-            for key in [k for k in self._graphs if k[0] == B]:
-                del self._graphs[key]
+            self._drop_graphs([k for k in self._graphs if k[0] == B])
         return c
 
     def _graph(self, key: Tuple, c: _Carry):
@@ -1128,10 +1312,17 @@ class ModuleBatchingEngine:
         engine's graphs), through ``CUDAGraph.capture_begin`` rather than
         ``torch.cuda.graph``, which would first empty the allocator's cache
         (slow after a large prefill, and the next prefill refills it).  A
-        failed capture raises; nothing falls back to eager launches."""
+        failed capture raises; nothing falls back to eager launches.  The
+        capture synchronises: it is set-up, an ``allowed("graph-capture")``
+        scope, and its key joins the registry's ``graph_keys``."""
         rec = self._graphs.get(key)
-        if rec is not None:
-            return rec
+        if rec is None:
+            with sanitizer.allowed("graph-capture"):
+                rec = self._capture(key, c)
+            self.graph_keys.add(key)
+        return rec
+
+    def _capture(self, key: Tuple, c: _Carry):
         B, row0, _, cap, use_topk, greedy_only = key
         dev = self.device
         if self._n_attn:
@@ -1189,6 +1380,7 @@ class ModuleBatchingEngine:
         finally:
             self.cache, self._kept_dev, self._dropped_dev, self._load_dev = saved
 
+    @hot_path
     def decode_step_sampled(self, tokens, pos, sampler: BatchSampler,
                             slots=None) -> torch.Tensor:
         """One decode tick plus per-slot sampling on the device: the fused

@@ -23,11 +23,21 @@ Every weight is resident unless
 ``--resident-gb`` / ``--predict-topk``): then the store keeps the greedy
 resident set on the card and the rest in page-locked host memory, built
 layer by layer (``ParamStore.seeded``) so that a model larger than the
-card never has to fit on it.
+card never has to fit on it.  ``--faults SPEC`` arms deterministic fault
+injection (``repro_torch.faults`` grammar, e.g.
+``seed=7,transfer=0.05,stall=0.02,oom=0.05,preempt=8``) and prints the
+recovery counters; the tokens are those of the unarmed run.
+``--sanitize strict|log`` serves under the analysis sanitizer and prints its
+report: the planned reads by tag, steady-state captures, pointer checks.
+``--smoke`` serves the architecture's smoke config (the plan is still
+searched on the full one), which is what the CPU can run:
+``--smoke --device cpu --sanitize strict --faults ...``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import time
 from dataclasses import replace
 
@@ -99,6 +109,8 @@ def main(argv=None) -> None:
                     choices=("static", "continuous"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--smoke", action="store_true",
+                    help="serve the smoke config of --arch (plan on the full one)")
     ap.add_argument("--stream-weights", action="store_true",
                     help="keep the planned resident set on the device and "
                          "stream the rest from page-locked host memory, "
@@ -132,11 +144,22 @@ def main(argv=None) -> None:
                     help="cache shared prompt prefixes at page granularity and "
                          "admit a hit by copying its stored prefix KV instead of "
                          "recomputing its prefill (requires --kv-page-tokens)")
+    ap.add_argument("--faults", default=None, metavar="SPEC",
+                    help="arm deterministic fault injection, e.g. 'seed=3,transfer=0.2,"
+                         "stall=0.05,oom=0.1,preempt=7' (repro_torch.faults grammar): "
+                         "copies retried, stalls re-fetched, page OOMs degraded, "
+                         "requests preempted and resumed, all counted; the tokens "
+                         "are those of the unarmed run")
+    ap.add_argument("--sanitize", default="off", choices=("off", "log", "strict"),
+                    help="serve under the analysis sanitizer: decode regions raise "
+                         "(strict) or log (log) on host reads outside planned scopes, "
+                         "cache pointers are checked every tick; prints the report")
     args = ap.parse_args(argv)
     args.prompt_lens = [int(x) for x in args.prompt_lens.split(",")]
 
     import torch
 
+    from repro_torch import analysis, faults
     from repro_torch.models import model as M
     from repro_torch.serving import weights as wmod
     from repro_torch.serving.server import ServeConfig, Server
@@ -144,6 +167,8 @@ def main(argv=None) -> None:
 
     cfg = get_config(args.arch)
     plan = build_plan(cfg, PROFILES[args.profile], args)
+    if args.smoke:
+        cfg = get_config(args.arch, smoke=True)
     t0 = time.perf_counter()
     params, store = None, None
     if streams(args):
@@ -171,11 +196,13 @@ def main(argv=None) -> None:
                        args.decode_len)
     requests = synthetic_requests(spec, cfg.vocab_size, seed=args.seed,
                                   prompt_lens=args.prompt_lens)
+    fault_plan = faults.resolve(args.faults)
     server = Server(cfg, params, plan,
                     serve=ServeConfig(scheduler=args.scheduler, decode_len=args.decode_len,
                                       kv_page_tokens=args.kv_page_tokens,
                                       device_kv_gb=args.device_kv_gb,
-                                      prefix_cache=args.prefix_cache),
+                                      prefix_cache=args.prefix_cache,
+                                      faults=fault_plan),
                     store=store, device=args.device)
     for r in requests:
         server.submit(r)
@@ -185,7 +212,9 @@ def main(argv=None) -> None:
     print(f"host attention: {engine.n_host} of {server._b} rows; KV "
           f"{'contiguous' if pages is None else pages.describe()}; page-locked "
           f"{wmod.pinned_bytes() / 1e9:.3f} GB")
-    report = server.run()
+    with (analysis.sanitize(strict=args.sanitize == "strict", pointers=True)
+          if args.sanitize != "off" else contextlib.nullcontext()) as san:
+        report = server.run()
     print(f"[{report.scheduler}] served {len(report.request_results)} requests: "
           f"prefill {report.prefill_tokens} tokens in {report.prefill_s:.3f}s "
           f"({report.prefill_throughput:.1f} tok/s), decode "
@@ -217,6 +246,14 @@ def main(argv=None) -> None:
         print(f"prefix cache: {report.prefix_hits} hits / "
               f"{report.prefix_hits + report.prefix_misses} lookups (hit rate "
               f"{report.prefix_hit_rate:.0%})")
+    if fault_plan is not None:
+        print(f"faults: transfer_retries {report.transfer_retries}, transfer_timeouts "
+              f"{report.transfer_timeouts}, preemptions {report.preemptions}, resumes "
+              f"{report.resumes}, degrade_deferrals {report.degrade_deferrals}, "
+              f"page_demotions {report.page_demotions}, chunk_shrinks "
+              f"{report.chunk_shrinks}; ledger {json.dumps(fault_plan.report()['events'])}")
+    if san is not None:
+        print(f"sanitizer ({args.sanitize}): {json.dumps(san.report(), default=str)}")
     toks = np.concatenate([r.tokens for r in report.request_results])
     print(f"generated token ids in [{toks.min()}, {toks.max()}]")
 

@@ -25,13 +25,18 @@ A layer's epoch advances with every write to its host frames and every
 admission or eviction; a prefetch issued under an older epoch is stale
 when it is acquired and is copied again, on demand, and counted as such.
 
+Faults (``repro_torch.faults``): allocation is transactional per row and an
+armed plan may inject a ``PageAllocOOM`` at each new row; under memory
+pressure the server's degradation ladder demotes live device frames to free
+host frames (``demote_device_frames``).
+
 On top of the page table, ``PrefixStore`` caches shared prompt prefixes at
 page granularity: a hit's stored prefix KV is copied into its row and only
 the suffix is prefilled (``ModuleBatchingEngine.prefill_prefix_hit``).
-The fault slice's page demotion is a later slice of the port.
 """
 from __future__ import annotations
 
+import contextlib
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -39,16 +44,15 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import faults
+from repro_torch.analysis import runtime as sanitizer
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.faults import PageAllocOOM
 from repro_torch.serving.weights import StreamWindow, _HostBuffer, copy_stream
 
 WINDOW_DEPTH = 2        # layers of host frames in flight: the next one and this one
 PREFIX_ENTRIES = 64     # prefixes the server's PrefixStore keeps (LRU)
-
-
-class PageAllocOOM(RuntimeError):
-    """The page table ran out of frames in both tiers."""
 
 
 class SlotTargets(NamedTuple):
@@ -190,7 +194,7 @@ class KVPageTable:
                      flat[half:].view((Hf,) + frame)), layer_bytes)
 
         self._window = StreamWindow(fetch, lambda li: layer_bytes, layer_bytes, self.device,
-                                    depth=WINDOW_DEPTH, tag="kv-pages")
+                                    depth=WINDOW_DEPTH)
         self._closed = False
 
     # -- residency -------------------------------------------------------
@@ -239,11 +243,15 @@ class KVPageTable:
                     prefer_host: Optional[Sequence[bool]] = None) -> None:
         """Allocate frames for ``rows`` (a row already allocated keeps its
         placement).  ``prefer_host[i]`` biases row i toward the host tier.
-        Per row transactional: on ``PageAllocOOM`` the row's frames go back
-        before the error propagates."""
+        Per row transactional: on ``PageAllocOOM`` (both tiers out of frames,
+        or one the armed fault plan injects before a new row) the row's
+        frames go back before the error propagates."""
         for i, r in enumerate(rows):
             if self.page_map[r, 0] >= 0:
                 continue
+            fp = faults.current()
+            if fp is not None and fp.page_oom():
+                raise PageAllocOOM(f"injected page-alloc OOM (row {r})")
             ph = bool(prefer_host[i]) if prefer_host is not None else False
             try:
                 for pp in range(self.pages_per_seq):
@@ -274,9 +282,11 @@ class KVPageTable:
     # -- page content (Mode B) -------------------------------------------
     def _host_write_guard(self, li: int) -> None:
         """Before the host writes layer ``li``'s host frames: wait for any
-        queued copy that still reads them."""
+        queued copy that still reads them (a planned host wait,
+        ``paged-host-writeback``)."""
         if self._window is not None:
-            self._window.wait_copy(li)
+            with sanitizer.allowed("paged-host-writeback"):
+                self._window.wait_copy(li)
 
     def _paged(self, aligned: torch.Tensor) -> torch.Tensor:
         """(n, span, K, hd) -> (n, pages_per_seq, page_tokens, K, hd)."""
@@ -344,33 +354,28 @@ class KVPageTable:
         (len(rows), n, K, hd).  Pages on device frames come down in one
         device-to-host copy (counted in ``dtoh_bytes``; the caller plans the
         read), host frames are read in place."""
-        pt = self.page_tokens
+        pt, P = self.page_tokens, self.device_frames
         K, hd = self.cfg.num_kv_heads, self.cfg.head_dim
-        out_k = torch.zeros((len(rows), self.pages_per_seq, pt, K, hd), dtype=self.dtype)
+        npg = -(-n // pt)
+        f = self.page_map[np.asarray(rows, np.int64)][:, :npg].reshape(-1)
+        out_k = torch.zeros((f.size, pt, K, hd), dtype=self.dtype)
         out_v = torch.zeros_like(out_k)
-        dev_f, dev_i = [], []
-        for i, r in enumerate(rows):
-            for pp in range(-(-n // pt)):
-                f = int(self.page_map[r, pp])
-                if f < 0:
-                    continue
-                if f < self.device_frames:
-                    dev_f.append(f)
-                    dev_i.append((i, pp))
-                else:
-                    h = f - self.device_frames
-                    out_k[i, pp] = self.host_k[li][h]
-                    out_v[i, pp] = self.host_v[li][h]
-        if dev_f:
-            idx = torch.as_tensor(dev_f, device=self.device)
+        host = np.flatnonzero(f >= P)
+        if host.size:
+            at, h = torch.as_tensor(host), torch.as_tensor(f[host] - P, dtype=torch.long)
+            out_k[at] = self.host_k[li].index_select(0, h)
+            out_v[at] = self.host_v[li].index_select(0, h)
+        dev = np.flatnonzero((f >= 0) & (f < P))
+        if dev.size:
+            idx = torch.as_tensor(f[dev], dtype=torch.long, device=self.device)
             pages = torch.stack([self.pool_k[li].index_select(0, idx),
                                  self.pool_v[li].index_select(0, idx)]).cpu()
             self.dtoh_bytes += pages.numel() * pages.element_size()
-            for j, (i, pp) in enumerate(dev_i):
-                out_k[i, pp] = pages[0, j]
-                out_v[i, pp] = pages[1, j]
-        flat = (len(rows), self.pages_per_seq * pt, K, hd)
-        return out_k.reshape(flat)[:, :n], out_v.reshape(flat)[:, :n]
+            at = torch.as_tensor(dev)
+            out_k[at] = pages[0]
+            out_v[at] = pages[1]
+        flat = (len(rows), npg * pt, K, hd)
+        return out_k.view(flat)[:, :n], out_v.view(flat)[:, :n]
 
     def device_frames_of(self, rows: Sequence[int], n: int) -> bool:
         """Whether any of the first ``n`` slots of ``rows`` is on a device
@@ -423,6 +428,54 @@ class KVPageTable:
             epoch, k, v = self._window.refetch(li)
         return k, v
 
+    # -- memory-pressure degradation --------------------------------------
+    def demote_device_frames(self, limit: int) -> int:
+        """Move up to ``limit`` live device frames to free host frames (the
+        degradation ladder's second stage), highest row and page first, as
+        the reference picks them.  Each frame of every attention layer is
+        copied device to host on the copy stream, behind the compute
+        stream's queued work, into page-locked host frames (counted in
+        ``dtoh_bytes``), in an ``allowed("paged-host-writeback")`` scope; the
+        host then waits for the copies once (admission time, never inside a
+        tick) before the device frames are handed out again.  Mode A has no
+        host tier and moves nothing.  Placement only: tokens do not change.
+        Returns the frames moved."""
+        if self._window is None or limit <= 0:
+            return 0
+        moves = []                               # (row, page, device f, host h)
+        for r in reversed(range(self.batch)):
+            for pp in reversed(range(self.pages_per_seq)):
+                if len(moves) >= limit or not self._free_host:
+                    break
+                f = int(self.page_map[r, pp])
+                if 0 <= f < self.device_frames:
+                    moves.append((r, pp, f, self._free_host.pop()))
+            if len(moves) >= limit or not self._free_host:
+                break
+        if not moves:
+            return 0
+        cuda = self.device.type == "cuda"
+        for li in self.attn_layers:
+            self._host_write_guard(li)
+        with sanitizer.allowed("paged-host-writeback"):
+            stream = copy_stream(self.device) if cuda else None
+            if cuda:
+                stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
+                for li in self.attn_layers:
+                    for _, _, f, h in moves:
+                        self.host_k[li][h].copy_(self.pool_k[li][f], non_blocking=True)
+                        self.host_v[li][h].copy_(self.pool_v[li][f], non_blocking=True)
+            if cuda:
+                stream.synchronize()
+        for r, pp, f, h in moves:
+            self.page_map[r, pp] = self.device_frames + h
+            self._free_dev.append(f)
+        self.dtoh_bytes += len(moves) * self.frame_bytes
+        faults.note("recovered:page-demotion", len(moves))
+        self._bump_all()
+        return len(moves)
+
     # -- accounting and teardown ----------------------------------------
     @property
     def copied_bytes(self) -> int:
@@ -439,6 +492,10 @@ class KVPageTable:
                       else (0, 0.0))
         dtoh, self.dtoh_bytes = self.dtoh_bytes, 0
         return htod, dtoh, wait
+
+    def take_fault_counters(self) -> Tuple[int, int]:
+        """Drain (transfer retries, timeouts) of the host-frame window."""
+        return (0, 0) if self._window is None else self._window.take_fault_counters()
 
     def close(self) -> None:
         """Free the pools and the window's slots and unpin the host frames.

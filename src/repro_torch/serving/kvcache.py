@@ -54,8 +54,8 @@ def cache_from_prefill(cfg: ModelConfig, caches: List[Dict], max_seq: int) -> Li
 
 def _rows(rows, device) -> torch.Tensor:
     if torch.is_tensor(rows):
-        return rows.reshape(-1).long().to(device)
-    return torch.as_tensor(np.asarray(rows, np.int64).reshape(-1), device=device)
+        return torch.as_tensor(rows, device=device).reshape(-1).long()
+    return torch.as_tensor(np.asarray(rows, np.int64).reshape(-1), device=device)  # lint: allow[MG105] a host row index, asynchronous
 
 
 def insert_prefill_rows(

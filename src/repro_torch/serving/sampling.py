@@ -82,7 +82,7 @@ def sample_tokens(logits: torch.Tensor, keys: torch.Tensor, steps: torch.Tensor,
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device`` without a host-side wait (an asynchronous
     copy; pageable memory is staged before the call returns)."""
-    return torch.from_numpy(np.array(a)).to(device, non_blocking=True)
+    return torch.from_numpy(np.array(a)).to(device, non_blocking=True)  # lint: allow[MG105] the sampler's per-slot state, up once a sampled tick, asynchronous
 
 
 class BatchSampler:

@@ -48,6 +48,7 @@ def serve_dataset(
     store: Optional[ParamStore] = None,
     kv_page_tokens: int = 0,
     device_kv_gb: Optional[float] = None,
+    faults=None,
     device="cuda",
 ) -> ServeReport:
     """Serve a fixed request list to completion (the offline protocol):
@@ -55,8 +56,8 @@ def serve_dataset(
     ``decode_len`` honored, ``eos_id`` finishing a sequence early, ``hw``
     gating continuous admission by the Eq. 2 host KV budget;
     ``stream_weights``/``resident_bytes`` as in ``StreamConfig``, or a built
-    ``store``; ``kv_page_tokens``/``device_kv_gb`` page the KV cache as in
-    ``ServeConfig``."""
+    ``store``; ``kv_page_tokens``/``device_kv_gb`` page the KV cache and
+    ``faults`` arms a fault-injection plan, as in ``ServeConfig``."""
     assert scheduler in ("static", "continuous"), scheduler
     if not requests:
         return ServeReport(scheduler=scheduler)
@@ -66,6 +67,7 @@ def serve_dataset(
             scheduler=scheduler, decode_len=decode_len, max_seq=max_seq,
             max_prompt_len=max_prompt_len, pad_id=pad_id, eos_id=eos_id,
             hw=hw, kv_page_tokens=kv_page_tokens, device_kv_gb=device_kv_gb,
+            faults=faults,
         ),
         stream=StreamConfig(stream_weights=stream_weights,
                             resident_bytes=resident_bytes),

@@ -40,8 +40,17 @@ host CPU.  ``prefix_cache`` (with paging) admits a request whose
 page-aligned prompt prefix was seen before by copying the stored prefix KV
 into its row and prefilling only the suffix (``serving.cache.PrefixStore``);
 ``replan_skew`` re-derives the decode capacity ``b_e`` from the measured
-routing every 8 decode steps when the hottest expert's share drifts.  Fault
-injection, preemption and replicas are later slices of the port.
+routing every 8 decode steps when the hottest expert's share drifts.
+
+Fault tolerance (``repro_torch.faults``, the reference's semantics): the
+server arms its ``ServeConfig.faults`` plan around every step, so the copy,
+page and preemption seams draw from one schedule.  A page-frame OOM at
+admission walks the degradation ladder (defer, demote device frames, halve
+the chunk cap for 16 steps); ``preempt(handle)`` (continuous scheduler)
+moves a running request to a host checkpoint and resumes it into a free
+slot with no prefill; recovery is counted in the report.  Unarmed, the
+served path is the same as without the package.  Replica failover is the
+distributed slice of the port.
 """
 from __future__ import annotations
 
@@ -50,10 +59,13 @@ import time
 import weakref
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import faults
+from repro_torch.analysis import runtime as sanitizer
+from repro_torch.analysis.markers import hot_path
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import workload as W
 from repro_torch.core.dag_builder import Plan
@@ -74,11 +86,6 @@ class Request:
     sampling: Optional[SamplingParams] = None   # None = greedy
 
 
-_LATER_SLICES = {
-    "faults": "fault injection is the faults slice of the port",
-}
-
-
 @dataclass(frozen=True)
 class ServeConfig:
     """Scheduling-side knobs, frozen.  ``decode_len`` is the fallback for
@@ -90,8 +97,10 @@ class ServeConfig:
     (which needs paging) reuses shared prompt prefixes.  ``replan_skew``
     re-plans ``b_e`` online whenever the hottest expert's measured share
     drifts by more than it (absolute share), sized for an expected drop
-    rate of ``replan_drop_target``; None disables re-planning.  The knob of
-    a later slice (faults) raises ``NotImplementedError`` when set."""
+    rate of ``replan_drop_target``; None disables re-planning.  ``faults``
+    is a fault-injection schedule (a ``faults.FaultPlan``, ``FaultSpec`` or
+    spec string such as ``"seed=0,transfer=0.05,oom=0.1,preempt=8"``); None
+    leaves any ambient ``REPRO_FAULTS`` plan in charge."""
 
     scheduler: str = "static"
     decode_len: int = 32
@@ -121,9 +130,6 @@ class ServeConfig:
             )
         if self.max_batch is not None:
             assert self.max_batch >= 1, self.max_batch
-        for name, why in _LATER_SLICES.items():
-            if getattr(self, name) not in (None, 0, False):
-                raise NotImplementedError(why)
 
     @classmethod
     def from_plan(cls, cfg: ModelConfig, hw: HardwareProfile, ctx: int = 512,
@@ -191,6 +197,19 @@ class ServeReport:
     prefix_hits: int = 0          # admissions served from the prefix cache
     prefix_misses: int = 0        # eligible admissions that prefilled cold
     capacity_replans: int = 0     # online b_e re-plans on measured skew drift
+    # fault recovery (repro_torch.faults): every recovery is counted
+    transfer_retries: int = 0     # injected copy failures recovered by retry
+    transfer_timeouts: int = 0    # dead copies recovered by a demand re-fetch
+    preemptions: int = 0          # running requests moved to host checkpoints
+    resumes: int = 0              # checkpoints resumed (no prefill)
+    degrade_deferrals: int = 0    # admissions deferred by a page-frame OOM
+    page_demotions: int = 0       # device page frames demoted to the host tier
+    chunk_shrinks: int = 0        # decode-chunk cap halvings under pressure
+    checkpoint_bytes: int = 0     # host bytes of the preemption checkpoints
+    checkpoint_s: float = 0.0     # host wall of the checkpoints (reads waited for)
+    restore_s: float = 0.0        # host wall of the resumes (writes queued)
+    admission_waves: List[Tuple[int, List[int]]] = field(default_factory=list)
+    #                               (decode tick, request indices) a prefill wave
     weight_htod_bytes: int = 0    # streamed weight bytes copied host->device
     kv_htod_bytes: int = 0        # host KV-page bytes copied host->device
     kv_dtoh_bytes: int = 0        # KV-page bytes written to the host tier
@@ -335,7 +354,8 @@ class RequestHandle:
         self.sampling = request.sampling
         self.arrival_s = float(request.arrival_s or 0.0)
         self.on_token = on_token
-        self.status = "queued"            # queued -> running -> finished
+        self.status = "queued"            # queued -> running -> finished,
+        #                                   running <-> preempted
         self.tokens: List[int] = []
         self.admit_s = float("nan")
         self.first_token_s = float("nan")
@@ -457,6 +477,15 @@ class Server:
         self._cur: Optional[np.ndarray] = None
         self._pos: Optional[np.ndarray] = None
         self._wave: Optional[Dict] = None     # static policy's in-flight wave
+        # fault tolerance: the plan armed around every step; preempted
+        # requests wait in _ckpts (FIFO) for a slot
+        self._faults = faults.resolve(serve.faults)
+        self._ckpts: deque = deque()          # host checkpoints of requests
+        self._ticks = 0                       # decode ticks run (virtual clock)
+        self._preempt_due_at: Optional[int] = None   # next injected preemption
+        self._pressure = 0                    # consecutive page-OOM events
+        self._shrink_cap: Optional[int] = None   # degraded decode-chunk cap
+        self._shrink_ticks = 0                # steps the shrink stays on
 
     # -- lifecycle: submit -------------------------------------------------
     def submit(self, request: Request,
@@ -570,7 +599,8 @@ class Server:
     # engine counters the report folds as deltas since the last drain
     _FOLDED = ("weight_htod_bytes", "prefetch_wait_s", "expert_pred_hits",
                "expert_pred_misses", "expert_lru_hits", "kv_htod_bytes",
-               "kv_dtoh_bytes", "host_attn_tokens")
+               "kv_dtoh_bytes", "host_attn_tokens", "transfer_retries",
+               "transfer_timeouts")
 
     def _drain_engine_stats(self, planned: bool = False) -> int:
         """Fold the engine's cumulative counters into the report (deltas
@@ -631,20 +661,25 @@ class Server:
         return any(h is not None for h in self._slot_handle)
 
     def has_work(self) -> bool:
-        return self._any_live() or bool(self._pending)
+        return self._any_live() or bool(self._pending) or bool(self._ckpts)
 
     def step(self) -> bool:
         """One scheduler tick: admit due arrivals (policy-dependent), run
         one module-batched decode step over every slot, sample each live
-        slot, finish/evict/recycle.  Returns True while work remains."""
+        slot, finish/evict/recycle.  Returns True while work remains (live
+        slots, queued requests or preempted checkpoints).  The tick runs
+        with the server's fault plan armed (a pass-through to the ambient
+        ``REPRO_FAULTS`` plan when ``ServeConfig.faults`` is None)."""
         if not self.has_work():
             return False
         self._ensure_engine()
-        self._admit()
-        if self._any_live():
-            self._decode_tick(self._chunk_T())
-            if self.serve.replan_skew is not None:
-                self._maybe_replan()
+        with faults.armed(self._faults):
+            self._maybe_preempt()
+            self._admit()
+            if self._any_live():
+                self._decode_tick(self._chunk_T())
+                if self.serve.replan_skew is not None:
+                    self._maybe_replan()
         return self.has_work()
 
     def run(self, until_idle: bool = True) -> ServeReport:
@@ -691,7 +726,15 @@ class Server:
             h = self._pop_due(now)
             if h is None:
                 break
-            self._engine.reserve_slot_rows([len(handles)])  # frames before prefill
+            # frames before prefill: an OOM (real or injected) requeues the
+            # head and degrades instead of failing mid-prefill
+            try:
+                self._engine.reserve_slot_rows([len(handles)])
+            except faults.PageAllocOOM as err:
+                heapq.heappush(self._pending, (h.arrival_s, h.index, h))
+                self._degrade_on_oom(err)
+                break
+            self._pressure = 0
             handles.append(h)
         if not handles:
             return
@@ -708,9 +751,13 @@ class Server:
     def _admit_continuous(self) -> None:
         """Admit/evict: prefill due requests into freed slots (one batched
         prefill per admission wave; loop until stable).  With an Eq. 2
-        budget the queue head WAITS while its KV bytes don't fit (FIFO)."""
+        budget the queue head WAITS while its KV bytes don't fit (FIFO).
+        Preempted checkpoints resume first (they were admitted before
+        anything still queued)."""
         now = self._now()
-        while self._free and self._pending and self._pending[0][0] <= now:
+        self._resume_checkpoints()
+        blocked = False
+        while not blocked and self._free and self._pending and self._pending[0][0] <= now:
             slots, handles = [], []
             while self._free and self._pending and self._pending[0][0] <= now:
                 i = self._pending[0][1]
@@ -718,8 +765,19 @@ class Server:
                         and self._live_kv + self._kv_need[i] > self._kv_budget):
                     break              # head waits for an eviction
                 h = heapq.heappop(self._pending)[2]
-                slots.append(self._free.popleft())
-                self._engine.reserve_slot_rows(slots[-1:])  # frames before prefill
+                s = self._free.popleft()
+                # frames before prefill: an OOM (real or injected) puts the
+                # head back and degrades instead of failing mid-prefill
+                try:
+                    self._engine.reserve_slot_rows([s])
+                except faults.PageAllocOOM as err:
+                    self._free.appendleft(s)
+                    heapq.heappush(self._pending, (h.arrival_s, h.index, h))
+                    self._degrade_on_oom(err)
+                    blocked = True
+                    break
+                self._pressure = 0
+                slots.append(s)
                 handles.append(h)
                 if self._kv_budget is not None:
                     self._live_kv += self._kv_need[i]
@@ -733,6 +791,118 @@ class Server:
                 and self._live_kv + self._kv_need[self._pending[0][1]]
                 > self._kv_budget):
             self.report.admission_deferrals += 1
+
+    # -- fault tolerance: preempt / checkpoint / resume --------------------
+    def preempt(self, handle: RequestHandle) -> bool:
+        """Move a running request to a host checkpoint (its KV and state
+        rows, current token and position; the sampler restores from the
+        handle).  Its slot, page frames and sampler slot are freed; the
+        checkpoint resumes into a free slot with no prefill, and since a
+        slot's t-th token depends only on (logits, seed, t), the resumed
+        stream is the one an unpreempted run gives.  Continuous scheduler
+        only (a static wave drains in place).  False when the request is not
+        running."""
+        assert self.serve.scheduler == "continuous", (
+            "preemption is a continuous-scheduler policy")
+        if handle.status != "running":
+            return False
+        self._preempt_slot(self._slot_handle.index(handle))
+        return True
+
+    def _preempt_slot(self, s: int) -> None:
+        h = self._slot_handle[s]
+        t0 = time.perf_counter()
+        state = self._engine.checkpoint_slot(s)
+        self.report.checkpoint_s += time.perf_counter() - t0
+        self.report.checkpoint_bytes += state.nbytes
+        ckpt = {"handle": h, "state": state, "cur": int(self._cur[s]), "pos": int(self._pos[s])}
+        h.status = "preempted"
+        if self._kv_budget is not None:
+            self._live_kv -= self._kv_need[h.index]
+        self._slot_handle[s] = None
+        self._sampler.clear_slot(s)
+        self._engine.evict_slots([s])
+        self._free.append(s)
+        self._ckpts.append(ckpt)
+        self.report.preemptions += 1
+        faults.note("preempt")
+
+    def _resume_checkpoints(self) -> None:
+        """Resume preempted checkpoints (FIFO) into free slots: the rows are
+        written back (``engine.restore_slot``), the sampler slot is re-armed
+        at the token index already emitted, the token and position are
+        restored.  No prefill runs.  A page OOM leaves the checkpoint
+        queued and degrades."""
+        while self._ckpts and self._free:
+            h = self._ckpts[0]["handle"]
+            if (self._kv_budget is not None
+                    and self._live_kv + self._kv_need[h.index] > self._kv_budget):
+                break
+            s = self._free[0]
+            t0 = time.perf_counter()
+            try:
+                self._engine.restore_slot(s, self._ckpts[0]["state"])
+            except faults.PageAllocOOM as err:
+                self._degrade_on_oom(err)
+                break
+            self.report.restore_s += time.perf_counter() - t0
+            self._pressure = 0
+            ckpt = self._ckpts.popleft()
+            self._free.popleft()
+            self._sampler.set_slot(s, h.sampling)
+            self._sampler.advance([s], len(h.tokens))
+            self._slot_handle[s] = h
+            self._cur[s] = ckpt["cur"]
+            self._pos[s] = ckpt["pos"]
+            if self._kv_budget is not None:
+                self._live_kv += self._kv_need[h.index]
+            h.status = "running"
+            self.report.resumes += 1
+            faults.note("resume")
+
+    def _maybe_preempt(self) -> None:
+        """Injected preemption: every ``spec.preempt_every`` decode ticks,
+        preempt the running request in the lowest slot (continuous only).
+        The checkpoint resumes at the next admission and the tick clock
+        advances only while decoding, so every cycle decodes."""
+        if self.serve.scheduler != "continuous":
+            return
+        fp = faults.current()
+        if fp is None or fp.spec.preempt_every <= 0:
+            return
+        if self._preempt_due_at is None:
+            self._preempt_due_at = fp.spec.preempt_every
+        if self._ticks < self._preempt_due_at:
+            return
+        victims = [s for s in range(self._b) if self._slot_handle[s] is not None
+                   and not self._slot_handle[s].finished]
+        if not victims:
+            return
+        self._preempt_due_at = self._ticks + fp.spec.preempt_every
+        fp.note("injected:preempt")
+        self._preempt_slot(min(victims))
+
+    def _degrade_on_oom(self, err: Exception) -> None:
+        """The memory-pressure ladder, escalating with consecutive OOMs: (1)
+        defer the admission (the caller put the request back); (2) demote
+        live device page frames to the host tier; (3) halve the decode-chunk
+        cap for 16 steps.  Re-raises only when nothing can ever free a frame:
+        no fault plan armed and nothing live."""
+        if faults.current() is None and not self._any_live():
+            raise err
+        self._pressure += 1
+        self.report.degrade_deferrals += 1
+        faults.note("recovered:admission-deferral")
+        pages = self._engine.pages
+        if self._pressure >= 2 and pages is not None:
+            self.report.page_demotions += pages.demote_device_frames(pages.pages_per_seq)
+        if self._pressure >= 3:
+            cap = int(self.serve.decode_chunk or getattr(self.plan, "decode_chunk", 1) or 1)
+            base = self._shrink_cap if self._shrink_cap is not None else cap
+            self._shrink_cap = max(1, base // 2)
+            self._shrink_ticks = 16
+            self.report.chunk_shrinks += 1
+            faults.note("recovered:chunk-shrink")
 
     # -- shared prefill / decode / finish ----------------------------------
     def _prefill_wave(self, handles: List[RequestHandle],
@@ -748,6 +918,7 @@ class Server:
         per prefix not yet stored).  Tokens are the same either way."""
         engine, sampler, prefix = self._engine, self._sampler, self._prefix
         t0 = self._now()
+        self.report.admission_waves.append((self._ticks, [h.index for h in handles]))
         hits, misses, miss_slots = [], list(handles), list(slots)
         if prefix is not None:
             misses, miss_slots = [], []
@@ -810,6 +981,22 @@ class Server:
         -- continuous mode -- a queued request could be admitted into a
         free slot mid-chunk."""
         cap = self.serve.decode_chunk or getattr(self.plan, "decode_chunk", 1)
+        if self._shrink_ticks > 0:
+            # the ladder's third stage: finer chunks recycle frames sooner,
+            # back to the configured cap after _shrink_ticks steps
+            cap = min(int(cap), self._shrink_cap)
+            self._shrink_ticks -= 1
+            if self._shrink_ticks == 0:
+                self._shrink_cap = None
+        fp = faults.current()
+        if (fp is not None and fp.spec.preempt_every > 0
+                and self.serve.scheduler == "continuous"):
+            # an injected preemption lands on a chunk boundary: T stops at
+            # the next one (chunking only; the tokens are unchanged)
+            due = (self._preempt_due_at if self._preempt_due_at is not None
+                   else fp.spec.preempt_every)
+            if due > self._ticks:
+                cap = min(int(cap), due - self._ticks)
         if cap <= 1 or self.serve.eos_id is not None:
             return 1
         if not self._engine.fused_eligible():
@@ -819,8 +1006,8 @@ class Server:
                    for h, d in zip(self._wave["handles"], self._wave["done"])
                    if not d]
         else:
-            if self._pending and self._free:
-                return 1               # a due arrival could admit
+            if (self._pending or self._ckpts) and self._free:
+                return 1               # a due arrival or a resume could admit
             rem = [h.decode_len - len(h.tokens)
                    for h in self._slot_handle
                    if h is not None and not h.finished]
@@ -828,6 +1015,7 @@ class Server:
             return 1
         return max(1, min(int(cap), min(rem)))
 
+    @hot_path
     def _decode_tick(self, T: int = 1) -> None:
         """``T`` module-batched decode ticks over the full engine batch, one
         chunk (the fused chunk when the engine is eligible); live slots
@@ -845,8 +1033,10 @@ class Server:
                   if self._slot_handle[s] is not None]] = True
         t0 = self._now()
         toks = engine.decode_chunk(self._cur, self._pos, sampler, T, live=live)
-        mat = toks.cpu().numpy()              # the one d2h sync per chunk
+        with sanitizer.allowed("token-readback"):
+            mat = toks.cpu().numpy()  # lint: allow[MG101] the one planned token read a chunk
         now = self._now()
+        self._ticks += T
         self.report.decode_s += now - t0
         if wave is not None:
             wave["decode_s"] += now - t0

@@ -21,18 +21,24 @@ of that policy:
   preallocated (E, ...) stack; a hot-expert LRU keeps recently used experts
   on the device.
 
-The window's fault hooks (the reference's ``RetryPolicy``, watchdog and
-stalled-transfer injection) belong to the faults slice of the port and are
-not here.
+Every copy consults the armed fault plan (``repro_torch.faults``; nothing
+happens unarmed): a transient failure injected at issue is retried under the
+window's ``RetryPolicy``, and a stalled or overdue copy is abandoned at
+``acquire`` and fetched again (``StreamWindow``).
 """
 from __future__ import annotations
 
+import sys
+import time
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from repro_torch import faults
+from repro_torch.analysis import runtime as sanitizer
+from repro_torch.analysis.markers import hot_path
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import workload as W
 from repro_torch.device import resolve_device
@@ -136,7 +142,8 @@ class _HostBuffer:
         _PINNED["bytes"] += nbytes
 
     def __del__(self) -> None:
-        if self.pinned:
+        # at interpreter exit the process's end unpins it
+        if self.pinned and not sys.is_finalizing():
             torch.cuda.cudart().cudaHostUnregister(self.tensor.data_ptr())
             _PINNED["bytes"] -= self.pinned
             self.pinned = 0
@@ -181,6 +188,8 @@ class _Entry:
     slot: Optional[int]                   # None: issued, its copy deferred
     value: object = None
     ready: Optional["torch.cuda.Event"] = None
+    issued_at: float = 0.0                # host clock when its copy was queued
+    dead: bool = False                    # an injected stall: never consumed
 
 
 class StreamWindow:
@@ -213,14 +222,31 @@ class StreamWindow:
     read).
 
     On the CPU the slots are host tensors and a fetch is a plain copy; the
-    counters count the same keys and bytes, and ``wait_s`` stays 0."""
+    counters count the same keys and bytes, and ``wait_s`` stays 0.
+
+    Faults (the reference's semantics, ``repro_torch.faults``): each issue
+    -- a prefetch or a demand fetch -- first draws an injected transient
+    failure from the armed plan, before its copy is queued; a failure is
+    retried under ``retry`` (``RetryPolicy``, with its backoff), the retried
+    copy counted under the sanitizer tag ``fault-retry`` (a first attempt
+    under ``tag``); exhaustion raises
+    ``TransientTransferError``.  A prefetch may draw a stall, which marks
+    its entry dead.  With a finite ``retry.watchdog_s`` an entry whose copy
+    is older than that and not yet done (``Event.query``, which does not
+    block) is dead too.  ``acquire`` of a dead entry counts a timeout and
+    fetches the key again on demand (``fault-retry``); the dead copy's slot
+    is reused only behind that copy (``_after``).  The host never waits on
+    a copy.  ``retries`` and ``timeouts`` are drained by
+    ``take_fault_counters``."""
 
     def __init__(self, fetch: Callable, size: Callable, slot_bytes: int,
                  device: torch.device, depth: int = 2,
-                 tag: str = "stream-window") -> None:
+                 tag: str = "stream-window",
+                 retry: Optional[faults.RetryPolicy] = None) -> None:
         self._fetch = fetch
         self._size = size
         self.tag = tag
+        self.retry = retry if retry is not None else faults.RetryPolicy()
         self.depth = max(1, depth)
         self.device = device
         self._cuda = device.type == "cuda"
@@ -240,12 +266,15 @@ class StreamWindow:
         self.demand = 0
         self.copies = 0
         self.copied_bytes = 0
+        self.retries = 0
+        self.timeouts = 0
 
     def _issue(self, key, e: _Entry) -> None:
         """Enqueue ``key``'s copy into ``e.slot`` on the copy stream, after
         the slot's last reader."""
         buf = self._slots[e.slot]
         self.copies += 1
+        e.issued_at = time.perf_counter()
         if not self._cuda:
             e.value, nbytes = self._fetch(key, buf)
             self.copied_bytes += nbytes
@@ -258,6 +287,61 @@ class StreamWindow:
             e.ready = torch.cuda.Event(enable_timing=True)
             e.ready.record(cs)
         self.copied_bytes += nbytes
+
+    def _issue_with_retry(self, key, e: _Entry, recovery: bool = False) -> None:
+        """One issue of ``key``: draw the injected transient failure, and on
+        success queue the copy (when ``e`` has a slot), counted under the
+        attempt's tag: ``tag`` for a first attempt, ``fault-retry`` for a
+        retry or a ``recovery`` fetch (a copy is no host read: the guards
+        stay on).  A failure is retried under the policy and raises
+        ``TransientTransferError`` once it is spent."""
+        delay = self.retry.backoff_s
+        for attempt in range(self.retry.max_retries + 1):
+            sanitizer.count("fault-retry" if recovery or attempt else self.tag)
+            fp = faults.current()
+            if fp is None or not fp.transfer_fault(self.tag, key):
+                if e.slot is not None:
+                    self._issue(key, e)
+                return
+            if attempt >= self.retry.max_retries:
+                raise faults.TransientTransferError(
+                    f"injected transient transfer fault (window {self.tag!r}, key {key!r})")
+            self.retries += 1
+            faults.note(f"recovered:transfer-retry:{self.tag}")
+            if delay > 0.0:
+                time.sleep(min(delay, self.retry.backoff_cap_s))
+            delay = min(delay * 2.0, self.retry.backoff_cap_s or delay)
+
+    def _landed(self, e: _Entry) -> bool:
+        """Whether ``e``'s copy is done (never blocks)."""
+        return e.ready is None or e.ready.query()
+
+    def _overdue(self, e: _Entry) -> bool:
+        """A queued copy older than the watchdog and not yet done."""
+        wd = self.retry.watchdog_s
+        return (wd is not None and e.slot is not None
+                and time.perf_counter() - e.issued_at > wd and not self._landed(e))
+
+    def _recover(self, key, e: _Entry) -> _Entry:
+        """Abandon a dead entry and fetch ``key`` again on demand.  Its slot
+        goes back to the free list, and the next copy into it first waits
+        for the dead copy."""
+        self.timeouts += 1
+        faults.note(f"recovered:transfer-timeout:{self.tag}")
+        if e.slot is not None:
+            if e.ready is not None:
+                self._after[e.slot] = e.ready
+            self._free.append(e.slot)
+        fresh = _Entry(self._claim())
+        try:
+            self._issue_with_retry(key, fresh, recovery=True)
+        except faults.TransientTransferError as err:
+            raise faults.StreamTimeoutError(
+                f"stalled stream copy and the recovery fetch failed after "
+                f"{self.retry.max_retries} retries (window {self.tag!r}, key {key!r})") from err
+        self.htod_bytes += self._size(key)
+        self.demand += 1
+        return fresh
 
     def _claim(self) -> int:
         """A slot for a copy that goes out now: a free one, else the one of
@@ -273,6 +357,7 @@ class StreamWindow:
                 return slot
         raise RuntimeError(f"stream window {self.tag!r} has no slot")
 
+    @hot_path
     def prefetch(self, key) -> None:
         """Issue ``key``'s copy into the window (returns at once).  No-op
         when it is already in flight."""
@@ -283,27 +368,33 @@ class StreamWindow:
             if e.slot is not None:          # a later copy into it queues
                 self._free.append(e.slot)   # behind this one on the stream
         e = _Entry(self._free.pop(0) if self._free else None)
-        if e.slot is not None:
-            self._issue(key, e)
+        self._issue_with_retry(key, e)
+        fp = faults.current()
+        if fp is not None and fp.stall_fault(self.tag, key):
+            e.dead = True
         self.inflight[key] = e
         self._order.append(key)
         self.htod_bytes += self._size(key)
         self.issued += 1
 
+    @hot_path
     def acquire(self, key):
         """Consume ``key``'s copy (or fetch it on demand) and make the
         compute stream wait for it; returns its views.  Ends the previous
-        lease first."""
+        lease first.  A dead entry (stalled, or overdue past the watchdog)
+        is fetched again on demand."""
         self.release()
         e = self.inflight.pop(key, None)
         if e is None:
             e = _Entry(self._claim())
-            self._issue(key, e)
+            self._issue_with_retry(key, e)
             self.htod_bytes += self._size(key)
             self.demand += 1
         else:
             self._order.remove(key)
-            if e.slot is None:
+            if e.dead or self._overdue(e):
+                e = self._recover(key, e)
+            elif e.slot is None:
                 e.slot = self._claim()
                 self._issue(key, e)
         self._wait(e)
@@ -353,6 +444,12 @@ class StreamWindow:
             self._after[self._lease] = ev
         self._free.append(self._lease)
         self._lease, self._lease_key, self._lease_ready = None, None, None
+
+    def take_fault_counters(self) -> Tuple[int, int]:
+        """Drain (retries, timeouts) since the last call."""
+        out = (self.retries, self.timeouts)
+        self.retries = self.timeouts = 0
+        return out
 
     def take_counters(self) -> Tuple[int, float]:
         """Drain (htod_bytes, wait_s) since the last call.  A wait counts
@@ -582,7 +679,10 @@ class ParamStore:
         return bool(self._experts_host) or any(h is not None for h in self._host)
 
     def __del__(self) -> None:
-        self.close()
+        # a store alive at interpreter exit is left to the process's end:
+        # torch's modules may already be torn down
+        if not sys.is_finalizing():
+            self.close()
 
     # -- residency inspection ---------------------------------------------
     @property
@@ -707,6 +807,7 @@ class ParamStore:
         self._lru[key] = row
         self._lru_used += nbytes
 
+    @hot_path
     def prefetch_experts(self, li: int, expert_ids: Iterable[int]) -> None:
         """Issue the predicted experts of layer ``li`` into the expert
         window; experts the LRU holds need no copy."""
@@ -721,6 +822,7 @@ class ParamStore:
             if 0 <= e < E and (li, e) not in self._lru:
                 self._expert_window.prefetch((li, e))
 
+    @hot_path
     def acquire_experts(self, li: int, expert_ids: Iterable[int],
                         record: bool = True) -> Tuple[torch.Tensor, ...]:
         """Layer ``li``'s (E, ...) expert stacks with the weights of
@@ -759,6 +861,12 @@ class ParamStore:
         b1, w1 = self._window.take_counters()
         b2, w2 = self._expert_window.take_counters()
         return b1 + b2, w1 + w2
+
+    def take_fault_counters(self) -> Tuple[int, int]:
+        """Drain (transfer retries, timeouts) of both windows."""
+        r1, t1 = self._window.take_fault_counters()
+        r2, t2 = self._expert_window.take_fault_counters()
+        return r1 + r2, t1 + t2
 
     def take_expert_counters(self) -> Dict[str, int]:
         """Drain the predictive counters: ``pred_hits`` (the expert was

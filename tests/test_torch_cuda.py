@@ -1024,3 +1024,179 @@ def test_cuda_deleted_paged_server_frees_device_and_pinned_memory(cuda, omega):
     del server
     assert torch.cuda.memory_allocated() == before
     assert weights_mod.pinned_bytes() == pinned
+
+
+# ---------------------------------------------------------------------------
+# Analysis and faults on the card
+# ---------------------------------------------------------------------------
+def _smoke_server(device, serve_kw=None, n=6, decode_len=10, seed=5, B=4, submit=True):
+    """A smoke OLMoE server (bf16) and ``n`` ragged requests, submitted
+    unless ``submit`` is False."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.dag_builder import Plan
+    from repro_torch.models import model as M
+    from repro_torch.serving.server import Request, ServeConfig, Server
+
+    cfg = get_config("olmoe-1b-7b", smoke=True)
+    params = M.init_params(cfg, seed=0, device=device)
+    rng = np.random.default_rng(seed)
+    server = Server(cfg, params, Plan(B=B, b_a=2, b_e=B, omega=0.0, decode_chunk=4),
+                    serve=ServeConfig(decode_len=decode_len, max_seq=64, **(serve_kw or {})),
+                    device=device)
+    requests = [Request(rng.integers(5, cfg.vocab_size - 5, 6 + 3 * i).astype(np.int32),
+                        decode_len - i % 3) for i in range(n)]
+    if submit:
+        for r in requests:
+            server.submit(r)
+    return server if submit else (server, requests)
+
+
+def _served_tokens(server):
+    return [r.tokens.tolist() for r in server.run().request_results]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fused", "paged-k3p", "prefix-hit"])
+def test_cuda_paths_are_sanitizer_clean(cuda, path):
+    """Under ``sanitize(strict=True, pointers=True)`` -- host-read guard and
+    ``set_sync_debug_mode("error")`` in every decode region, pointer check
+    after every tick -- the fused graph chunk, the per-module path with K3p
+    and a prefix-hit run serve with no violation.  The same requests served
+    again by the same server, in a steady region, capture no graph and give
+    the same tokens.  (The ``set_sync_debug_mode`` tests above hold the
+    unarmed path.)"""
+    from repro_torch import analysis
+
+    ops.reset_launch_counts()
+    with analysis.sanitize(strict=True, pointers=True) as san:
+        if path == "prefix-hit":
+            server = _prefix_replan_server(cuda)
+            server.run()
+        else:
+            kw = ({"kv_page_tokens": 8, "device_kv_gb": 2e-5} if path == "paged-k3p"
+                  else {"scheduler": "static"})
+            server, reqs = _smoke_server(cuda, kw, submit=False)
+            first = [server.submit(r) for r in reqs]
+            while server.step():
+                pass
+            with san.steady():
+                again = [server.submit(r) for r in reqs]
+                while server.step():
+                    pass
+            assert [h.tokens for h in again] == [h.tokens for h in first]
+    rep = san.report()
+    assert rep["host_reads"] == [] and rep["pointer_violations"] == []
+    assert rep["steady_retraces"] == {} and rep["pointer_checks"] > 0
+    assert rep["planned_transfers"]["token-readback"] > 0
+    counts = ops.launch_counts()
+    if path == "fused":
+        assert server._engine.stats.fused_ticks > 0 and server._engine.graph_captures
+    if path == "paged-k3p":
+        assert counts["decode_attention_paged"] > 0 and not counts["decode_attention"]
+    if path == "prefix-hit":
+        assert server.report.prefix_hits > 0
+
+
+@pytest.mark.cuda
+def test_cuda_watchdog_recovers_an_overdue_copy(cuda):
+    """A copy held up on the real copy stream (a spin queued before it) is
+    older than the watchdog and not done at ``acquire``: it is abandoned by
+    ``Event.query`` alone, fetched again, and the consumer reads the right
+    bytes; the host never waited on the copy."""
+    import time
+
+    from repro_torch import faults
+    from repro_torch.serving.weights import StreamWindow, _HostBuffer
+
+    host = _HostBuffer(1 << 20)
+    host.tensor.copy_(torch.arange(1 << 20, dtype=torch.int64).to(torch.uint8))
+    host.pin()
+
+    def fetch(key, slot):
+        torch.cuda._sleep(100_000_000)             # ~50 ms on the copy stream
+        slot.copy_(host.tensor, non_blocking=True)
+        return slot, slot.numel()
+
+    win = StreamWindow(fetch, lambda key: 1 << 20, 1 << 20, cuda, depth=2,
+                       retry=faults.RetryPolicy(watchdog_s=0.005))
+    win.prefetch(0)
+    time.sleep(0.01)
+    t0 = time.perf_counter()
+    out = win.acquire(0)
+    assert time.perf_counter() - t0 < 0.04         # no host wait on the copy
+    assert win.timeouts == 1 and win.copies == 2 and win.demand == 1
+    assert torch.equal(out.cpu(), host.tensor)
+    torch.cuda.synchronize()
+    win.close()
+
+
+@pytest.mark.cuda
+def test_cuda_preempt_and_resume_with_live_graphs(cuda):
+    """Injected preemptions on the fused path: checkpoints go to pageable
+    host memory, resumes write the rows back in place, the captured graphs
+    stay valid (no pointer moves, and the armed run captures exactly the
+    graphs the unarmed run captures: none for a resume) and the tokens
+    equal the unarmed run's."""
+    from repro_torch import analysis, faults
+
+    kw = {"scheduler": "continuous"}
+    with faults.shielded():
+        plain = _smoke_server(cuda, kw)
+        want = _served_tokens(plain)
+    server = _smoke_server(cuda, dict(kw, faults="seed=3,preempt=3"))
+    with analysis.sanitize(strict=True, pointers=True) as san:
+        got = _served_tokens(server)
+    assert got == want
+    rep = server.report
+    assert rep.preemptions > 0 and rep.resumes == rep.preemptions
+    assert server._engine.stats.fused_ticks > 0
+    keys = [[g["key"] for g in srv._engine.graph_captures] for srv in (plain, server)]
+    assert keys[1] == keys[0] and keys[0]
+    assert san.report()["pointer_violations"] == [] and san.planned["ckpt-restore"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_demotion_mid_run_keeps_tokens(cuda):
+    """Device page frames demoted to the host tier mid-run (the ladder's
+    second stage, on the copy stream) change where the bytes sit, not the
+    tokens: the per-module K3p path reads them through the window."""
+    # 4 slots, 2 requests: 12 device frames of 32, and host frames left free
+    kw = {"scheduler": "continuous", "kv_page_tokens": 8, "device_kv_gb": 1e-4,
+          "max_batch": 4}
+    want = _served_tokens(_smoke_server(cuda, kw, n=2))
+    server = _smoke_server(cuda, kw, n=2)
+    server.step()
+    server.step()
+    pages = server._engine.pages
+    assert pages.demote_device_frames(pages.pages_per_seq) > 0
+    got = _served_tokens(server)
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_cuda_store_alive_at_exit_leaves_no_error(cuda):
+    """A streamed store still referenced when the interpreter exits (a
+    script's module global) does not try to close itself once torch's
+    modules are torn down: the process exits 0 with no ignored exception
+    from ``ParamStore.__del__`` on its standard error."""
+    import os
+    import subprocess
+    import sys
+
+    script = (
+        "from dataclasses import replace\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.core import workload as W\n"
+        "from repro_torch.serving.weights import ParamStore\n"
+        "cfg = replace(get_config('olmoe-1b-7b'), num_layers=2)\n"
+        "budget = W.base_weight_bytes(cfg) + 2 * W.mixer_weight_bytes(cfg, 'attn')\n"
+        "store = ParamStore.seeded(cfg, 0, resident_bytes=budget, device='cuda')\n"
+        "assert store.streamed_module_bytes() > 0\n")
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "Exception ignored" not in out.stderr, out.stderr[-2000:]

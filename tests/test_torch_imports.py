@@ -54,9 +54,18 @@ def test_no_jax_or_reference_imports(path):
     "import jax\n", "import jaxlib.xla_client\n", "from repro.models import moe\n",
     "import repro.kernels.ops as o\n", "import importlib\nimportlib.import_module('repro.core')\n",
     "import torch\nf = torch.compile(lambda x: x)\n",
+    "from repro.analysis import runtime\n", "from repro import faults\n",
+    "import repro.faults.plan\n", "from repro.analysis.lint import check_source\n",
 ])
 def test_guard_flags_banned_code(src):
     assert violations(src)
+
+
+def test_guard_scans_the_analysis_and_faults_packages():
+    """The port's own analysis and faults packages are among the scanned
+    files (they are copies of reference modules, never imports of them)."""
+    scanned = {p.relative_to(ROOT / "src" / "repro_torch").parts[0] for p in FILES[:-1]}
+    assert {"analysis", "faults"} <= scanned
 
 
 def test_guard_allows_the_port():

@@ -165,10 +165,10 @@ def test_synthetic_requests_and_validation():
                     serve=ServeConfig(max_seq=10), device="cpu")
     with pytest.raises(ValueError, match="max_seq"):
         server.submit(Request(np.zeros(9, np.int32), 4))
-    # the reference's rules: a prefix cache needs paging; re-planning is a knob
+    # the reference's rules: a prefix cache needs paging; re-planning and
+    # fault injection are knobs
     assert ServeConfig(kv_page_tokens=16, prefix_cache=True).prefix_cache
     with pytest.raises(AssertionError, match="paging"):
         ServeConfig(prefix_cache=True)
     assert ServeConfig(replan_skew=2.0).replan_skew == 2.0
-    with pytest.raises(NotImplementedError, match="faults"):
-        ServeConfig(faults="seed=0")
+    assert ServeConfig(faults="seed=0").faults == "seed=0"
