@@ -148,6 +148,9 @@ PATH_KERNELS = {
     "serve_omega": ("expert_gate_up", "grouped_matmul", "decode_attention", "flash_attention"),
     "serve_paged": ("expert_gate_up", "grouped_matmul", "decode_attention_paged",
                     "flash_attention"),
+    "serve_replicas": ("expert_gate_up", "grouped_matmul", "decode_attention",
+                       "flash_attention"),
+    "serve_ep": ("expert_gate_up", "grouped_matmul", "decode_attention", "flash_attention"),
 }
 # every launch of a served (bf16, full-size) path must take these designs
 NEW_DESIGNS = (("expert_gate_up", "wgmma"), ("grouped_matmul", "wgmma"),
@@ -326,7 +329,7 @@ RANGES = ("ssm_decode",)     # profiler ranges whose device time is read
 # host calls that queue device work: a launch (of a kernel or a graph), a
 # copy, a fill; each leaves one device record or more of its correlation
 ENQUEUES = ("Launch", "Memcpy", "Memset")
-TRACE_ATTEMPTS = 3
+TRACE_ATTEMPTS = 5
 
 
 def trace_events(prof) -> list:
@@ -345,9 +348,11 @@ def lost_device_records(events) -> dict:
     record of their correlation, by call name: records the profiler dropped.
     On the H100 a trace begun with the profiler (no warm-up) lost the device
     records of its first few launches and copies in most regions, and a
-    cluster elsewhere now and then; a lost record of a weight copy fails a
-    check that holds the trace's copies to the bytes the store queued, with
-    no fault in the port."""
+    cluster elsewhere now and then; with the warm-up, about one trace in
+    ten of a decode chunk loses the records of the two copies and launches
+    around its graph replays (its first two or its last two host calls).  A
+    lost record of a weight copy fails a check that holds the trace's copies
+    to the bytes the store queued, with no fault in the port."""
     queued, seen = {}, set()
     for ev in events:
         cat, corr = ev.get("cat", ""), ev.get("args", {}).get("correlation")
@@ -415,6 +420,8 @@ def profile_region(fn, top: int = 12):
         dev_us = getattr(evt, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "cuda_time_total", 0.0)
+        if evt.key.startswith("ProfilerStep"):
+            continue                         # the schedule's step range, not a kernel
         if evt.key in RANGES:                # a range: its host-side event sums
             if getattr(evt, "device_type", None) == DeviceType.CPU:   # its kernels
                 ranges[evt.key] = dev_us / 1e3
@@ -2978,20 +2985,22 @@ def paged_faults_run(dev, cfg, params, plan, requests, decode_len: int, spec: st
     return rec
 
 
-def wave_witness(dev, cfg, params, plan, requests, serve_kw: dict, waves) -> dict:
-    """A fault-free witness of an OOM-deferred run: ``requests`` served with
-    ``serve_kw`` (continuous, one decode tick a step), each admission wave
-    of ``waves`` ((decode tick, request indices), as ``ServeReport
-    .admission_waves`` records them) submitted just before the step at
-    its tick, so that it is admitted then, in one prefill, beside the rows
-    already decoding.  Fails unless the witness's own waves are those."""
+def wave_witness(dev, cfg, params, plan, requests, serve_kw: dict, waves,
+                 phase: str = "serve_faults", max_batch=None) -> dict:
+    """A fault-free witness of an OOM-deferred run (or of one replica of a
+    fleet): ``requests`` served with ``serve_kw`` (one decode tick a step),
+    each admission wave of ``waves`` ((decode tick, request indices), as
+    ``ServeReport.admission_waves`` records them) submitted just before the
+    step at its tick, so that it is admitted then, in one prefill, beside
+    the rows already decoding; ``max_batch`` engine slots (default: one a
+    request).  Fails unless the witness's own waves are those."""
     from repro_torch.kernels import ops
     from repro_torch.serving import weights as wmod
     from repro_torch.serving.server import ServeConfig, Server
 
     before, pinned = torch.cuda.memory_allocated(), wmod.pinned_bytes()
-    kw = dict(serve_kw, decode_chunk=1, max_batch=len(requests),
-              max_seq=max(len(r.prompt) for r in requests) + serve_kw["decode_len"])
+    kw = dict(serve_kw, decode_chunk=1, max_batch=max_batch or len(requests))
+    kw.setdefault("max_seq", max(len(r.prompt) for r in requests) + serve_kw["decode_len"])
     server = Server(cfg, params, plan, serve=ServeConfig(**kw), device=dev)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -3006,11 +3015,11 @@ def wave_witness(dev, cfg, params, plan, requests, serve_kw: dict, waves) -> dic
     rec = {"report": rep, "counts": ops.launch_counts(), "wall_s": time.perf_counter() - t0,
            "tokens": [r.tokens for r in rep.request_results]}
     del server
-    freed("serve_faults", "witness server", before)
+    freed(phase, "witness server", before)
     if wmod.pinned_bytes() != pinned:
-        raise AssertionError("serve_faults: a witness server left page-locked bytes")
+        raise AssertionError(f"{phase}: a witness server left page-locked bytes")
     if [list(w) for w in rep.admission_waves] != [list(w) for w in waves]:
-        raise AssertionError(f"serve_faults: the witness was admitted in "
+        raise AssertionError(f"{phase}: the witness was admitted in "
                              f"{rep.admission_waves}, not in {waves}")
     return rec
 
@@ -3677,6 +3686,456 @@ def parity_omega_paged(dev, rng):
     if wmod.pinned_bytes() != pinned:
         raise AssertionError("parity: the omega + Mode B engine left page-locked bytes")
 
+# ---------------------------------------------------------------------------
+# Distributed serving: replicas in one process, expert-parallel rank processes
+# ---------------------------------------------------------------------------
+REPLICAS, EP_RANKS = 2, 2
+FAILOVER = "seed=1,kill=1@3"      # replica 1 dies at fleet step 3
+EP_NOTE = ("two rank processes sharing one card, exchanging through host memory by gloo: "
+           "one card's figures, not an interconnect's")
+
+
+def serve_requests(cfg, lens, decode_len: int):
+    from repro_torch.data.datasets import DatasetSpec, synthetic_requests
+
+    return synthetic_requests(DatasetSpec("smoke", len(lens), max(lens), decode_len),
+                              cfg.vocab_size, seed=0, prompt_lens=lens)
+
+
+def logit_gate(phase: str, what: str, got: dict, want: dict, keys) -> dict:
+    """Each request's first-token logits ``got[i]`` within 0.02 of the peak of
+    ``want[i]`` (the one-Server run's row); returns the worst and median."""
+    import numpy as np
+
+    errs = []
+    for i in keys:
+        w = want[i].float()
+        errs.append(float((got[i].float() - w).abs().max() / w.abs().max()))
+    rec = {"phase": phase, "logits": what, "rel_err_max": max(errs),
+           "rel_err_median": float(np.median(errs)),
+           "bit_identical_rows": sum(int(torch.equal(got[i], want[i])) for i in keys),
+           "rows": len(errs)}
+    emit(rec)
+    if rec["rel_err_max"] >= REL_BF16:
+        raise AssertionError(f"{phase} {what}: first-token logits {rec['rel_err_max']} of "
+                             f"the row peak off the one-Server run's (gate {REL_BF16})")
+    return rec
+
+
+def fleet_run(dev, cfg, params, plan, requests, serve_kw: dict, policy: str) -> dict:
+    """``requests`` through a ``ReplicaServer`` of ``REPLICAS`` replicas on the
+    card (the weight tensors shared), the launch counts set to 0 just before
+    and read just after; each replica's first-token logits, decode-chunk
+    host syncs, requests in local order and waves are kept.  The deleted
+    fleet must free every engine."""
+    from repro_torch.distributed import ReplicaServer
+    from repro_torch.kernels import ops
+    from repro_torch.serving import weights as wmod
+    from repro_torch.serving.server import ServeConfig
+
+    before, pinned = torch.cuda.memory_allocated(), wmod.pinned_bytes()
+    rs = ReplicaServer(cfg, params, REPLICAS, plan=plan, serve=ServeConfig(**serve_kw),
+                       policy=policy, device=dev)
+    for r in requests:
+        rs.submit(r)
+    logits, syncs = [], []
+    for s in rs.servers:
+        s._ensure_engine()
+        logits.append(first_logits(s))
+        syncs.append(watch_decode_syncs(s))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = rs.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = {"merged": rep.merged, "per_replica": rep.per_replica, "wall_s": wall,
+           "counts": ops.launch_counts(), "routes": list(rs._routes),
+           "syncs": [dict(x) for x in syncs],
+           "requests": [[h.request for h in s._handles] for s in rs.servers],
+           "fused": [s._engine.stats.fused_ticks for s in rs.servers],
+           "B": [s._b for s in rs.servers],
+           "logits": {g: logits[i][local] for g, (i, local) in enumerate(rs._routes)}}
+    for s in rs.servers:
+        untap(s._engine)
+        untap(s)
+    del rs, s
+    freed("serve_replicas", f"{policy} fleet of {REPLICAS} replicas", before)
+    if wmod.pinned_bytes() != pinned:
+        raise AssertionError("serve_replicas: the deleted fleet left page-locked bytes")
+    return rec
+
+
+def check_fleet(run: str, rec: dict, n_requests: int, decode_len: int) -> None:
+    """Every request served once, in submission order, with its tokens;
+    merged work counters the replicas' sums and phase times their maxima;
+    no host wait in a decode chunk but the planned ones."""
+    m, per = rec["merged"], rec["per_replica"]
+    if [r.index for r in m.request_results] != list(range(n_requests)) or any(
+            r.tokens.size != decode_len for r in m.request_results):
+        raise AssertionError(f"serve_replicas {run}: requests not served once each in "
+                             f"submission order")
+    for name in ("decode_slot_steps", "wasted_slot_steps", "prefill_tokens", "a2a_bytes",
+                 "collective_dispatches", "expert_tokens_dropped"):
+        if getattr(m, name) != sum(getattr(r, name) for r in per):
+            raise AssertionError(f"serve_replicas {run}: merged {name} is not the sum")
+    if m.decode_s != max(r.decode_s for r in per) or m.prefill_s != max(
+            r.prefill_s for r in per):
+        raise AssertionError(f"serve_replicas {run}: merged phase times are not the maxima")
+    if any(rec["syncs"]):
+        raise AssertionError(f"serve_replicas {run}: host syncs inside decode chunks: "
+                             f"{rec['syncs']}")
+    if m.expert_tokens_dropped:
+        raise AssertionError(f"serve_replicas {run}: {m.expert_tokens_dropped} copies dropped")
+
+
+def phase_serve_replicas(dev, params):
+    """Serve's 64 requests on ``REPLICAS`` data-parallel replicas behind one
+    queue, in this process, the weights shared: static under
+    ``least-loaded`` then ``round-robin`` routing, then continuous with one
+    decode tick a step and replica 1 killed at fleet step 3 (``FAILOVER``).
+    Each replica is held bit for bit to a witness: a fault-free ``Server``
+    fed exactly that replica's requests in its order and waves, at its
+    batch; the merged first-token logits within 0.02 of the one-Server
+    run's row peak; the failover run fails over once, requeues the dead
+    replica's requests and gives its witness's tokens.  Returns the static
+    least-loaded run's launch counts."""
+    import numpy as np
+
+    cfg, plan, lens, decode_len = serve_setup(short_lengths(), 32)
+    requests = serve_requests(cfg, lens, decode_len)
+    n = len(requests)
+    base = dict(decode_len=decode_len, max_seq=max(lens) + decode_len)
+    one = served(dev, cfg, params, plan, requests, dict(base, scheduler="static"),
+                 phase="serve_replicas", taps=first_logits)
+    one_logits = one["seen"]
+    runs, witnessed = {}, {}
+    for policy in ("least-loaded", "round-robin"):
+        rec = fleet_run(dev, cfg, params, plan, requests, dict(base, scheduler="static"),
+                        policy)
+        check_fleet(policy, rec, n, decode_len)
+        counts = rec["counts"]
+        ticks = [r.decode_slot_steps // b for r, b in zip(rec["per_replica"], rec["B"])]
+        if any(f != t for f, t in zip(rec["fused"], ticks)):
+            raise AssertionError(f"serve_replicas {policy}: decode ticks {ticks}, graph "
+                                 f"replays {rec['fused']}")
+        if dev.type == "cuda" and (not all(counts[k] > 0 for k in PATH_KERNELS["serve_replicas"])
+                                   or any(counts[k] != counts[f"{k}_{d}"] for k, d in NEW_DESIGNS)):
+            raise AssertionError(f"serve_replicas {policy}: launches {counts}")
+        key = tuple(rec["routes"])
+        if key not in witnessed:            # both policies route serve's requests alike
+            witnessed[key] = [
+                wave_witness(dev, cfg, params, plan, reqs, dict(base, scheduler="static"),
+                             [list(w) for w in r.admission_waves], phase="serve_replicas",
+                             max_batch=b)
+                for reqs, r, b in zip(rec["requests"], rec["per_replica"], rec["B"])]
+        for i, (w, r) in enumerate(zip(witnessed[key], rec["per_replica"])):
+            got = [x.tokens for x in sorted(r.request_results, key=lambda x: x.index)]
+            if not all(np.array_equal(a, b) for a, b in zip(got, w["tokens"])):
+                raise AssertionError(f"serve_replicas {policy}: replica {i} differs from "
+                                     f"its witness")
+        same = [bool(np.array_equal(a.tokens, b))
+                for a, b in zip(rec["merged"].request_results, one["tokens"])]
+        gate = logit_gate("serve_replicas", policy, rec["logits"], one_logits, range(n))
+        m = rec["merged"]
+        emit({"phase": "serve_replicas", "run": policy, "replicas": REPLICAS,
+              "wall_s": rec["wall_s"], "decode_tok_s": m.decode_throughput,
+              "prefill_tok_s": m.prefill_throughput,
+              "per_replica": [{"requests": len(r.request_results), "B": b,
+                               "decode_tok_s": r.decode_throughput,
+                               "decode_s": r.decode_s, "prefill_s": r.prefill_s,
+                               "waves": r.admission_waves}
+                              for r, b in zip(rec["per_replica"], rec["B"])],
+              "witness_bit_identical": True, "requests_equal_to_one_server": sum(same),
+              "logits_rel_err_max": gate["rel_err_max"], "launches": counts})
+        runs[policy] = rec
+    # failover: continuous, one decode tick a step, replica 1 killed
+    kw = dict(base, scheduler="continuous", decode_chunk=1)
+    rec = fleet_run(dev, cfg, params, plan, requests, dict(kw, faults=FAILOVER),
+                    "round-robin")
+    check_fleet("failover", rec, n, decode_len)
+    m = rec["merged"]
+    if m.failovers != 1 or m.requeued_requests <= 0:
+        raise AssertionError(f"serve_replicas failover: {m.failovers} failovers, "
+                             f"{m.requeued_requests} requeued")
+    survivor = 0
+    reqs, r = rec["requests"][survivor], rec["per_replica"][survivor]
+    w = wave_witness(dev, cfg, params, plan, reqs, kw, [list(x) for x in r.admission_waves],
+                     phase="serve_replicas", max_batch=rec["B"][survivor])
+    got = {x.index: x.tokens for x in r.request_results}
+    if not all(np.array_equal(got[i], t) for i, t in enumerate(w["tokens"]) if i in got):
+        raise AssertionError("serve_replicas failover: the survivor differs from its witness")
+    served_by = {i for i, _ in rec["routes"]}
+    same = [bool(np.array_equal(a.tokens, b)) for a, b in zip(m.request_results,
+                                                               one["tokens"])]
+    gate = logit_gate("serve_replicas", "failover", rec["logits"], one_logits, range(n))
+    emit({"phase": "serve_replicas", "run": "failover", "faults": FAILOVER,
+          "failovers": m.failovers, "requeued_requests": m.requeued_requests,
+          "served_by": sorted(served_by), "survivor_waves": r.admission_waves,
+          "wall_s": rec["wall_s"], "decode_tok_s": m.decode_throughput,
+          "witness_bit_identical": True, "requests_equal_to_one_server": sum(same),
+          "logits_rel_err_max": gate["rel_err_max"]})
+    return runs["least-loaded"]["counts"]
+
+
+def ep_rank(rank: int, n: int, group, cfg, plan, lens, decode_len: int, device: str):
+    """One expert-parallel rank of ``serve_ep``, in its own process on the card:
+    seeded OLMoE weights (every expert; this rank owns experts [32 r, 32 r +
+    32)), then serve's requests through a ``Server`` whose MoE decode stage
+    is collective over ``group``: a2a static (the timed run: launch counts,
+    decode-chunk host syncs, the collectives' and the stage's host wall,
+    the first decode tick's K1/K2 input on rank 0), a2a continuous, a2a at
+    two pipeline chunks, the same serial under the strict sanitizer (its
+    planned reads by tag), and psum.  Each deleted server must free its
+    bytes.  Returns the runs' records.  (On the CPU, for a rehearsal: no
+    syncs to watch, no device bytes to count.)"""
+    import numpy as np
+
+    from repro_torch import analysis
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.distributed import ep_engine
+    from repro_torch.kernels import expert_gemm, ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.server import ServeConfig, Server
+    from repro_torch.sharding.specs import ShardCtx
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    card = dev.type == "cuda"
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))   # the host's cores, shared
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    allocated = torch.cuda.memory_allocated if card else (lambda: 0)
+    if card:
+        prime(dev)
+    params = M.init_params(cfg, seed=0, device=dev)
+    requests = serve_requests(cfg, lens, decode_len)
+    E, D, F = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    runs = {}
+    for name, disp, chunks, sched, serial in (
+            ("a2a", "a2a", 1, "static", False), ("a2a_continuous", "a2a", 1, "continuous", False),
+            ("a2a_2", "a2a", 2, "static", False), ("a2a_2_serial", "a2a", 2, "static", True),
+            ("psum", "psum", 1, "static", False)):
+        before = allocated()
+        server = Server(cfg, params, plan, device=dev, serve=ServeConfig(
+            scheduler=sched, decode_len=decode_len, max_seq=max(lens) + decode_len,
+            sctx=ShardCtx(group=group, moe_dispatch=disp), ep_chunks=chunks))
+        for r in requests:
+            server.submit(r)
+        server._ensure_engine()
+        eng = server._engine
+        eng.ep_serial = serial
+        syncs = watch_decode_syncs(server) if card else {}
+        prefill_logits = first_logits(server)
+        first, wall = {}, {"collectives": 0.0, "stage": 0.0}
+        decode_rows, stage = eng._decode_rows, engine_mod.ep_expert_stage
+        post, gather, reduce_ = ep_engine._post_a2a, ep_engine._all_gather, ep_engine._all_reduce
+        ffn = ops.grouped_expert_ffn
+
+        def timed(fn, key):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    wall[key] += time.perf_counter() - t0
+            return call
+
+        class Work:
+            def __init__(self, work):
+                self.work = work
+
+            def wait(self):
+                return timed(self.work.wait, "collectives")()
+
+        def posted(*a, **kw):
+            recv, work = timed(post, "collectives")(*a, **kw)
+            return recv, Work(work)
+
+        def tap_rows(*a, **kw):
+            lg = decode_rows(*a, **kw)
+            if "logits" not in first:
+                first["logits"] = lg.clone()
+            return lg
+
+        def tap_ffn(x, *ws):
+            if x.shape[0] == E // n and "ffn" not in first:
+                first["ffn"] = (x.clone(), ws[-1].clone() if len(ws) == 4 else None)
+            return ffn(x, *ws)
+
+        def tap_stage(*a, **kw):
+            out = timed(stage, "stage")(*a, **kw)
+            if "stage" not in first:
+                first["stage"] = out[0].clone()
+            return out
+
+        eng._decode_rows = tap_rows
+        engine_mod.ep_expert_stage = tap_stage
+        ep_engine._post_a2a, ep_engine._all_gather = posted, timed(gather, "collectives")
+        ep_engine._all_reduce = timed(reduce_, "collectives")
+        ops.grouped_expert_ffn = tap_ffn
+        san = analysis.sanitize(strict=True) if serial else contextlib.nullcontext()
+        sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with san as sanitizer:
+                rep = server.run()
+            sync()
+        finally:
+            engine_mod.ep_expert_stage = stage
+            ep_engine._post_a2a, ep_engine._all_gather = post, gather
+            ep_engine._all_reduce = reduce_
+            ops.grouped_expert_ffn = ffn
+        ticks = rep.decode_slot_steps // server._b
+        st = eng.stats
+        runs[name] = {
+            "wall_s": time.perf_counter() - t0, "counts": ops.launch_counts(),
+            "tokens": [r.tokens for r in rep.request_results], "ticks": ticks,
+            "decode_tok_s": rep.decode_throughput, "decode_s": rep.decode_s,
+            "prefill_s": rep.prefill_s, "server_ms_per_tick": rep.decode_s * 1e3 / ticks,
+            "collectives_ms_per_tick": wall["collectives"] * 1e3 / ticks,
+            "stage_ms_per_tick": wall["stage"] * 1e3 / ticks,
+            "a2a_bytes": rep.a2a_bytes, "a2a_gb": rep.a2a_gb,
+            "collective_dispatches": rep.collective_dispatches,
+            "clock_broadcasts": rep.clock_broadcasts, "planned_reads": st.planned_reads,
+            "fused_ticks": st.fused_ticks, "dropped": rep.expert_tokens_dropped,
+            "syncs": dict(syncs), "B": server._b,
+            "planned": None if not serial else sanitizer.report()["planned_transfers"],
+            "host_reads": None if not serial else sanitizer.report()["host_reads"],
+            "first_decode_logits": first["logits"].float().cpu(),
+            "first_stage": first["stage"].float().cpu(),
+            "first_token_logits": torch.stack([prefill_logits[i]
+                                               for i in range(len(requests))]),
+            "ffn_input": (None if rank or name != "a2a" else
+                          tuple(None if t is None else t.cpu() for t in first["ffn"]))}
+        untap(server)
+        untap(eng)
+        del server, eng, rep, st, first, decode_rows, tap_rows, prefill_logits
+        if allocated() != before:
+            raise AssertionError(f"serve_ep rank {rank} {name}: the deleted server left "
+                                 f"{allocated() - before} bytes")
+    # the psum run against the a2a run (the single-device stage bit for bit):
+    # the first stage's rows (layer 0, first decode tick, the same inputs),
+    # the first-token logits and the first decode tick's logits, each over
+    # its row's peak
+    rel = {}
+    for key in ("first_stage", "first_token_logits", "first_decode_logits"):
+        a, p = runs["a2a"][key], runs["psum"][key]
+        rel[key] = float(((p - a).abs().amax(-1) / a.abs().amax(-1).clamp_min(1e-30)).max())
+        for r in runs.values():
+            del r[key]
+    cap_l = min(min(plan.b_e, plan.B), plan.B * cfg.experts_per_token)
+    return {"runs": runs, "psum_rel_err": rel,
+            "designs": {"expert_gate_up": expert_gemm.expert_gate_up_design(
+                            torch.bfloat16, E // n, D, F, cap_l),
+                        "grouped_matmul": expert_gemm.grouped_matmul_design(
+                            torch.bfloat16, E // n, F, D)},
+            "local_shape": {"E": E // n, "C": cap_l, "D": D, "F": F}}
+
+
+def phase_serve_ep(dev, params, oracle=None):
+    """Serve's 64 requests on ``EP_RANKS`` expert-parallel rank processes
+    sharing the card over a gloo group, each rank holding every weight and
+    owning 32 of the 64 experts (``ep_rank``).  A rank that fails fails the
+    phase.  Gates: every a2a run's tokens equal the single-process
+    per-module oracle's bit for bit (``oracle``: serve's static tokens,
+    which equal the oracle's; computed here when absent) on every rank,
+    serial equal to pipelined; psum's stage rows (layer 0, the first decode
+    tick) and first-token logits within 0.02 of the a2a run's row peak
+    (its first decode tick's logits and its tokens equal to the oracle's
+    are printed); a2a bytes the per-stage bytes times the stages, one
+    stage per MoE layer and decode tick; K1 and K2 launched on every rank,
+    every launch the wgmma design; no host wait in a decode chunk outside
+    the planned ``ep-*`` scopes, and those counted by tag; nothing dropped.
+    Then K1 and K2 are held to their plain versions, timed, on rank 0's
+    first decode stage input (E/n experts).  Returns (rank 0's a2a launch
+    counts, the K1/K2 rows)."""
+    import numpy as np
+
+    from repro_torch.distributed import ep_engine
+    from repro_torch.launch import mesh
+
+    cfg, plan, lens, decode_len = serve_setup(short_lengths(), 32)
+    requests = serve_requests(cfg, lens, decode_len)
+    if oracle is None:
+        oracle = list(per_module_oracle(dev, cfg, params, plan, requests, decode_len,
+                                        "serve_ep")[0])
+    # the ranks are other processes: the blocks this one's allocator keeps
+    # cached from the earlier phases go back to the card first
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    outs = mesh.spawn(ep_rank, EP_RANKS, (cfg, plan, lens, decode_len, dev.type),
+                      timeout_s=600.0, group_timeout_s=120.0)
+    wall = time.perf_counter() - t0
+    n_moe = sum(1 for i in range(cfg.num_layers) if cfg.ffn_kind(i) == "moe")
+    for name, run in outs[0]["runs"].items():
+        emit({"phase": "serve_ep", "run": name, "ranks": EP_RANKS, "card": gpu_line(),
+              "note": EP_NOTE, "decode_tok_s": run["decode_tok_s"],
+              "decode_tok_s_by_rank": [o["runs"][name]["decode_tok_s"] for o in outs],
+              "server_ms_per_tick": run["server_ms_per_tick"],
+              "collectives_host_ms_per_tick": run["collectives_ms_per_tick"],
+              "stage_host_ms_per_tick": run["stage_ms_per_tick"],
+              "a2a_gb": run["a2a_gb"], "collective_dispatches": run["collective_dispatches"],
+              "planned_reads": run["planned_reads"], "clock_broadcasts": run["clock_broadcasts"],
+              "ticks": run["ticks"], "wall_s": run["wall_s"], "prefill_s": run["prefill_s"],
+              "planned_by_tag": run["planned"], "syncs": run["syncs"],
+              "requests_equal_to_oracle": sum(int(np.array_equal(a, b))
+                                              for a, b in zip(run["tokens"], oracle)),
+              "launches": run["counts"]})
+    emit({"phase": "serve_ep", "spawn_wall_s": wall, "designs": outs[0]["designs"],
+          "local_shape": outs[0]["local_shape"],
+          "psum_rel_err": [o["psum_rel_err"] for o in outs]})
+    for rank, out in enumerate(outs):
+        for name, run in out["runs"].items():
+            where = f"serve_ep rank {rank} {name}"
+            if name != "psum" and not all(np.array_equal(a, b)
+                                          for a, b in zip(run["tokens"], oracle)):
+                bad = [i for i, (a, b) in enumerate(zip(run["tokens"], oracle))
+                       if not np.array_equal(a, b)]
+                raise AssertionError(f"{where}: tokens differ from the per-module oracle "
+                                     f"for requests {bad}")
+            if run["collective_dispatches"] != n_moe * run["ticks"] or run["fused_ticks"]:
+                raise AssertionError(f"{where}: {run['collective_dispatches']} collective "
+                                     f"stages for {run['ticks']} per-module ticks")
+            per_stage = (ep_engine.a2a_bytes_per_stage(cfg, run["B"], EP_RANKS, 2)
+                         if name != "psum" else 0)
+            if run["a2a_bytes"] != per_stage * run["collective_dispatches"]:
+                raise AssertionError(f"{where}: a2a bytes {run['a2a_bytes']}")
+            c = run["counts"]
+            if dev.type == "cuda" and (not all(c[k] > 0 for k in PATH_KERNELS["serve_ep"])
+                                       or any(c[k] != c[f"{k}_{d}"] for k, d in NEW_DESIGNS)):
+                raise AssertionError(f"{where}: launches {c}")
+            if run["syncs"] or run["dropped"]:
+                raise AssertionError(f"{where}: host syncs {run['syncs']}, dropped "
+                                     f"{run['dropped']}")
+        a2 = out["runs"]["a2a_2"]
+        if not all(np.array_equal(a, b) for a, b in zip(a2["tokens"],
+                                                         out["runs"]["a2a_2_serial"]["tokens"])):
+            raise AssertionError(f"serve_ep rank {rank}: serial and pipelined differ")
+        planned, stages = out["runs"]["a2a_2_serial"]["planned"], a2["collective_dispatches"]
+        if (planned.get("ep-a2a-batch") != 2 * stages
+                or planned.get("ep-a2a-combine") != 3 * stages
+                or out["runs"]["a2a_2_serial"]["host_reads"]):
+            raise AssertionError(f"serve_ep rank {rank}: planned reads {planned}")
+        # psum reassociates each token's sum over its k copies (allclose, not
+        # bitwise, as in the reference): its stage rows and first-token
+        # logits are gated; the first decode tick's logits, 16 such stages
+        # deep, are printed
+        err = out["psum_rel_err"]
+        if err["first_stage"] >= REL_BF16 or err["first_token_logits"] >= REL_BF16:
+            raise AssertionError(f"serve_ep rank {rank}: psum off the a2a run's: {err} of "
+                                 f"the row peak")
+        if set(out["designs"].values()) != {"wgmma"}:
+            raise AssertionError(f"serve_ep rank {rank}: designs {out['designs']}")
+    x, counts = outs[0]["runs"]["a2a"]["ffn_input"]
+    moe = params["layers"][0]["moe"]
+    lo, hi = 0, cfg.num_experts // EP_RANKS
+    rows = check_path_kernels("serve_ep", {("decode-local", "grouped_expert_ffn"): (
+        (x.to(dev), moe["experts_w_gate"][lo:hi], moe["experts_w_up"][lo:hi],
+         moe["experts_w_down"][lo:hi], None if counts is None else counts.to(dev)), {})})
+    return outs[0]["runs"]["a2a"]["counts"], rows
+
 
 def kernels_line(rows, launches, path_rows=None) -> list:
     """One entry per kernel, at the shape of the path it serves most: K1-K3
@@ -3724,11 +4183,32 @@ def kernels_line(rows, launches, path_rows=None) -> list:
     return line_rows
 
 
+def prime(dev) -> None:
+    """Make what a process keeps for its life before any server is built, so
+    that freeing a server is exact: cuBLAS's workspace per handle and stream
+    (the default stream and the side stream engines capture their decode
+    graphs on) and K3's per-device buffer of tickets."""
+    from repro_torch.core.engine import capture_stream
+    from repro_torch.kernels import ops
+
+    for stream in (torch.cuda.current_stream(dev), capture_stream(dev)):
+        with torch.cuda.stream(stream):
+            for dt in (torch.bfloat16, torch.float32):
+                a = torch.ones((8, 8), dtype=dt, device=dev)
+                torch.addmm(a[0], a, a) @ a
+                torch.bmm(a[None], a[None])
+        torch.cuda.current_stream(dev).wait_stream(stream)
+    z = torch.zeros((1, 1, 1, 128), dtype=torch.bfloat16, device=dev)
+    ops.decode_attention(z[:, 0], z, z, 0)
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="kernels,serve,serve_omega,serve_long,serve_paged,"
-                                        "serve_prefix,serve_streamed,serve_faults,serve_ssm,"
-                                        "serve_mixtral,parity,profile")
+                                        "serve_prefix,serve_streamed,serve_faults,"
+                                        "serve_replicas,serve_ep,serve_ssm,serve_mixtral,"
+                                        "parity,profile")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -3748,24 +4228,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": t_build,
           "ptxas": {n: ptxas_summary(build.ptxas_log(n)) for n in build.SOURCES}})
     rows = []
-    # cuBLAS keeps one workspace per handle and stream for the process (on
-    # the default stream and on the side stream engines capture their decode
-    # graphs on), and K3's split design one buffer of tickets per device:
-    # make them before any server is built, so that freeing a server is exact
-    from repro_torch.core.engine import capture_stream
-
-    for stream in (torch.cuda.current_stream(dev), capture_stream(dev)):
-        with torch.cuda.stream(stream):
-            for dt in (torch.bfloat16, torch.float32):
-                a = torch.ones((8, 8), dtype=dt, device=dev)
-                torch.addmm(a[0], a, a) @ a
-                torch.bmm(a[None], a[None])
-        torch.cuda.current_stream(dev).wait_stream(stream)
-    from repro_torch.kernels import ops
-
-    z = torch.zeros((1, 1, 1, 128), dtype=torch.bfloat16, device=dev)
-    ops.decode_attention(z[:, 0], z, z, 0)
-    torch.cuda.synchronize()
+    prime(dev)
     if "kernels" in phases:
         _, plan, lens, decode_len = serve_setup(short_lengths(), 32)
         long_plan = serve_setup(long_lengths(), LONG_DECODE)[1]
@@ -3777,7 +4240,7 @@ def main() -> int:
     launches = {}                           # per path: counts from its static run
     path_rows = {}                          # per streamed path: its kernel rows
     if phases & {"serve", "serve_long", "serve_streamed", "serve_omega", "serve_paged",
-                  "serve_prefix", "serve_faults"}:
+                  "serve_prefix", "serve_faults", "serve_replicas", "serve_ep"}:
         params = init_weights(dev)
         resident = long_reports = None
         if "serve" in phases:
@@ -3801,6 +4264,12 @@ def main() -> int:
             for run, counts in phase_serve_faults(dev, params, resident,
                                                   long_reports).items():
                 launches[f"serve_faults_{run}"] = counts
+        if "serve_replicas" in phases:
+            launches["serve_replicas"] = phase_serve_replicas(dev, params)
+        if "serve_ep" in phases:
+            oracle = (None if resident is None else
+                      [r.tokens for r in resident[1]["static"].request_results])
+            launches["serve_ep"], path_rows["serve_ep"] = phase_serve_ep(dev, params, oracle)
         del params, resident, long_reports
         torch.cuda.empty_cache()
     if "serve_ssm" in phases:

@@ -94,6 +94,10 @@ run inside a sanitizer ``decode_region``; every planned host read is an
 holds the cache, page pools and carries to their addresses, and under
 ``poison=True`` a dropped cache is filled with NaN.
 
+Expert parallelism (``sctx``, ``distributed.ep_engine``): the engine is one
+rank of a ``torch.distributed`` group whose MoE decode stage is collective;
+it decodes per module.
+
 Out of the port so far: the loop expert path (``NotImplementedError``).
 """
 from __future__ import annotations
@@ -121,6 +125,7 @@ from repro_torch.core.host_attention import (
     to_heads,
 )
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.distributed.ep_engine import ep_expert_stage, validate_ep_shard
 from repro_torch.kernels import build
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import reserve_tickets
@@ -134,6 +139,7 @@ from repro_torch.serving.cache import CacheConfig, KVPageTable, copy_rows_to_hos
 from repro_torch.serving.kvcache import aligned_kv, evict_rows, insert_prefill_rows
 from repro_torch.serving.sampling import BatchSampler, greedy, sample_tokens
 from repro_torch.serving.weights import ParamStore, _HostBuffer
+from repro_torch.sharding.specs import ShardCtx
 
 LOOP_SLICE = "the 'loop' expert path is not ported; use expert_path='grouped'"
 
@@ -168,6 +174,9 @@ class EngineStats:
     kv_dtoh_bytes: int = 0               # KV pages written to the host tier
     transfer_retries: int = 0            # injected copy failures retried
     transfer_timeouts: int = 0           # dead copies recovered by re-fetch
+    a2a_bytes: int = 0                   # bytes the expert-parallel MoE stage
+    #                                      exchanged (a2a dispatch + return)
+    collective_dispatches: int = 0       # expert-parallel MoE stages run
 
 
 # one side stream per device on which every engine warms up and captures
@@ -251,6 +260,16 @@ class ModuleBatchingEngine:
     attention to the host.  ``predictor`` is a test seam: a callable
     ``(next layer, khat) -> expert ids`` that replaces the device's
     prediction for what to prefetch, never what is computed.
+
+    ``sctx`` (``sharding.specs.ShardCtx`` naming a ``torch.distributed``
+    group, ``moe_dispatch`` 'a2a' or 'psum') makes the engine one rank of an
+    expert-parallel group: its MoE decode stage is the collective one of
+    ``distributed.ep_engine`` (``ep_chunks`` pipeline chunks, ``ep_serial``
+    waiting for each exchange before posting the next), counted in
+    ``EngineStats.a2a_bytes`` and ``collective_dispatches``; prefill and
+    everything else stay the single-device path, and such an engine always
+    decodes per module.  Without a group the engine is the single-device
+    one.
     """
 
     def __init__(
@@ -267,7 +286,30 @@ class ModuleBatchingEngine:
         device="cuda",
         fused_decode: bool = True,
         prefetch: bool = True,
+        sctx: Optional[ShardCtx] = None,
+        ep_chunks: int = 1,
+        ep_serial: bool = False,
     ) -> None:
+        # an expert-parallel rank: the reference's construction checks,
+        # before anything is built
+        self.sctx = sctx if sctx is not None and sctx.group is not None else None
+        self.ep_chunks = max(1, int(ep_chunks))
+        self.ep_serial = bool(ep_serial)
+        if self.sctx is not None:
+            validate_ep_shard(cfg, self.sctx)
+            if expert_path != "grouped":
+                raise ValueError(
+                    "a ShardCtx replaces the grouped MoE stage with the collective "
+                    "dispatch; expert_path='loop' is single-device only")
+            if self.sctx.moe_dispatch == "a2a" and plan.predict_topk > 0:
+                raise ValueError(
+                    "moe_dispatch='a2a' does not compose with predictive per-expert "
+                    "streaming (predict_topk > 0): the a2a stage needs every rank's "
+                    "expert shard resident")
+            if stream_weights:
+                raise ValueError(
+                    "stream_weights does not compose with a ShardCtx: the collective "
+                    "stage needs resident expert shards")
         if expert_path != "grouped":
             raise NotImplementedError(LOOP_SLICE)
         self.device = resolve_device(device)
@@ -282,6 +324,10 @@ class ModuleBatchingEngine:
                 resident_bytes=resident_bytes, prefetch=prefetch, device=self.device,
             )
         self.store = store
+        if self.sctx is not None and not store.fully_resident:
+            raise ValueError(
+                "a ShardCtx needs a fully resident ParamStore: the collective MoE "
+                "stage shards whole expert stacks over the group and cannot stream them")
         self.predictor = None
         self.schema = store.schema                  # [(kind, ffn)] per layer
         self.cache: Optional[List[Dict[str, torch.Tensor]]] = None
@@ -819,8 +865,11 @@ class ModuleBatchingEngine:
         prefetch needs the layer boundary to hide behind, and a graph would
         hold the window's slots at fixed addresses), and no KV page on the
         host (Mode B decodes per module for the same reasons).  The host
-        attention rows of omega > 0 run per module beside the graph."""
-        return (self.fused_decode and self.store.fully_resident
+        attention rows of omega > 0 run per module beside the graph.  An
+        expert-parallel engine (``sctx``) always decodes per module: its
+        collective MoE stage exchanges through the host between the
+        attention and the FFN."""
+        return (self.fused_decode and self.sctx is None and self.store.fully_resident
                 and (self.pages is None or self.pages.fully_resident))
 
     # -- decode -----------------------------------------------------------
@@ -1072,15 +1121,22 @@ class ModuleBatchingEngine:
     @hot_path
     def _expert_stage_grouped(self, li, p, x) -> torch.Tensor:
         """One grouped-dispatch launch for the whole MoE stage; the kept,
-        dropped and load counters stay on device."""
+        dropped and load counters stay on device.  An expert-parallel engine
+        runs the same stage through the collective dispatch
+        (``distributed.ep_engine``); the counters keep one meaning."""
         cfg = self.cfg
         moe = p["moe"]
-        h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        gates, idx, _ = moe_mod.route(cfg, moe["router"], h)
-        y, kept, dropped, load = moe_mod.grouped_dispatch(
-            cfg, h, gates, idx, moe["experts_w_gate"], moe["experts_w_up"],
-            moe["experts_w_down"], self._expert_capacity(x.shape[0]),
-        )
+        if self.sctx is not None:
+            y, kept, dropped, load, nbytes = ep_expert_stage(self, li, p, x)
+            self.stats.a2a_bytes += nbytes
+            self.stats.collective_dispatches += 1
+        else:
+            h = rms_norm(x, p["norm2"], cfg.norm_eps)
+            gates, idx, _ = moe_mod.route(cfg, moe["router"], h)
+            y, kept, dropped, load = moe_mod.grouped_dispatch(
+                cfg, h, gates, idx, moe["experts_w_gate"], moe["experts_w_up"],
+                moe["experts_w_down"], self._expert_capacity(x.shape[0]),
+            )
         j = self._moe_index[li]
         self._kept_dev += kept
         self._dropped_dev[j] += dropped

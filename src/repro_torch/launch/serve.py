@@ -31,13 +31,19 @@ recovery counters; the tokens are those of the unarmed run.
 report: the planned reads by tag, steady-state captures, pointer checks.
 ``--smoke`` serves the architecture's smoke config (the plan is still
 searched on the full one), which is what the CPU can run:
-``--smoke --device cpu --sanitize strict --faults ...``.
+``--smoke --device cpu --sanitize strict --faults ...``.  ``--mesh DP,EP``
+serves DP replicas behind one queue (``distributed.ReplicaServer``, with
+``--faults kill=R@N`` failing a replica over), each an expert-parallel group
+of EP rank processes on gloo (``launch.mesh.spawn``; ``--mesh 1,2`` puts
+two ranks on one card); the ranks' tokens must agree, and rank 0's report is
+printed.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import json
+import os
 import time
 from dataclasses import replace
 
@@ -52,10 +58,14 @@ from repro_torch.data.datasets import DatasetSpec, synthetic_requests
 
 
 def build_plan(cfg, hw, args) -> Plan:
-    """Search the decode plan on ``cfg`` and realise it for this slice."""
+    """Search the decode plan on ``cfg`` and realise it for this slice (with
+    ``args.mesh`` DP,EP, one expert-parallel replica's plan, whose pipeline
+    chunk count ``--ep-chunks`` overrides)."""
     ctx = max(args.prompt_lens) + args.decode_len
+    dp, ep = mesh_axes(args)
     res = planner.search_decode(cfg, hw, ctx=ctx, decode_len=args.decode_len,
-                                scheduler=args.scheduler)
+                                scheduler=args.scheduler,
+                                mesh_shape=(dp, ep) if ep > 1 else None)
     print(f"planned ({cfg.name} on {hw.name}): {res.plan.describe()}")
     print(f"predicted decode throughput (cost model): "
           f"{res.estimate.throughput:.0f} tok/s")
@@ -71,6 +81,7 @@ def build_plan(cfg, hw, args) -> Plan:
         s_params=(res.plan.s_params if stream else float(W.model_bytes(cfg))),
         s_expert=res.plan.s_expert if stream else 0.0,
         predict_topk=res.plan.predict_topk if stream else 0,
+        ep_chunks=getattr(args, "ep_chunks", None) or res.plan.ep_chunks,
     )
     # the fused chunk T from the admission cadence at this batch (the
     # cadence scales with B, so the full-config T would over- or under-chunk)
@@ -83,6 +94,20 @@ def build_plan(cfg, hw, args) -> Plan:
           f"(planned {res.plan.omega:g}): {int(round(plan.omega * plan.B))} of {plan.B} "
           f"rows attend on the host; {where}")
     return plan
+
+
+def mesh_axes(args) -> tuple:
+    """``--mesh DP,EP`` as (dp, ep); (1, 1) without it."""
+    text = getattr(args, "mesh", None)
+    if not text:
+        return 1, 1
+    try:
+        dp, ep = (int(x) for x in text.split(","))
+    except ValueError:
+        raise SystemExit(f"--mesh wants DP,EP (got {text!r})")
+    if dp < 1 or ep < 1:
+        raise SystemExit(f"--mesh axes must be >= 1 (got {text!r})")
+    return dp, ep
 
 
 def streams(args) -> bool:
@@ -154,8 +179,21 @@ def main(argv=None) -> None:
                     help="serve under the analysis sanitizer: decode regions raise "
                          "(strict) or log (log) on host reads outside planned scopes, "
                          "cache pointers are checked every tick; prints the report")
+    ap.add_argument("--mesh", default=None, metavar="DP,EP",
+                    help="serve on DP data-parallel replicas (one arrival queue, "
+                         "repro_torch.distributed.ReplicaServer), each EP expert-parallel "
+                         "rank processes joined by a gloo group: rank r owns experts "
+                         "[r*E/EP, (r+1)*E/EP) and the MoE decode stage exchanges routed "
+                         "copies by all-to-all; all ranks may share one card")
+    ap.add_argument("--ep-chunks", type=int, default=None,
+                    help="pipeline chunks of the expert-parallel a2a stage (chunk k+1's "
+                         "exchange posted before chunk k's FFN; default: the planner's)")
     args = ap.parse_args(argv)
     args.prompt_lens = [int(x) for x in args.prompt_lens.split(",")]
+    dp, ep = mesh_axes(args)
+    if (dp > 1 or ep > 1) and streams(args):
+        raise SystemExit("--mesh serves fully resident replicas; it composes with "
+                         "neither --stream-weights nor predictive streaming")
 
     import torch
 
@@ -169,6 +207,13 @@ def main(argv=None) -> None:
     plan = build_plan(cfg, PROFILES[args.profile], args)
     if args.smoke:
         cfg = get_config(args.arch, smoke=True)
+    spec = DatasetSpec("serve", args.requests, max(args.prompt_lens),
+                       args.decode_len)
+    requests = synthetic_requests(spec, cfg.vocab_size, seed=args.seed,
+                                  prompt_lens=args.prompt_lens)
+    if dp > 1 or ep > 1:
+        serve_mesh(args, cfg, plan, requests, dp, ep)
+        return
     t0 = time.perf_counter()
     params, store = None, None
     if streams(args):
@@ -192,10 +237,6 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
     print(f"initialised {cfg.name} ({cfg.num_layers} layers, {cfg.dtype}) on "
           f"{args.device} in {time.perf_counter() - t0:.1f}s")
-    spec = DatasetSpec("serve", args.requests, max(args.prompt_lens),
-                       args.decode_len)
-    requests = synthetic_requests(spec, cfg.vocab_size, seed=args.seed,
-                                  prompt_lens=args.prompt_lens)
     fault_plan = faults.resolve(args.faults)
     server = Server(cfg, params, plan,
                     serve=ServeConfig(scheduler=args.scheduler, decode_len=args.decode_len,
@@ -215,16 +256,7 @@ def main(argv=None) -> None:
     with (analysis.sanitize(strict=args.sanitize == "strict", pointers=True)
           if args.sanitize != "off" else contextlib.nullcontext()) as san:
         report = server.run()
-    print(f"[{report.scheduler}] served {len(report.request_results)} requests: "
-          f"prefill {report.prefill_tokens} tokens in {report.prefill_s:.3f}s "
-          f"({report.prefill_throughput:.1f} tok/s), decode "
-          f"{report.decode_tokens} tokens in {report.decode_s:.3f}s "
-          f"({report.decode_throughput:.1f} tok/s), "
-          f"{report.expert_tokens_dropped} routed copies dropped")
-    print(f"decode slot-steps {report.decode_slot_steps} (wasted "
-          f"{report.wasted_slot_steps}, occupancy {report.occupancy:.0%}); "
-          f"TTFT p50 {report.ttft_percentile(50):.3f}s, TPOT p50 "
-          f"{report.tpot_percentile(50) * 1e3:.1f}ms")
+    print_report(report, args)
     if store is not None:
         print(f"weight streaming: {report.htod_gb:.3f} GB host-to-device, "
               f"copy wait {report.prefetch_wait_s:.3f}s on the card")
@@ -238,6 +270,25 @@ def main(argv=None) -> None:
               f"{report.kv_dtoh_bytes / 1e9:.3f} GB to the host tier; host "
               f"attention {report.host_attn_tokens} row-layers, "
               f"{engine.stats.host_attn_s:.3f}s of host CPU")
+    if fault_plan is not None:
+        print(f"faults: ledger {json.dumps(fault_plan.report()['events'])}")
+    if san is not None:
+        print(f"sanitizer ({args.sanitize}): {json.dumps(san.report(), default=str)}")
+    print_tokens(report)
+
+
+def print_report(report, args) -> None:
+    """The served report's lines shared by every launch."""
+    print(f"[{report.scheduler}] served {len(report.request_results)} requests: "
+          f"prefill {report.prefill_tokens} tokens in {report.prefill_s:.3f}s "
+          f"({report.prefill_throughput:.1f} tok/s), decode "
+          f"{report.decode_tokens} tokens in {report.decode_s:.3f}s "
+          f"({report.decode_throughput:.1f} tok/s), "
+          f"{report.expert_tokens_dropped} routed copies dropped")
+    print(f"decode slot-steps {report.decode_slot_steps} (wasted "
+          f"{report.wasted_slot_steps}, occupancy {report.occupancy:.0%}); "
+          f"TTFT p50 {report.ttft_percentile(50):.3f}s, TPOT p50 "
+          f"{report.tpot_percentile(50) * 1e3:.1f}ms")
     if report.expert_load is not None:
         drops = "/".join(str(int(d)) for d in report.expert_dropped_by_layer)
         print(f"routing skew {report.routing_skew:.2f}x balanced; per-MoE-layer drops "
@@ -246,16 +297,84 @@ def main(argv=None) -> None:
         print(f"prefix cache: {report.prefix_hits} hits / "
               f"{report.prefix_hits + report.prefix_misses} lookups (hit rate "
               f"{report.prefix_hit_rate:.0%})")
-    if fault_plan is not None:
+    if args.faults:
         print(f"faults: transfer_retries {report.transfer_retries}, transfer_timeouts "
               f"{report.transfer_timeouts}, preemptions {report.preemptions}, resumes "
               f"{report.resumes}, degrade_deferrals {report.degrade_deferrals}, "
               f"page_demotions {report.page_demotions}, chunk_shrinks "
-              f"{report.chunk_shrinks}; ledger {json.dumps(fault_plan.report()['events'])}")
-    if san is not None:
-        print(f"sanitizer ({args.sanitize}): {json.dumps(san.report(), default=str)}")
+              f"{report.chunk_shrinks}, failovers {report.failovers} "
+              f"({report.requeued_requests} requests requeued)")
+
+
+def print_tokens(report) -> None:
     toks = np.concatenate([r.tokens for r in report.request_results])
     print(f"generated token ids in [{toks.min()}, {toks.max()}]")
+
+
+def mesh_rank(rank: int, n: int, group, args, cfg, plan, requests):
+    """One expert-parallel rank of ``--mesh DP,EP`` (``group`` None: the only
+    one): seeded weights on ``args.device``, then ``DP`` replicas behind one
+    queue (``ReplicaServer``) or one ``Server``, every engine's MoE decode
+    stage collective over ``group``.  Returns (report, per-replica reports
+    or None)."""
+    import torch
+
+    from repro_torch.distributed import ReplicaServer
+    from repro_torch.models import model as M
+    from repro_torch.serving.server import ServeConfig, Server
+    from repro_torch.sharding.specs import ShardCtx
+
+    dp, _ = mesh_axes(args)
+    if n > 1:                         # the host's cores, shared by the ranks
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    params = M.init_params(cfg, seed=args.seed, device=args.device)
+    serve = ServeConfig(scheduler=args.scheduler, decode_len=args.decode_len,
+                        kv_page_tokens=args.kv_page_tokens, device_kv_gb=args.device_kv_gb,
+                        prefix_cache=args.prefix_cache, faults=args.faults,
+                        sctx=None if group is None else ShardCtx(group=group),
+                        ep_chunks=plan.ep_chunks)
+    if dp > 1:
+        server = ReplicaServer(cfg, params, dp, plan=plan, serve=serve, device=args.device)
+    else:
+        server = Server(cfg, params, plan, serve=serve, device=args.device)
+    for r in requests:
+        server.submit(r)
+    report = server.run()
+    if dp > 1:
+        return report.merged, report.per_replica
+    return report, None
+
+
+def serve_mesh(args, cfg, plan, requests, dp: int, ep: int) -> None:
+    """``--mesh DP,EP``: EP > 1 spawns EP rank processes on a gloo group
+    (every rank serves every request; rank 0's report is printed after the
+    ranks' tokens are checked to agree), else this process serves the DP
+    replicas."""
+    t0 = time.perf_counter()
+    if ep > 1:
+        from repro_torch.launch import mesh
+
+        outs = mesh.spawn(mesh_rank, ep, (args, cfg, plan, requests))
+        toks = [[r.tokens.tolist() for r in rep.request_results] for rep, _ in outs]
+        if any(t != toks[0] for t in toks[1:]):
+            raise SystemExit("expert-parallel ranks served different tokens")
+        report, per_replica = outs[0]
+    else:
+        report, per_replica = mesh_rank(0, 1, None, args, cfg, plan, requests)
+    gloo = " (gloo)" if ep > 1 else ""
+    print(f"mesh: dp={dp} replicas x ep={ep} expert-parallel ranks{gloo}, "
+          f"ep_chunks={plan.ep_chunks}, on {args.device}; served in "
+          f"{time.perf_counter() - t0:.1f}s with weight initialisation")
+    print_report(report, args)
+    for i, r in enumerate(per_replica or []):
+        print(f"replica[{i}]: {len(r.request_results)} requests, "
+              f"{r.decode_throughput:.1f} decode tok/s, occupancy {r.occupancy:.0%}, "
+              f"a2a {r.a2a_gb:.4f} GB")
+    if report.collective_dispatches:
+        print(f"expert-parallel: {report.a2a_gb:.4f} GB exchanged by all-to-all over "
+              f"{report.collective_dispatches} collective MoE stages (ep={ep}, "
+              f"chunks={plan.ep_chunks}), {report.clock_broadcasts} clock broadcasts")
+    print_tokens(report)
 
 
 if __name__ == "__main__":

@@ -37,12 +37,40 @@ def init_moe_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, torch.T
     }
 
 
+# Rows of one router product.  cuBLAS picks its f32 algorithm by the shape of
+# the product, so the logits of a token routed among n rows depend on n in
+# their last bits (and a near tie can flip): a replica's or an expert rank's
+# batch would route otherwise than one server's wave.  Products of a fixed
+# ROUTER_ROWS rows, the last zero-padded, route a token alike in any batch
+# (what that costs on an H100: tools/router_invariance.py, PERF.md).
+ROUTER_ROWS = 1024
+
+
+def router_logits(router_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., D) @ ``router_w`` (D, E) in f32, in products of
+    ``ROUTER_ROWS`` rows: a row's logits do not depend on the rows beside
+    it.  The rows go to f32 in one copy into a buffer of whole blocks (the
+    padding rows zeroed), and each block's product is written in place."""
+    lead, D = x.shape[:-1], x.shape[-1]
+    rows = x.reshape(-1, D)
+    n = rows.shape[0]
+    total = n + (-n) % ROUTER_ROWS
+    xf = torch.empty((total, D), dtype=torch.float32, device=x.device)
+    xf[:n].copy_(rows)
+    xf[n:].zero_()
+    logits = torch.empty((total, router_w.shape[1]), dtype=torch.float32, device=x.device)
+    for i in range(0, total, ROUTER_ROWS):
+        torch.mm(xf[i:i + ROUTER_ROWS], router_w, out=logits[i:i + ROUTER_ROWS])
+    return logits[:n].reshape(lead + (router_w.shape[1],))
+
+
 def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor):
     """Top-k routing.  x: (..., D).  Returns (gates, idx, probs).
 
     Ties go to the lower expert index (``jax.lax.top_k``'s order): a stable
-    descending sort keeps equal probabilities in index order."""
-    logits = x.float() @ router_w                            # (..., E)
+    descending sort keeps equal probabilities in index order.  A token's
+    routing does not depend on the batch it comes in (``router_logits``)."""
+    logits = router_logits(router_w, x)                     # (..., E)
     probs = torch.softmax(logits, dim=-1)
     srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     k = cfg.experts_per_token
@@ -71,19 +99,25 @@ def expert_ffn(wg, wu, wd, h):
 # ---------------------------------------------------------------------------
 # Grouped dispatch: capacity-bucketed gather -> one launch -> combine
 # ---------------------------------------------------------------------------
-def _arrival_slots(ids: torch.Tensor, n_buckets: int) -> torch.Tensor:
+def _arrival_slots(ids: torch.Tensor, n_buckets: int,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Slot of each routed copy within its bucket, in arrival order.
 
     Same result as the reference's cumsum over a (T*k, E) one-hot, from a
-    stable sort instead: a copy's slot is its rank among the copies of its
-    bucket, and a stable sort keeps them in arrival order.  O(T*k log) work
-    where the one-hot scan is O(T*k*E) (it was the top prefill kernel)."""
-    n = ids.numel()
+    stable sort instead: a copy's slot is the number of copies of its
+    bucket before it, and a stable sort keeps them in arrival order.  O(T*k
+    log) work where the one-hot scan is O(T*k*E) (it was the top prefill
+    kernel).  Entries with ``mask`` False take no slot (the copies after
+    them do not count them); their own slot is, as in the reference, the
+    number of unmasked copies of their bucket before them."""
     order = torch.argsort(ids, stable=True)
-    counts = torch.zeros((n_buckets,), dtype=torch.long, device=ids.device)
-    counts.scatter_add_(0, ids, torch.ones_like(ids))
+    take = (torch.ones_like(ids) if mask is None
+            else mask.reshape(-1).to(ids.dtype))
+    counts = torch.zeros((n_buckets,), dtype=ids.dtype, device=ids.device)
+    counts.scatter_add_(0, ids, take)
     starts = torch.cumsum(counts, dim=0) - counts
-    ranks = torch.arange(n, device=ids.device) - starts[ids[order]]
+    ts = take[order]
+    ranks = torch.cumsum(ts, dim=0) - ts - starts[ids[order]]
     slot = torch.empty_like(ranks)
     slot[order] = ranks
     return slot

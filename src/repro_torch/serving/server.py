@@ -50,7 +50,7 @@ the chunk cap for 16 steps); ``preempt(handle)`` (continuous scheduler)
 moves a running request to a host checkpoint and resumes it into a free
 slot with no prefill; recovery is counted in the report.  Unarmed, the
 served path is the same as without the package.  Replica failover is the
-distributed slice of the port.
+distributed slice of the port (``distributed.replicas.ReplicaServer``).
 """
 from __future__ import annotations
 
@@ -100,7 +100,10 @@ class ServeConfig:
     rate of ``replan_drop_target``; None disables re-planning.  ``faults``
     is a fault-injection schedule (a ``faults.FaultPlan``, ``FaultSpec`` or
     spec string such as ``"seed=0,transfer=0.05,oom=0.1,preempt=8"``); None
-    leaves any ambient ``REPRO_FAULTS`` plan in charge."""
+    leaves any ambient ``REPRO_FAULTS`` plan in charge.  ``sctx`` makes the
+    server one rank of an expert-parallel group: every rank serves the same
+    requests, its MoE decode stage is collective, and rank 0's clock decides
+    every rank's admissions."""
 
     scheduler: str = "static"
     decode_len: int = 32
@@ -120,6 +123,11 @@ class ServeConfig:
     replan_drop_target: float = 0.01
     faults: Optional[object] = None
     decode_chunk: Optional[int] = None   # fused chunk T cap (None = plan's)
+    sctx: Optional[object] = None        # sharding.specs.ShardCtx naming a
+    #   torch.distributed group: the engine is one rank of an expert-parallel
+    #   group (distributed.ep_engine); None = single-device
+    ep_chunks: int = 1                   # pipeline chunks of the a2a MoE stage
+    #   (chunk k+1's exchange is posted before chunk k's FFN); 1 = one chunk
 
     def __post_init__(self) -> None:
         assert self.scheduler in ("static", "continuous"), self.scheduler
@@ -214,6 +222,12 @@ class ServeReport:
     kv_htod_bytes: int = 0        # host KV-page bytes copied host->device
     kv_dtoh_bytes: int = 0        # KV-page bytes written to the host tier
     host_attn_tokens: int = 0     # decode rows x attention layers on the host
+    a2a_bytes: int = 0            # bytes the expert-parallel MoE stage
+    #                               exchanged (a2a dispatch + return)
+    collective_dispatches: int = 0  # expert-parallel MoE stages run
+    clock_broadcasts: int = 0     # rank 0's clock broadcast to the group (a step)
+    failovers: int = 0            # dead replicas failed over (ReplicaServer)
+    requeued_requests: int = 0    # requests requeued onto surviving replicas
     prefetch_wait_s: float = 0.0  # compute stream's wait on weight copies
     expert_pred_hits: int = 0     # expert was staged by the l+1 prediction
     expert_pred_misses: int = 0   # fetched on demand (mispredicted or cold)
@@ -230,6 +244,11 @@ class ServeReport:
     def htod_gb(self) -> float:
         """Streamed weight traffic in GB (0 when everything is resident)."""
         return self.weight_htod_bytes / 1e9
+
+    @property
+    def a2a_gb(self) -> float:
+        """Expert-parallel all-to-all traffic in GB (0 without a group)."""
+        return self.a2a_bytes / 1e9
 
     @property
     def kv_htod_gb(self) -> float:
@@ -486,6 +505,10 @@ class Server:
         self._pressure = 0                    # consecutive page-OOM events
         self._shrink_cap: Optional[int] = None   # degraded decode-chunk cap
         self._shrink_ticks = 0                # steps the shrink stays on
+        # an expert-parallel rank: the admission clock is rank 0's, broadcast
+        # once a step (None: this process's own clock)
+        self._group = serve.sctx is not None and serve.sctx.model_size > 1
+        self._shared_now: Optional[float] = None
 
     # -- lifecycle: submit -------------------------------------------------
     def submit(self, request: Request,
@@ -537,6 +560,22 @@ class Server:
             self._t0 = time.perf_counter()
         return time.perf_counter() - self._t0
 
+    def _decision_now(self) -> float:
+        """The clock admission decisions read: this process's virtual clock,
+        or on an expert-parallel group the step's broadcast of rank 0's, so
+        that every rank admits the same requests at the same step."""
+        return self._now() if self._shared_now is None else self._shared_now
+
+    def _sync_clock(self) -> None:
+        """On an expert-parallel group: rank 0's clock, once a step, outside
+        any decode region (a planned collective, ``ep-clock``, counted in
+        ``clock_broadcasts``)."""
+        if self._group:
+            from repro_torch.distributed.ep_engine import broadcast_clock
+
+            self._shared_now = broadcast_clock(self.serve.sctx, self._now())
+            self.report.clock_broadcasts += 1
+
     @property
     def next_arrival_s(self) -> Optional[float]:
         return self._pending[0][0] if self._pending else None
@@ -577,6 +616,7 @@ class Server:
             store=self._store,
             cache_config=self._cache_config(),
             device=self.device,
+            sctx=self.serve.sctx, ep_chunks=self.serve.ep_chunks,
         )
         self._engine.init_cache(self._b)
         self._sampler = BatchSampler(self._b)
@@ -600,7 +640,7 @@ class Server:
     _FOLDED = ("weight_htod_bytes", "prefetch_wait_s", "expert_pred_hits",
                "expert_pred_misses", "expert_lru_hits", "kv_htod_bytes",
                "kv_dtoh_bytes", "host_attn_tokens", "transfer_retries",
-               "transfer_timeouts")
+               "transfer_timeouts", "a2a_bytes", "collective_dispatches")
 
     def _drain_engine_stats(self, planned: bool = False) -> int:
         """Fold the engine's cumulative counters into the report (deltas
@@ -673,6 +713,7 @@ class Server:
         if not self.has_work():
             return False
         self._ensure_engine()
+        self._sync_clock()
         with faults.armed(self._faults):
             self._maybe_preempt()
             self._admit()
@@ -688,7 +729,7 @@ class Server:
         due instead of sleeping for future arrivals."""
         while self.step():
             if not self._any_live() and self._pending:
-                if not until_idle and self.next_arrival_s > self._now():
+                if not until_idle and self.next_arrival_s > self._decision_now():
                     break
                 self._wait_for_arrival()
         return self.finalize()
@@ -720,7 +761,7 @@ class Server:
         drained; the wave takes every due request up to B slots."""
         if self._wave is not None:
             return
-        now = self._now()
+        now = self._decision_now()
         handles: List[RequestHandle] = []
         while len(handles) < self._b:
             h = self._pop_due(now)
@@ -754,7 +795,7 @@ class Server:
         budget the queue head WAITS while its KV bytes don't fit (FIFO).
         Preempted checkpoints resume first (they were admitted before
         anything still queued)."""
-        now = self._now()
+        now = self._decision_now()
         self._resume_checkpoints()
         blocked = False
         while not blocked and self._free and self._pending and self._pending[0][0] <= now:

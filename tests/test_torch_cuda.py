@@ -1200,3 +1200,88 @@ def test_cuda_store_alive_at_exit_leaves_no_error(cuda):
                          env=env, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "Exception ignored" not in out.stderr, out.stderr[-2000:]
+
+
+# ---------------------------------------------------------------------------
+# Distributed serving: replicas in one process, expert-parallel ranks
+# ---------------------------------------------------------------------------
+def _four_layer_olmoe(cuda):
+    """OLMoE smoke (bf16) at 4 layers, seeded weights on the card, and 8
+    ragged prompts."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = replace(get_config("olmoe-1b-7b", smoke=True), num_layers=4)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(5, cfg.vocab_size - 5, 5 + 2 * i).astype(np.int32)
+               for i in range(8)]
+    return cfg, M.init_params(cfg, seed=0, device=cuda), prompts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["least-loaded", "round-robin"])
+def test_cuda_replicas_match_their_witnesses(cuda, policy):
+    """Two replicas behind one queue on the card, the weights shared: each
+    replica's tokens equal, bit for bit, a fault-free ``Server`` fed exactly
+    its requests in its order at its batch; every request served once, in
+    submission order."""
+    from repro_torch.core.dag_builder import Plan
+    from repro_torch.distributed import ReplicaServer
+    from repro_torch.serving.server import Request, ServeConfig, Server
+
+    cfg, params, prompts = _four_layer_olmoe(cuda)
+    plan = Plan(B=8, b_a=4, b_e=8, omega=0.0, decode_chunk=4)
+    kw = dict(scheduler="static", decode_len=6, max_seq=32)
+    rs = ReplicaServer(cfg, params, 2, plan=plan, serve=ServeConfig(**kw), policy=policy,
+                       device=cuda)
+    for p in prompts:
+        rs.submit(Request(p, 6))
+    rep = rs.run()
+    assert [r.index for r in rep.merged.request_results] == list(range(len(prompts)))
+    for s, r in zip(rs.servers, rep.per_replica):
+        witness = Server(cfg, params, plan, serve=ServeConfig(max_batch=s._b, **kw),
+                         device=cuda)
+        for h in s._handles:
+            witness.submit(h.request)
+        want = [x.tokens.tolist() for x in witness.run().request_results]
+        assert [x.tokens.tolist() for x in sorted(r.request_results,
+                                                  key=lambda x: x.index)] == want
+
+
+@pytest.mark.cuda
+def test_cuda_ep_serve_matches_the_per_module_oracle(cuda):
+    """Two gloo rank processes on the one card, each owning half the
+    experts: every rank's tokens equal the single-process per-module
+    oracle's bit for bit; a decode step under ``set_sync_debug_mode("error")``
+    and the strict sanitizer waits for the host only in its planned scopes,
+    counted by tag: per MoE layer, two dispatch reads (two chunks) and three
+    combine reads, one clock broadcast and one token read."""
+    from repro_torch.core.dag_builder import Plan
+    from repro_torch.launch import mesh
+    from repro_torch.serving.server import Request, ServeConfig, Server
+
+    import torch_ep_ranks
+
+    cfg, params, prompts = _four_layer_olmoe(cuda)
+    plan = Plan(B=8, b_a=4, b_e=8, omega=0.0, decode_chunk=8)
+    oracle = Server(cfg, params, plan, serve=ServeConfig(decode_len=6), device=cuda)
+    for p in prompts:
+        oracle.submit(Request(p, 6))
+    oracle._ensure_engine()
+    oracle._engine.fused_decode = False
+    want = [r.tokens.tolist() for r in oracle.run().request_results]
+    outs = mesh.spawn(torch_ep_ranks.cuda_ep_rank, 2, (4, [p.tolist() for p in prompts], 6),
+                      timeout_s=600.0)
+    n_moe = cfg.num_layers
+    for out in outs:
+        assert out["tokens"] == want
+        assert out["a2a_bytes"] > 0 and out["fused_ticks"] == 0
+        assert out["step_host_reads"] == []
+        planned = out["step_planned"]
+        assert planned["ep-a2a-batch"] == 2 * n_moe
+        assert planned["ep-a2a-combine"] == 3 * n_moe
+        assert planned["ep-clock"] == planned["token-readback"] == 1

@@ -68,5 +68,15 @@ def test_guard_scans_the_analysis_and_faults_packages():
     assert {"analysis", "faults"} <= scanned
 
 
+@pytest.mark.parametrize("path", ["distributed/__init__.py", "distributed/ep_engine.py",
+                                  "distributed/replicas.py", "sharding/specs.py",
+                                  "launch/mesh.py"])
+def test_guard_scans_the_distributed_modules(path):
+    """The distributed slice's modules (copies of the reference's
+    ``distributed``, ``sharding`` and ``launch`` modules' logic, never
+    imports of them) are among the scanned files."""
+    assert ROOT / "src" / "repro_torch" / path in FILES
+
+
 def test_guard_allows_the_port():
     assert violations("import repro_torch.models.moe\nfrom repro_torch import bridge\n") == []
