@@ -50,13 +50,29 @@ Phases, in order (any failure exits non-zero with its traceback):
                the suffix prefilled through K4 with a query offset); cold
                and with the prefix cache under both schedulers, the
                per-module oracle and Mode B, all with the same tokens;
+   oracles  -- the engine's reference oracles on serve's weights (16
+               requests of 64..256 tokens, decode 16, B = b_e = 16), then on
+               the same seed's f32 weights: the loop expert path against the
+               per-module grouped server (first tokens, the first decode
+               tick's logits on the rows both routed alike, launch counts,
+               no unplanned host sync), the exact (dense-combine) prefill
+               against the grouped one (logits, capacity probes), and
+               greedy_generate (model-based batching) beside the per-module
+               engine on 16 prompts of 256 tokens;
+   train    -- OLMoE-1B-7B at full width and 8 layers, bf16: 12 AdamW steps
+               with remat on one seeded 4 x 512 batch (the loss must fall by
+               0.2), a checkpoint round trip, remat off / full / dots at 2
+               layers, one f32 smoke step against the CPU; no kernel
+               launched, the memory freed;
 7. parity   -- card (kernels) against CPU (plain versions), f32: OLMoE at
                full width but 2 layers (32 tokens, a ragged 1536-token
                prompt), Mamba2 at full width but 2 layers (600 and 300
                tokens), and the Jamba smoke config (one interleave period,
                lengths 100 and 77), which runs K1-K5 in one model; OLMoE at
-               2 layers with omega 0.5 and every KV frame on the host, and
-               an OLMoE prefix hit (640 + 77 tokens) at 2 layers;
+               2 layers with omega 0.5 and every KV frame on the host, an
+               OLMoE prefix hit (640 + 77 tokens) at 2 layers, and
+               musicgen-medium at 2 layers with 256 frontend frames + 44
+               tokens;
 8. profile  -- (inside phases 4-6) torch.profiler over each path's decode
                chunk and one prefill wave.
 
@@ -177,6 +193,17 @@ PREFIX_SUFFIXES = (16, 64, 128)
 # online capacity re-planning on serve's requests: the drift (absolute share
 # of the hottest expert between checks) above which b_e is re-planned
 REPLAN_SKEW = 1e-6
+# the oracles path: serve's weights, 16 requests of 64..256 tokens, decode 16,
+# B = b_e = 16; greedy_generate on 16 prompts of 256 tokens
+ORACLE_REQUESTS, ORACLE_DECODE, ORACLE_PROMPT = 16, 16, 256
+# the oracles' f32 logit tolerance: parity's 1e-3, per row against its peak
+TOL_ORACLE_F32 = 1e-3
+# training: OLMoE-1B-7B at full width and 8 of its 16 layers (all 16 with
+# grads and f32 AdamW moments would need ~83 GB), bf16, one seeded batch of
+# 4 x 512 tokens, 12 steps; the card-vs-CPU step on the Jamba smoke config
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = (
+    "olmoe-1b-7b", 8, 4, 512, 12, 1e-4)
+TRAIN_PARITY_ARCH = "jamba-1.5-large-398b"
 
 
 def emit(obj) -> None:
@@ -3514,6 +3541,56 @@ def phase_parity(dev):
         torch.cuda.empty_cache()
     parity_omega_paged(dev, rng)
     parity_prefix_hit(dev, rng)
+    parity_frontend(dev, rng)
+
+
+def parity_frontend(dev, rng):
+    """musicgen-medium at full width but 2 layers, f32: 2 prompts whose first
+    ``frontend_tokens`` (256) positions are the audio frontend stub's frame
+    embeddings, then 44 tokens; the engine's prefill (K4) and 3 decode steps
+    (K3), card against CPU: logits within 1e-3 of their scale, the same
+    greedy tokens, K4 and K3 launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.dag_builder import Plan
+    from repro_torch.core.engine import ModuleBatchingEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.frontends import frontend_embeddings
+
+    cfg = replace(get_config("musicgen-medium"), num_layers=2, dtype="float32")
+    B, S = 2, cfg.frontend_tokens + 44
+    params = M.init_params(cfg, seed=1, device=dev)
+    cpu_params = _to_cpu(params)
+    fe = frontend_embeddings(cfg, B, device="cpu")
+    prompts = rng.integers(0, cfg.vocab_size, (B, S))
+    plan = Plan(B=B, b_a=B, b_e=B, omega=0.0)
+    out = {}
+    for where, p in ((dev, params), ("cpu", cpu_params)):
+        ops.reset_launch_counts()
+        eng = ModuleBatchingEngine(cfg, p, plan, max_seq=S + 8, device=where)
+        lg = [eng.prefill(prompts, fe).float().cpu()]
+        toks = [lg[0].argmax(-1)]
+        for t in range(3):
+            lg.append(eng.decode_step(toks[-1], S + t).float().cpu())
+            toks.append(lg[-1].argmax(-1))
+        out["cpu" if where == "cpu" else "card"] = (lg, toks, ops.launch_counts())
+        del eng
+    scale = float(out["cpu"][0][0].abs().max())
+    errs = [float((a - b).abs().max()) / scale for a, b in zip(out["card"][0], out["cpu"][0])]
+    same = all(torch.equal(a, b) for a, b in zip(out["card"][1], out["cpu"][1]))
+    launched = {k: out["card"][2][k] for k in ("flash_attention", "decode_attention")}
+    emit({"phase": "parity", "arch": cfg.name, "layers": 2, "case": "frontend",
+          "B": B, "S": S, "frontend_tokens": cfg.frontend_tokens,
+          "rel_err_per_step": errs, "tolerance": 1e-3, "tokens_match": same,
+          "card_launches": launched})
+    if not (max(errs) < 1e-3 and same):
+        raise AssertionError(f"card vs CPU (musicgen frontend): errors {errs}, tokens "
+                             f"match {same}")
+    if dev.type == "cuda" and not all(v > 0 for v in launched.values()):
+        raise AssertionError(f"card vs CPU (musicgen frontend): K4 or K3 never launched: "
+                             f"{launched}")
+    del params, cpu_params
+    torch.cuda.empty_cache()
 
 
 def parity_prefix_hit(dev, rng):
@@ -4137,6 +4214,513 @@ def phase_serve_ep(dev, params, oracle=None):
     return outs[0]["runs"]["a2a"]["counts"], rows
 
 
+def row_errors(got, want) -> list:
+    """Each row's largest error over that row's largest |reference| value
+    (small (n, V) logits)."""
+    g, w = got.float().cpu(), want.float().cpu()
+    return ((g - w).abs().amax(-1) / w.abs().amax(-1)).tolist()
+
+
+@contextlib.contextmanager
+def routes_recorded(sink):
+    """While active, every ``models.moe.route`` call (the engine's decode
+    stages, the grouped prefill's and the dense combine's) hands its (T, k)
+    expert ids to ``sink``."""
+    from repro_torch.models import moe as moe_mod
+
+    route = moe_mod.route
+
+    def tapped(cfg, w, x):
+        out = route(cfg, w, x)
+        sink(out[1])
+        return out
+
+    moe_mod.route = tapped
+    try:
+        yield
+    finally:
+        moe_mod.route = route
+
+
+def first_tick_tap(holder: torch.Tensor, routes: torch.Tensor):
+    """A ``served`` tap for the engine's first per-module decode tick: its
+    logits go into ``holder`` and each MoE layer's expert ids into
+    ``routes[layer]`` (both allocated before the server, so the freed check
+    stays exact; device copies, no host read); the engine's stats are kept
+    for after the run."""
+    def taps(server):
+        eng, state = server._engine, {"ticks": 0}
+        rows = eng._decode_rows
+
+        def call(*a, **kw):
+            if state["ticks"]:
+                lg = rows(*a, **kw)
+            else:
+                layer = iter(range(routes.shape[0]))
+                with routes_recorded(lambda idx: routes[next(layer)].copy_(idx)):
+                    lg = rows(*a, **kw)
+                holder.copy_(lg)
+            state["ticks"] += 1
+            return lg
+
+        eng._decode_rows = call
+        state["stats"] = eng.stats
+        return state
+    return taps
+
+
+def same_routing(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """Two runs' (layers, rows, k) expert ids: per row, whether they name the
+    same experts in every layer; and how many (layer, row) pairs differ."""
+    a, b = a.sort(-1).values.cpu(), b.sort(-1).values.cpu()
+    alike = (a == b).all(-1)
+    return alike.all(0).tolist(), int((~alike).sum())
+
+
+def routed_logit_gate(what: str, got, want, same: list, tol, failures: list) -> dict:
+    """Each row's logits within ``tol`` of its peak where both runs routed
+    every token alike; a row whose routing took another expert at a near
+    tie in some layer is counted and reported, not compared (other
+    experts, other sums).  ``tol`` None: reported only."""
+    rows = row_errors(got, want)
+    kept = [e for e, s in zip(rows, same) if s]
+    rec = {"rel_err_rows": rows, "same_routing_rows": same, "rows_compared": len(kept),
+           "rows_routed_otherwise": len(rows) - len(kept),
+           "rel_err_compared": max(kept) if kept else None,
+           "rel_err_all": max(rows),
+           "tolerance": None if tol is None else {"rel_per_row": tol}}
+    if tol is not None and (not kept or max(kept) >= tol):
+        failures.append(f"{what}: rows routed alike {len(kept)} of {len(rows)}, worst "
+                        f"{rec['rel_err_compared']} (tolerance {tol})")
+    return rec
+
+
+def loop_vs_grouped(dev, cfg, params, plan, requests, decode_len: int, tol: float,
+                    failures: list) -> tuple:
+    """The loop server against the per-module grouped server on ``requests``
+    (see ``phase_oracles``).  Returns (record, launch counts by path)."""
+    import numpy as np
+
+    n = len(requests)
+    n_moe = sum(1 for i in range(cfg.num_layers) if cfg.ffn_kind(i) == "moe")
+    n_mb = -(-n // plan.b_a)
+    runs = {}
+    for path in ("grouped", "loop"):
+        holder = torch.empty((n, cfg.vocab_size), dtype=params["embed"].dtype, device=dev)
+        routes = torch.zeros((n_moe, n, cfg.experts_per_token), dtype=torch.long, device=dev)
+        runs[path] = (served(dev, cfg, params, plan, requests,
+                             {"decode_len": decode_len, "expert_path": path}, fused=False,
+                             phase="oracles", taps=first_tick_tap(holder, routes)),
+                      holder, routes)
+    (g, g_lg, g_rt), (lp, l_lg, l_rt) = runs["grouped"], runs["loop"]
+    same = same_routing(l_rt, g_rt)
+    ticks = g["ticks"]
+    tg, tl = np.stack(g["tokens"]), np.stack(lp["tokens"])
+    g_launch, l_launch = g["seen"]["stats"].expert_launches, lp["seen"]["stats"].expert_launches
+    what = f"oracles {params['embed'].dtype}: first decode tick, loop vs grouped"
+    rec = {"phase": "oracles", "run": "loop vs per-module grouped",
+           "dtype": str(params["embed"].dtype), "requests": n, "decode_len": decode_len,
+           "B": plan.B, "b_a": plan.b_a, "b_e": plan.b_e, "decode_ticks": ticks,
+           "first_tokens_equal": bool(np.array_equal(tg[:, 0], tl[:, 0])),
+           "token_match": float((tg == tl).mean()),
+           "first_tick_logits": routed_logit_gate(what, l_lg, g_lg, same[0], tol, failures),
+           "first_tick_routing_decisions": {"differ": same[1], "of": n_moe * n},
+           "expert_launches": {"grouped": g_launch, "loop": l_launch},
+           "expert_tokens_loop": lp["seen"]["stats"].expert_tokens,
+           "loop_planned_reads": lp["planned_reads"], "loop_decode_syncs": lp["syncs"],
+           "grouped_decode_syncs": g["syncs"],
+           "wall_s": {"grouped": g["wall_s"], "loop": lp["wall_s"]},
+           "decode_s": {"grouped": g["report"].decode_s, "loop": lp["report"].decode_s},
+           "decode_tok_s": {"grouped": g["report"].decode_throughput,
+                            "loop": lp["report"].decode_throughput},
+           "launches": {"grouped": g["counts"], "loop": lp["counts"]}}
+    if not rec["first_tokens_equal"]:
+        failures.append(f"{what}: the first tokens differ (both prefill grouped)")
+    if g_launch != n_moe * ticks or l_launch < g_launch:
+        failures.append(f"{what}: expert launches grouped {g_launch} (want {n_moe} x "
+                        f"{ticks}), loop {l_launch}")
+    if lp["syncs"] or lp["planned_reads"] != n_moe * ticks or lp["fused_ticks"] \
+            or g["fused_ticks"]:
+        failures.append(f"{what}: the loop decode made host syncs {lp['syncs']} or "
+                        f"{lp['planned_reads']} planned reads (want {n_moe * ticks}), or a "
+                        f"per-module run was fused")
+    if dev.type == "cuda" and (lp["counts"]["expert_gate_up"] != n_moe * n_mb
+                               or g["counts"]["expert_gate_up"] != n_moe * (n_mb + ticks)):
+        failures.append(f"{what}: K1 launches loop {lp['counts']['expert_gate_up']} (want "
+                        f"the prefill's {n_moe} x {n_mb}), grouped "
+                        f"{g['counts']['expert_gate_up']}")
+    return rec, {"grouped": g["counts"], "loop": lp["counts"]}
+
+
+def prefill_routes(calls: list, lengths, S: int, n_mb: int, b_a: int, live_only: bool):
+    """Per MoE layer and request, the (len, k) expert ids of its positions,
+    from the ids each ``route`` call of a prefill recorded (layers outer,
+    micro-batches inner; the grouped prefill routes only the positions below
+    each row's length, the dense combine every position)."""
+    import numpy as np
+
+    out = []
+    for li in range(len(calls) // n_mb):
+        per = []
+        for j in range(n_mb):
+            idx = calls[li * n_mb + j]
+            lens = lengths[j * b_a:(j + 1) * b_a]
+            if live_only:
+                per.extend(np.split(idx, np.cumsum(lens)[:-1]))
+            else:
+                idx = idx.reshape(len(lens), S, -1)
+                per.extend(idx[r, :lens[r]] for r in range(len(lens)))
+        out.append(per)
+    return out
+
+
+def exact_vs_grouped_prefill(dev, cfg, params, plan, requests, decode_len: int, tol: float,
+                             failures: list) -> tuple:
+    """``grouped_prefill=False`` against the grouped prefill (see
+    ``phase_oracles``).  Returns (record, the exact prefill's launches)."""
+    import numpy as np
+
+    from repro_torch import analysis
+    from repro_torch.core.engine import ModuleBatchingEngine
+    from repro_torch.kernels import ops
+
+    n = len(requests)
+    n_moe = sum(1 for i in range(cfg.num_layers) if cfg.ffn_kind(i) == "moe")
+    n_mb = -(-n // plan.b_a)
+    prompts, lengths = padded_prompts(requests)
+    S = prompts.shape[1]
+    pre = {}
+    for grouped in (True, False):
+        before = torch.cuda.memory_allocated()
+        eng = ModuleBatchingEngine(cfg, params, plan, max_seq=S + decode_len, device=dev,
+                                   grouped_prefill=grouped, fused_decode=False)
+        ops.reset_launch_counts()
+        calls = []
+        with analysis.sanitize(strict=False) as san, \
+                routes_recorded(lambda idx: calls.append(idx.cpu().numpy())):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg = eng.prefill(prompts, lengths=lengths)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        pre[grouped] = {"logits": lg.float().cpu(), "ms": ms, "launches": ops.launch_counts(),
+                        "probes": san.report()["planned_transfers"].get(
+                            "prefill-capacity-probe", 0),
+                        "routes": prefill_routes(calls, lengths, S, n_mb, plan.b_a, grouped)}
+        del eng, lg
+        freed("oracles", f"grouped_prefill={grouped} engine", before)
+    differ = [[int((np.sort(a[r], -1) != np.sort(b[r], -1)).any(-1).sum()) for r in range(n)]
+              for a, b in zip(pre[True]["routes"], pre[False]["routes"])]   # (layer, row)
+    same = [not any(d[r] for d in differ) for r in range(n)]
+    what = f"oracles {params['embed'].dtype}: exact vs grouped prefill"
+    rec = {"phase": "oracles", "run": "grouped_prefill=False vs grouped prefill",
+           "dtype": str(params["embed"].dtype), "prefill_tokens": int(lengths.sum()),
+           "micro_batches": n_mb,
+           "last_token_logits": routed_logit_gate(what, pre[False]["logits"], pre[True]["logits"],
+                                           same, tol, failures),
+           "routing_decisions": {"differ": int(sum(map(sum, differ))),
+                                 "of": n_moe * int(lengths.sum())},
+           "capacity_probes": {"grouped": pre[True]["probes"], "exact": pre[False]["probes"]},
+           "prefill_ms": {"grouped": pre[True]["ms"], "exact": pre[False]["ms"]},
+           "launches": {"grouped": pre[True]["launches"], "exact": pre[False]["launches"]}}
+    if pre[False]["probes"] != 0 or pre[True]["probes"] != n_moe * n_mb:
+        failures.append(f"{what}: capacity probes exact {pre[False]['probes']} (want 0), "
+                        f"grouped {pre[True]['probes']} (want {n_moe} x {n_mb})")
+    return rec, pre[False]["launches"]
+
+
+def phase_oracles(dev, params):
+    """The engine's reference oracles on full-size OLMoE-1B-7B:
+    ``ORACLE_REQUESTS`` requests of 64..256 tokens, decode ``ORACLE_DECODE``,
+    B = b_e = ORACLE_REQUESTS, on serve's bf16 weights and then on the same
+    seed's f32 weights (27.7 GB).
+
+    1. The loop expert path (``expert_path='loop'``: the routing read to the
+       host once a MoE layer and tick, one ``torch.matmul`` chain per expert
+       and chunk) against the per-module grouped server: the same first
+       tokens (both prefill grouped), grouped expert launches n_moe x ticks
+       and the loop's at least that, K1 launched only by the loop's prefill,
+       no host sync in the loop's decode chunks but its planned reads
+       (n_moe x ticks), and the first decode tick's logits within the row
+       tolerance (bf16 0.02, f32 1e-3 of each row's peak) on every row that
+       both runs routed alike in every layer (``routed_logit_gate``); the share of
+       equal tokens printed.
+    2. ``grouped_prefill=False`` (the dense-combine prefill) against the
+       grouped prefill: 0 capacity probes against n_moe x micro-batches, and
+       the last-token logits under the same gate in f32 (a row counts as
+       routed alike when every one of its positions took the same experts in
+       every layer); in bf16 the logits and the routing decisions that
+       differ are reported only (with ~2500 positions x 16 layers every
+       row has some near tie routed otherwise).
+    3. (bf16) ``greedy_generate`` (model-based batching) on ORACLE_REQUESTS
+       equal prompts of ORACLE_PROMPT tokens against the engine's per-module
+       oracle: the share of equal tokens and both decode tok/s (no gate on
+       speed).
+    Every number is printed before any gate is read.  Returns each run's
+    launch counts."""
+    import numpy as np
+
+    from repro_torch.data.datasets import DatasetSpec, synthetic_requests
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.generate import greedy_generate
+
+    cfg, plan, lens, decode_len = serve_setup(short_lengths(ORACLE_REQUESTS), ORACLE_DECODE)
+    n = len(lens)
+    requests = synthetic_requests(DatasetSpec("oracles", n, max(lens), decode_len),
+                                  cfg.vocab_size, seed=5, prompt_lens=lens)
+    launches, failures = {}, []
+    # 1-2 on serve's bf16 weights
+    rec, counts = loop_vs_grouped(dev, cfg, params, plan, requests, decode_len, REL_BF16,
+                                  failures)
+    emit(rec)
+    launches.update({f"oracles_{k}": v for k, v in counts.items()})
+    # (in bf16 every row has some position routed otherwise, so the logits
+    # are reported only; the f32 run below gates every row)
+    rec, launches["oracles_exact_prefill"] = exact_vs_grouped_prefill(
+        dev, cfg, params, plan, requests, decode_len, None, failures)
+    emit(rec)
+    # 3. greedy_generate (model-based batching) against the per-module oracle
+    _, eq_plan, eq_lens, _ = serve_setup([ORACLE_PROMPT] * n, decode_len)
+    eq = synthetic_requests(DatasetSpec("oracles-greedy", n, ORACLE_PROMPT, decode_len),
+                            cfg.vocab_size, seed=6, prompt_lens=eq_lens)
+    toks = torch.from_numpy(padded_prompts(eq)[0]).to(dev)
+    before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = greedy_generate(cfg, params, toks, decode_len).cpu().numpy()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches["oracles_greedy"] = ops.launch_counts()
+    t0 = time.perf_counter()
+    lg, caches = M.prefill(cfg, params, toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    del lg, caches
+    freed("oracles", "greedy_generate", before)
+    want, oracle_counts, timing = per_module_oracle(dev, cfg, params, eq_plan, eq, decode_len,
+                                                    "oracles")
+    greedy_decode_s = total_s - prefill_s
+    emit({"phase": "oracles", "run": "greedy_generate vs per-module engine",
+          "requests": n, "prompt_len": ORACLE_PROMPT, "decode_len": decode_len,
+          "token_match": float((got == want).mean()),
+          "first_tokens_equal": bool(np.array_equal(got[:, 0], want[:, 0])),
+          "model_based": {"total_s": total_s, "prefill_s": prefill_s,
+                          "decode_s": greedy_decode_s,
+                          "decode_tok_s": n * (decode_len - 1) / greedy_decode_s},
+          "module_based": timing, "launches": {"greedy": launches["oracles_greedy"],
+                                               "per_module": oracle_counts},
+          "nvidia_smi": gpu_line()})
+    del toks
+    if got.shape != (n, decode_len) or got.min() < 0 or got.max() >= cfg.vocab_size:
+        failures.append(f"oracles: greedy_generate gave {got.shape} tokens out of range")
+    if dev.type == "cuda" and not (launches["oracles_greedy"]["flash_attention"] > 0
+                                   and launches["oracles_greedy"]["decode_attention"] > 0):
+        failures.append(f"oracles: greedy_generate did not run K4 and K3: "
+                        f"{launches['oracles_greedy']}")
+    # 1-2 again in f32: the same seed's weights before their bf16 rounding
+    cfg32 = replace(cfg, dtype="float32")
+    before = torch.cuda.memory_allocated()
+    p32 = M.init_params(cfg32, seed=0, device=dev)
+    rec, counts = loop_vs_grouped(dev, cfg32, p32, plan, requests, decode_len, TOL_ORACLE_F32,
+                                  failures)
+    emit(rec)
+    rec, _ = exact_vs_grouped_prefill(dev, cfg32, p32, plan, requests, decode_len,
+                                      TOL_ORACLE_F32, failures)
+    emit(rec)
+    del p32
+    freed("oracles", "the f32 weights", before)
+    if failures:
+        raise AssertionError("oracles: " + "; ".join(failures))
+    return launches
+
+
+def prime_backward(dev) -> None:
+    """Autograd runs a CUDA backward (and a checkpointed recompute) on its own
+    device thread, whose cuBLAS handle keeps a workspace for the life of the
+    process: make it before the train phase reads its memory, as ``prime``
+    does for the main thread."""
+    from torch.utils.checkpoint import checkpoint
+
+    for dt in (torch.bfloat16, torch.float32):
+        a = torch.ones((8, 8), dtype=dt, device=dev, requires_grad=True)
+        body = lambda t: torch.bmm((torch.addmm(t[0], t, t) @ t)[None], t[None])  # noqa: E731
+        checkpoint(body, a, use_reentrant=False).sum().backward()
+    torch.cuda.synchronize()
+
+
+def train_batch(cfg, B: int, S: int, dev, seed: int = 0):
+    """One seeded synthetic (tokens, labels) batch on ``dev``."""
+    import numpy as np
+
+    from repro_torch.data.datasets import synthetic_batches
+
+    t, lab = next(synthetic_batches(cfg.vocab_size, B, S, seed=seed))
+    return (torch.from_numpy(t.astype(np.int64)).to(dev),
+            torch.from_numpy(lab.astype(np.int64)).to(dev))
+
+
+def loss_and_grads(cfg, params, tokens, labels, **kw):
+    """``loss_fn`` and the gradient of every leaf (the parameters require grad)."""
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import tree_leaves
+
+    leaves = tree_leaves(params)
+    total, _ = M.loss_fn(cfg, params, tokens, labels, **kw)
+    return total.detach(), torch.autograd.grad(total, leaves)
+
+
+def phase_train(dev):
+    """Training on the card: OLMoE-1B-7B at full width and ``TRAIN_LAYERS``
+    layers, bf16, ``TRAIN_B`` x ``TRAIN_S`` tokens, ``TRAIN_STEPS`` steps of
+    ``train_step`` (loss with remat "full", autograd, AdamW in place) on one
+    seeded batch: every loss and gnorm finite, the last loss below the first
+    minus 0.2 (tests/test_train.py::test_loss_decreases), the median step
+    (CUDA events), tokens/s and the peak memory beside the reckoning (12 B a
+    parameter: bf16 weights and grads, f32 moments).  Then a checkpoint round
+    trip of the trained base and first layer through the temporary
+    directory, bit-exact, the file removed; at 2 layers, remat off, "full"
+    and "dots" give the same loss and grads (each leaf's rows within 0.02 of
+    their peak); at smoke size in f32 one train step on the card equals the
+    CPU's (loss within 1e-4 relative, each grad within 1e-4 of its leaf's
+    peak; the updated weights' largest difference printed in units of lr).  No kernel is launched (autograd refuses them),
+    and the card's memory returns to its value before the phase."""
+    import math
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.train.optimizer import (
+        adamw_init,
+        adamw_update,
+        tree_leaves,
+        tree_map,
+        tree_unflatten,
+    )
+    from repro_torch.train.train_loop import make_train_step
+
+    prime_backward(dev)
+    torch.cuda.empty_cache()
+    launches0 = build.launch_counts()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device=dev)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens, labels = train_batch(cfg, TRAIN_B, TRAIN_S, dev)
+    step = make_train_step(cfg, lr=TRAIN_LR, remat=True, remat_policy="full")
+    metrics, events = [], []
+    for _ in range(TRAIN_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, opt, m = step(params, opt, tokens, labels)
+        e1.record()
+        metrics.append(m)
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    step_ms = sorted(a.elapsed_time(b) for a, b in events)
+    loss = [float(m["loss"]) for m in metrics]
+    gnorm = [float(m["gnorm"]) for m in metrics]
+    median_ms = step_ms[len(step_ms) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "train", "arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+          "B": TRAIN_B, "S": TRAIN_S, "steps": TRAIN_STEPS, "lr": TRAIN_LR, "remat": "full",
+          "params": n_params, "init_s": init_s, "loss": loss, "gnorm": gnorm,
+          "aux": [float(m["aux"]) for m in metrics],
+          "step_ms": [a.elapsed_time(b) for a, b in events], "median_step_ms": median_ms,
+          "tokens_per_s": TRAIN_B * TRAIN_S / (median_ms / 1e3),
+          "peak_allocated_gb": peak / 1e9,
+          "reckoned_state_gb": n_params * 12 / 1e9, "nvidia_smi": gpu_line()})
+    if not all(math.isfinite(x) for x in loss + gnorm):
+        raise AssertionError(f"train: a loss or gnorm is not finite: {loss} {gnorm}")
+    if not loss[-1] < loss[0] - 0.2:
+        raise AssertionError(f"train: the loss fell from {loss[0]} to {loss[-1]} only")
+    del metrics, events, m
+    # checkpoint round trip of the trained base and first layer
+    sub = {**{k: v for k, v in params.items() if k != "layers"}, "layers": params["layers"][:1]}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        path = os.path.join(tmp, "ckpt.npz")
+        t0 = time.perf_counter()
+        save_checkpoint(path, sub, step=TRAIN_STEPS)
+        save_s, nbytes = time.perf_counter() - t0, os.path.getsize(path)
+        t0 = time.perf_counter()
+        restored, at = load_checkpoint(path, tree_map(torch.empty_like, sub))
+        load_s = time.perf_counter() - t0
+        exact = at == TRAIN_STEPS and all(
+            a.dtype == b.dtype and torch.equal(a.detach(), b)
+            for a, b in zip(tree_leaves(sub), tree_leaves(restored)))
+    finally:
+        shutil.rmtree(tmp)
+    emit({"phase": "train", "checkpoint": "base + layer 0 of the trained model",
+          "params": sum(t.numel() for t in tree_leaves(sub)), "file_gb": nbytes / 1e9,
+          "save_s": save_s, "load_s": load_s, "bit_exact": exact,
+          "removed": not os.path.exists(tmp)})
+    if not exact or os.path.exists(tmp):
+        raise AssertionError("train: the checkpoint round trip is not bit-exact or its file "
+                             "was not removed")
+    del params, opt, sub, restored, step
+    # remat off / "full" / "dots" at 2 layers, full width
+    cfg2 = replace(cfg, num_layers=2)
+    p2 = M.init_params(cfg2, seed=1, device=dev)
+    for p in tree_leaves(p2):
+        p.requires_grad_(True)
+    ref_loss, ref_grads = loss_and_grads(cfg2, p2, tokens, labels, remat=False)
+    remat = {}
+    for policy in ("full", "dots"):
+        lo, gr = loss_and_grads(cfg2, p2, tokens, labels, remat=True, remat_policy=policy)
+        worst = max(errors(a, b)[1] for a, b in zip(gr, ref_grads))
+        remat[policy] = {"loss": float(lo), "loss_rel": abs(float(lo - ref_loss)) /
+                         abs(float(ref_loss)), "grad_rel_per_row": worst}
+        del gr
+    emit({"phase": "train", "remat": "off vs full vs dots", "layers": 2,
+          "loss_off": float(ref_loss), **remat, "tolerance": {"rel_per_row": REL_BF16}})
+    if not all(r["loss_rel"] < REL_BF16 and r["grad_rel_per_row"] < REL_BF16
+               for r in remat.values()):
+        raise AssertionError(f"train: remat policies disagree: {remat}")
+    del p2, ref_loss, ref_grads, tokens, labels
+    # one f32 train step at smoke size: card against CPU
+    cfgs = replace(get_config(TRAIN_PARITY_ARCH, smoke=True), dtype="float32")
+    cpu = M.init_params(cfgs, seed=2, device="cpu")
+    card = tree_map(lambda t: t.to(dev, copy=True), cpu)
+    out = {}
+    for where, p in (("card", card), ("cpu", cpu)):
+        for t in tree_leaves(p):
+            t.requires_grad_(True)
+        toks, labs = train_batch(cfgs, 2, 32, p["embed"].device, seed=3)
+        lo, gr = loss_and_grads(cfgs, p, toks, labs)
+        adamw_update(p, tree_unflatten(p, gr), adamw_init(p), lr=1e-3)
+        out[where] = (float(lo), [g.cpu() for g in gr], [t.detach().cpu() for t in tree_leaves(p)])
+        del gr
+    rel = lambda a, b: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)  # noqa: E731
+    parity = {"loss_rel": abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0]),
+              "grad_rel": max(rel(a, b) for a, b in zip(out["card"][1], out["cpu"][1]))}
+    # AdamW's first step moves a weight by ~lr * sign(g): where g is near 0 its
+    # sign is noise, so the updated weights are reported in units of lr
+    step_diff = max(float((a - b).abs().max()) for a, b in zip(out["card"][2], out["cpu"][2]))
+    del card, cpu, out
+    launched = {k: v - launches0.get(k, 0) for k, v in build.launch_counts().items()
+                if v != launches0.get(k, 0)}
+    emit({"phase": "train", "card_vs_cpu": TRAIN_PARITY_ARCH + " smoke, f32", **parity,
+          "tolerance": 1e-4, "updated_weights_max_diff_over_lr": step_diff / 1e-3,
+          "kernel_launches_in_phase": launched})
+    if not all(v < 1e-4 for v in parity.values()):
+        raise AssertionError(f"train: card and CPU train steps differ: {parity}")
+    if launched:
+        raise AssertionError(f"train: kernels were launched during training: {launched}")
+    freed("train", "training state", before)
+
+
 def kernels_line(rows, launches, path_rows=None) -> list:
     """One entry per kernel, at the shape of the path it serves most: K1-K3
     the short serve path, K4 the long one, K5 the SSM one; "launches" is
@@ -4207,8 +4791,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="kernels,serve,serve_omega,serve_long,serve_paged,"
                                         "serve_prefix,serve_streamed,serve_faults,"
-                                        "serve_replicas,serve_ep,serve_ssm,serve_mixtral,"
-                                        "parity,profile")
+                                        "serve_replicas,serve_ep,oracles,train,serve_ssm,"
+                                        "serve_mixtral,parity,profile")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -4240,7 +4824,7 @@ def main() -> int:
     launches = {}                           # per path: counts from its static run
     path_rows = {}                          # per streamed path: its kernel rows
     if phases & {"serve", "serve_long", "serve_streamed", "serve_omega", "serve_paged",
-                  "serve_prefix", "serve_faults", "serve_replicas", "serve_ep"}:
+                  "serve_prefix", "serve_faults", "serve_replicas", "serve_ep", "oracles"}:
         params = init_weights(dev)
         resident = long_reports = None
         if "serve" in phases:
@@ -4270,7 +4854,12 @@ def main() -> int:
             oracle = (None if resident is None else
                       [r.tokens for r in resident[1]["static"].request_results])
             launches["serve_ep"], path_rows["serve_ep"] = phase_serve_ep(dev, params, oracle)
+        if "oracles" in phases:
+            launches.update(phase_oracles(dev, params))
         del params, resident, long_reports
+        torch.cuda.empty_cache()
+    if "train" in phases:
+        phase_train(dev)
         torch.cuda.empty_cache()
     if "serve_ssm" in phases:
         launches["serve_ssm"], _ = phase_serve_ssm(dev, profile="profile" in phases)

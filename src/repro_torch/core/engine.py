@@ -98,7 +98,16 @@ Expert parallelism (``sctx``, ``distributed.ep_engine``): the engine is one
 rank of a ``torch.distributed`` group whose MoE decode stage is collective;
 it decodes per module.
 
-Out of the port so far: the loop expert path (``NotImplementedError``).
+The oracles: ``expert_path='loop'`` decodes the MoE stage as the reference's
+sequential per-expert loop (``_expert_stage_loop``: the routing read to the
+host in one planned ``expert-loop-oracle`` read a layer and tick, then one
+chain of ``torch.matmul`` products per expert and chunk of ``b_e`` rows, no
+kernel); a loop engine decodes per module and captures no graph.
+``grouped_prefill=False`` prefills a MoE layer through the exact
+dense-combine reference (``blocks.layer_forward``), with no capacity probe.
+``frontend_emb`` (a modality frontend's embeddings) replaces the first
+positions' token embeddings of ``prefill``, ``prefill_slots`` and
+``generate``, per micro-batch.
 """
 from __future__ import annotations
 
@@ -141,13 +150,11 @@ from repro_torch.serving.sampling import BatchSampler, greedy, sample_tokens
 from repro_torch.serving.weights import ParamStore, _HostBuffer
 from repro_torch.sharding.specs import ShardCtx
 
-LOOP_SLICE = "the 'loop' expert path is not ported; use expert_path='grouped'"
-
-
 @dataclass
 class EngineStats:
     attn_microbatches: int = 0
-    expert_launches: int = 0             # grouped: one per MoE layer per step
+    expert_launches: int = 0             # grouped: one per MoE layer per step;
+    #                                      loop: one per expert and chunk
     expert_tokens: int = 0               # routed token-copies processed
     expert_tokens_dropped: int = 0       # routed copies over the b_e capacity
     device_attn_tokens: int = 0
@@ -248,9 +255,14 @@ class _Carry:
 class ModuleBatchingEngine:
     """Executes a batching ``Plan`` over a real model on ``device``.
 
-    ``expert_path='grouped'`` is the only MoE stage of this slice: one
-    grouped-dispatch launch per MoE layer with capacity ``plan.b_e``;
-    prefill shares the grouped dispatch at a zero-drop capacity.
+    ``expert_path`` selects the MoE decode stage: ``'grouped'`` (default),
+    one grouped-dispatch launch per MoE layer with capacity ``plan.b_e``, or
+    ``'loop'``, the reference's sequential per-expert loop kept as the
+    numerical oracle (a planned host read of the routing per MoE layer and
+    tick; never fused).  ``grouped_prefill`` (default True) runs a prefill
+    MoE layer through the grouped dispatch at a zero-drop capacity; False,
+    through the exact dense-combine reference.  The two are independent, so
+    a loop engine shares the grouped prefill by default.
 
     ``stream_weights``, ``resident_bytes`` and ``prefetch`` go to
     ``ParamStore.build`` (predictive streaming follows the plan's
@@ -279,6 +291,7 @@ class ModuleBatchingEngine:
         plan: Plan,
         max_seq: int = 512,
         expert_path: str = "grouped",
+        grouped_prefill: bool = True,
         store: Optional[ParamStore] = None,
         stream_weights: bool = False,
         resident_bytes: Optional[float] = None,
@@ -290,6 +303,7 @@ class ModuleBatchingEngine:
         ep_chunks: int = 1,
         ep_serial: bool = False,
     ) -> None:
+        assert expert_path in ("grouped", "loop"), expert_path
         # an expert-parallel rank: the reference's construction checks,
         # before anything is built
         self.sctx = sctx if sctx is not None and sctx.group is not None else None
@@ -310,9 +324,9 @@ class ModuleBatchingEngine:
                 raise ValueError(
                     "stream_weights does not compose with a ShardCtx: the collective "
                     "stage needs resident expert shards")
-        if expert_path != "grouped":
-            raise NotImplementedError(LOOP_SLICE)
         self.device = resolve_device(device)
+        self.expert_path = expert_path
+        self.grouped_prefill = grouped_prefill
         self.cfg = cfg
         self.plan = plan
         self.max_seq = max_seq
@@ -595,21 +609,26 @@ class ModuleBatchingEngine:
             a = torch.from_numpy(np.array(a))
         return a.to(device=self.device, dtype=dtype, non_blocking=True)  # lint: allow[MG105] the engine's one upload of host index, position and token vectors, asynchronous
 
-    def prefill(self, tokens, lengths=None) -> torch.Tensor:
+    def prefill(self, tokens, frontend_emb=None, lengths=None) -> torch.Tensor:
         """Prefill a fresh batch (micro-batched by b_a), filling the engine
         cache.  Returns the last-token logits (B, V).  ``lengths`` (B,)
-        makes a ragged right-padded batch exact."""
+        makes a ragged right-padded batch exact; ``frontend_emb`` (B, F, D)
+        replaces the first F positions' embeddings."""
         B = tokens.shape[0]
         self.init_cache(B)
-        return self.prefill_slots(tokens, np.arange(B), lengths=lengths)
+        return self.prefill_slots(tokens, np.arange(B), lengths=lengths,
+                                  frontend_emb=frontend_emb)
 
-    def prefill_slots(self, tokens, rows, lengths=None) -> torch.Tensor:
+    def prefill_slots(self, tokens, rows, lengths=None, frontend_emb=None) -> torch.Tensor:
         """Prefill ``tokens`` (n, S) into existing batch rows ``rows`` (n,).
 
         Layer-major module batching: layers in the outer loop (weights
         acquired once per layer), ``b_a`` micro-batches in the inner loop.
         Also the continuous scheduler's admission path: newcomers overwrite
-        their slots' cache rows; every other slot is untouched.  Returns the
+        their slots' cache rows; every other slot is untouched.  A MoE layer
+        runs the grouped dispatch (``grouped_prefill``) or the exact
+        dense-combine reference.  ``frontend_emb`` (n, F, D) replaces each
+        micro-batch's first F positions' embeddings.  Returns the
         newcomers' last-token logits (n, V)."""
         cfg, plan = self.cfg, self.plan
         assert self.cache is not None, "init_cache/prefill before prefill_slots"
@@ -634,13 +653,18 @@ class ModuleBatchingEngine:
         positions = torch.arange(S, device=self.device)[None, :]
         embed = self.store.base["embed"]
         xs = [embed[tokens[lo:hi]] for lo, hi in spans]
+        if frontend_emb is not None:
+            fe = self._tensor(frontend_emb, torch_dtype(cfg.dtype))
+            F = fe.shape[1]
+            xs = [torch.cat([fe[lo:hi], x[:, F:]], dim=1)
+                  for (lo, hi), x in zip(spans, xs)]
         for li, (kind, ffn) in enumerate(self.schema):
             p = self.store.acquire(li)
             self.store.prefetch(li + 1)     # hide l+1's copy behind this layer
             outs = []
             for j, ((lo, hi), x) in enumerate(zip(spans, xs)):
                 ln = None if lengths is None else lengths[lo:hi]
-                if ffn == "moe":
+                if ffn == "moe" and self.grouped_prefill:
                     x, entry = self._prefill_moe_layer(kind, p, x, positions, ln,
                                                        live[j])
                 else:
@@ -848,7 +872,7 @@ class ModuleBatchingEngine:
             kv = (torch.stack([torch.as_tensor(t) for t in prefix_kvs[li]])  # lint: allow[MG105] a hit's stored prefix KV, one asynchronous copy a layer from page-locked memory
                   if pairs is None else pairs[li]).to(self.device, non_blocking=True)
             pkv = (kv[0][None], kv[1][None])
-            if ffn == "moe":
+            if ffn == "moe" and self.grouped_prefill:
                 x, entry = self._prefill_moe_layer(kind, p, x, positions, None,
                                                    prefix_kv=pkv, cap=cap)
             else:
@@ -865,11 +889,13 @@ class ModuleBatchingEngine:
         prefetch needs the layer boundary to hide behind, and a graph would
         hold the window's slots at fixed addresses), and no KV page on the
         host (Mode B decodes per module for the same reasons).  The host
-        attention rows of omega > 0 run per module beside the graph.  An
-        expert-parallel engine (``sctx``) always decodes per module: its
+        attention rows of omega > 0 run per module beside the graph.  A loop
+        engine decodes per module (its stage reads the routing to the host).
+        An expert-parallel engine (``sctx``) always decodes per module: its
         collective MoE stage exchanges through the host between the
         attention and the FFN."""
-        return (self.fused_decode and self.sctx is None and self.store.fully_resident
+        return (self.fused_decode and self.expert_path == "grouped" and self.sctx is None
+                and self.store.fully_resident
                 and (self.pages is None or self.pages.fully_resident))
 
     # -- decode -----------------------------------------------------------
@@ -915,13 +941,14 @@ class ModuleBatchingEngine:
         """Per-module accounting of one decode tick over rows ``[row0, row0
         + n)``: one attention launch set per layer and micro-batch, the
         host and device attention tokens, one grouped dispatch per MoE
-        layer."""
+        layer (the loop stage counts its own launches)."""
         segs = self._segments(row0, n)
         host = sum(hi - lo for lo, hi, h in segs if h)
         self.stats.attn_microbatches += self._n_attn * len(segs)
         self.stats.host_attn_tokens += self._n_attn * host
         self.stats.device_attn_tokens += self._n_attn * (n - host)
-        self.stats.expert_launches += len(self._moe_layers)
+        if self.expert_path == "grouped":
+            self.stats.expert_launches += len(self._moe_layers)
 
     @hot_path
     def _decode_rows(self, tokens: torch.Tensor, pos: torch.Tensor, row0: int,
@@ -939,7 +966,8 @@ class ModuleBatchingEngine:
         # only device rows read the streamed host frames
         device_rows = self.pages is not None and row0 + tokens.shape[0] > self.n_host
         for li, (kind, ffn) in enumerate(self.schema):
-            predictive = ffn == "moe" and self.store.streams_experts(li)
+            predictive = (ffn == "moe" and self.expert_path == "grouped"
+                          and self.store.streams_experts(li))
             p = self.store.acquire(li, experts=not predictive)
             if kind == "attn":
                 x = x + self._attention_stage(li, p, x, pos, row0, pos_host)
@@ -950,6 +978,8 @@ class ModuleBatchingEngine:
                 self.pages.prefetch(li + 1)  # the next layer's host KV frames
             if predictive:
                 x = x + self._expert_stage_predictive(li, x)
+            elif ffn == "moe" and self.expert_path == "loop":
+                x = x + self._expert_stage_loop(p, x)
             elif ffn == "moe":
                 x = x + self._expert_stage_grouped(li, p, x)
             elif cfg.d_ff > 0 and "ffn" in p:
@@ -1141,6 +1171,44 @@ class ModuleBatchingEngine:
         self._kept_dev += kept
         self._dropped_dev[j] += dropped
         self._load_dev[j] += load
+        return y
+
+    def _expert_stage_loop(self, p, x) -> torch.Tensor:
+        """The reference's sequential per-expert loop, kept as the oracle:
+        norm2 and route on the device, the (T, k) expert ids and gates read
+        to the host in one planned read (``expert-loop-oracle``), then for
+        each expert and each chunk of ``b_e`` of its rows one product chain
+        ``silu(h @ wg) * (h @ wu) @ wd`` in the activations' dtype (plain
+        ``torch.matmul``, no kernel), added into the rows weighted by their
+        gates.  Counts one expert launch and its rows per chunk."""
+        cfg = self.cfg
+        moe = p["moe"]
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        gates, idx, _ = moe_mod.route(cfg, moe["router"], h)
+        k = idx.shape[1]
+        packed = torch.cat([idx.to(torch.float32), gates], dim=1)   # ids exact in f32
+        with sanitizer.allowed("expert-loop-oracle"):
+            host = packed.cpu().numpy()
+        self.stats.planned_reads += 1
+        idx_np, gates_np = host[:, :k].astype(np.int64), host[:, k:]
+        y = torch.zeros_like(x)
+        b_e = max(1, self.plan.b_e)
+        for e in range(cfg.num_experts):
+            rows, which = np.nonzero(idx_np == e)
+            if rows.size == 0:
+                continue
+            w = gates_np[rows, which]
+            wg, wu, wd = (moe[name][e] for name in
+                          ("experts_w_gate", "experts_w_up", "experts_w_down"))
+            for lo in range(0, rows.size, b_e):
+                chunk = rows[lo:lo + b_e]
+                r = self._tensor(chunk)
+                g = self._tensor(w[lo:lo + b_e], torch.float32)
+                hc = h[r]
+                ye = (torch.nn.functional.silu(hc @ wg) * (hc @ wu)) @ wd
+                y[r] += ye * g[:, None].to(ye.dtype)
+                self.stats.expert_launches += 1
+                self.stats.expert_tokens += chunk.size
         return y
 
     def _next_streamed_moe(self, li: int) -> int:
@@ -1447,18 +1515,19 @@ class ModuleBatchingEngine:
         return sampler.sample(self.decode_step(tokens, pos), slots)
 
     # -- generation -------------------------------------------------------
-    def generate(self, tokens, decode_len: int, lengths=None, sampling=None,
-                 chunk: Optional[int] = None) -> torch.Tensor:
+    def generate(self, tokens, decode_len: int, frontend_emb=None, lengths=None,
+                 sampling=None, chunk: Optional[int] = None) -> torch.Tensor:
         """Generation -- greedy by default (the paper's strategy, §B); pass
         ``sampling`` (``serving.sampling.SamplingParams``) for seeded
         temperature / top-k decoding, each row's index folded into its key.
         ``lengths`` (B,) generates from a ragged right-padded batch, each
         sequence at its own positions.  Decode runs in chunks of ``chunk``
         ticks (default: the plan's ``decode_chunk``), fused when eligible.
-        Returns (B, decode_len) tokens on the device."""
+        ``frontend_emb`` (B, F, D) replaces the prompts' first F positions'
+        embeddings.  Returns (B, decode_len) tokens on the device."""
         B, S = tokens.shape
         sampler = BatchSampler.uniform(B, sampling)
-        logits = self.prefill(tokens, lengths=lengths)
+        logits = self.prefill(tokens, frontend_emb, lengths=lengths)
         cols = [sampler.sample(logits)]
         base = (np.full(B, S, np.int64) if lengths is None
                 else np.asarray(lengths, np.int64))

@@ -22,7 +22,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.expert_gemm import _check_cuda, _is_cpu
+from repro_torch.kernels.expert_gemm import _check_cuda, _is_cpu, refuse_autograd
 
 SUPPORTED_G = (1, 2, 4, 8)
 SUPPORTED_HD = (32, 64, 128)
@@ -94,6 +94,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos) -> torch.Tensor:
     """q (B, H, hd), k/v (B, S, K, hd), pos int or (B,) int -> (B, H, hd)."""
     _check_shapes("decode_attention", q, k, v)
+    refuse_autograd("decode_attention", q, k, v)
     if _is_cpu(q):
         return ref.decode_attention_ref(q, k, v, pos)
     posv = _prepare("decode_attention", q, k, v, pos)
@@ -131,6 +132,7 @@ def decode_attention_prev(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError("decode_attention_prev: CUDA tensors only")
     _check_shapes("decode_attention_prev", q, k, v)
+    refuse_autograd("decode_attention_prev", q, k, v)
     posv = _prepare("decode_attention_prev", q, k, v, pos)
     B, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
@@ -170,6 +172,7 @@ def decode_attention_paged(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
     slot s is at offset s % pt of frame ``frames[b, s // pt]``.  Returns
     (n, H, hd)."""
     _check_paged(q, pk, pv, ek, ev, frames, span)
+    refuse_autograd("decode_attention_paged", q, pk, pv, ek, ev)
     if _is_cpu(q):
         return ref.decode_attention_paged_ref(q, pk, pv, ek, ev, frames, pos, span)
     posv = _prepare("decode_attention_paged", q, pk, pv, pos)

@@ -69,6 +69,20 @@ def _check_cuda(name: str, tensors, counts: Optional[torch.Tensor]) -> None:
             raise ValueError(f"{name}: counts must be a contiguous (E,) vector")
 
 
+def refuse_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise when autograd would record ``name`` on these inputs: the
+    kernels have no backward, so an output written by one would cut the
+    gradient without a word.  Checked on CPU tensors too (their plain
+    versions are differentiable, so a CPU run would otherwise pass where
+    the card cuts the gradient)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{name}: a kernel op has no backward; call it under torch.no_grad() "
+            f"or on inputs that do not require grad (training runs the "
+            f"differentiable math of models/, differentiable=True)")
+
+
 def _is_cpu(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return True
@@ -84,6 +98,7 @@ def expert_gate_up(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     F = wg.shape[-1]
     if wg.shape != (E, D, F) or wu.shape != (E, D, F):
         raise ValueError(f"expert_gate_up: shapes {x.shape} {wg.shape} {wu.shape}")
+    refuse_autograd("expert_gate_up", x, wg, wu)
     if _is_cpu(x):
         return ref.expert_gate_up_ref(x, wg, wu, counts)
     _check_cuda("expert_gate_up", (x, wg, wu), counts)
@@ -115,6 +130,7 @@ def expert_gate_up_prev(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     F = wg.shape[-1]
     if x.device.type != "cuda":
         raise ValueError("expert_gate_up_prev: CUDA tensors only")
+    refuse_autograd("expert_gate_up_prev", x, wg, wu)
     _check_cuda("expert_gate_up_prev", (x, wg, wu), counts)
     h = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     err = build.library("expert_gemm").repro_expert_gate_up(
@@ -134,6 +150,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     N = w.shape[-1]
     if w.shape != (E, K, N):
         raise ValueError(f"grouped_matmul: shapes {x.shape} {w.shape}")
+    refuse_autograd("grouped_matmul", x, w)
     if _is_cpu(x):
         return ref.grouped_matmul_ref(x, w, counts)
     _check_cuda("grouped_matmul", (x, w), counts)
@@ -164,6 +181,7 @@ def grouped_matmul_prev(x: torch.Tensor, w: torch.Tensor,
     N = w.shape[-1]
     if x.device.type != "cuda":
         raise ValueError("grouped_matmul_prev: CUDA tensors only")
+    refuse_autograd("grouped_matmul_prev", x, w)
     _check_cuda("grouped_matmul_prev", (x, w), counts)
     out = torch.empty((E, C, N), dtype=x.dtype, device=x.device)
     err = build.library("expert_gemm").repro_grouped_matmul(

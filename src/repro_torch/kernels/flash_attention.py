@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.expert_gemm import _check_cuda, _is_cpu
+from repro_torch.kernels.expert_gemm import _check_cuda, _is_cpu, refuse_autograd
 
 SUPPORTED_G = (1, 2, 4, 8)
 SUPPORTED_HD = (32, 64, 128)        # 32: the smoke configs
@@ -79,6 +79,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, S, H, hd = q.shape
     K = k.shape[2]
     _check_shapes("flash_attention", q, k, v, window, q_offset)
+    refuse_autograd("flash_attention", q, k, v)
     if _is_cpu(q):
         return ref.flash_attention_ref(q, k, v, window=window, lengths=lengths,
                                        q_offset=q_offset)
@@ -114,6 +115,7 @@ def flash_attention_prev(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError("flash_attention_prev: CUDA tensors only")
     _check_shapes("flash_attention_prev", q, k, v, window, 0)
+    refuse_autograd("flash_attention_prev", q, k, v)
     lens = _check_flash("flash_attention_prev", q, k, v, lengths)
     out = torch.empty_like(q)
     err = build.library("flash_attention").repro_flash_attention(

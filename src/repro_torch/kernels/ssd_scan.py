@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.expert_gemm import _check_cuda, _is_cpu
+from repro_torch.kernels.expert_gemm import _check_cuda, _is_cpu, refuse_autograd
 
 SUPPORTED_HP = (32, 64)
 SUPPORTED_NS = (16, 64, 128)
@@ -94,6 +94,7 @@ def ssd_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     never read, their y rows come back as zeros, and the state is the state
     at ``lengths[b]``."""
     _check_shapes("ssd_scan", x, B, C, dt, A, chunk)
+    refuse_autograd("ssd_scan", x, B, C, dt, A)
     if _is_cpu(x):
         return ref.ssd_scan_ref(x, B, C, dt, A, chunk, lengths=lengths)
     lens = _prepare("ssd_scan", x, B, C, dt, A, chunk, lengths)
@@ -114,6 +115,7 @@ def ssd_scan_prev(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError("ssd_scan_prev: CUDA tensors only")
     _check_shapes("ssd_scan_prev", x, B, C, dt, A, chunk)
+    refuse_autograd("ssd_scan_prev", x, B, C, dt, A)
     lens = _prepare("ssd_scan_prev", x, B, C, dt, A, chunk, lengths)
     out = _launch("ssd_scan_prev", x, B, C, dt, A, chunk, lens, mma=False)
     build.LAUNCHES["ssd_scan_prev"] += 1

@@ -36,7 +36,9 @@ serves DP replicas behind one queue (``distributed.ReplicaServer``, with
 ``--faults kill=R@N`` failing a replica over), each an expert-parallel group
 of EP rank processes on gloo (``launch.mesh.spawn``; ``--mesh 1,2`` puts
 two ranks on one card); the ranks' tokens must agree, and rank 0's report is
-printed.
+printed.  ``--expert-path loop`` decodes through the per-expert loop
+oracle (one planned host read of each MoE layer's routing a tick) instead
+of the grouped dispatch.
 """
 from __future__ import annotations
 
@@ -130,6 +132,9 @@ def main(argv=None) -> None:
                     help="accumulated batch B (engine slots)")
     ap.add_argument("--b-e", type=int, default=None,
                     help="per-expert decode capacity (default: the plan's)")
+    ap.add_argument("--expert-path", default="grouped", choices=("grouped", "loop"),
+                    help="MoE decode stage: grouped dispatch vs per-expert loop (the "
+                         "oracle: a host read of the routing per MoE layer and tick)")
     ap.add_argument("--scheduler", default="static",
                     choices=("static", "continuous"))
     ap.add_argument("--seed", type=int, default=0)
@@ -240,6 +245,7 @@ def main(argv=None) -> None:
     fault_plan = faults.resolve(args.faults)
     server = Server(cfg, params, plan,
                     serve=ServeConfig(scheduler=args.scheduler, decode_len=args.decode_len,
+                                      expert_path=args.expert_path,
                                       kv_page_tokens=args.kv_page_tokens,
                                       device_kv_gb=args.device_kv_gb,
                                       prefix_cache=args.prefix_cache,
@@ -329,6 +335,7 @@ def mesh_rank(rank: int, n: int, group, args, cfg, plan, requests):
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
     params = M.init_params(cfg, seed=args.seed, device=args.device)
     serve = ServeConfig(scheduler=args.scheduler, decode_len=args.decode_len,
+                        expert_path=args.expert_path,
                         kv_page_tokens=args.kv_page_tokens, device_kv_gb=args.device_kv_gb,
                         prefix_cache=args.prefix_cache, faults=args.faults,
                         sctx=None if group is None else ShardCtx(group=group),

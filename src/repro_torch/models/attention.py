@@ -1,9 +1,16 @@
-"""Attention: GQA with RoPE; full-sequence (prefill) and decode paths.
+"""Attention: GQA with RoPE; full-sequence (prefill, training) and decode
+paths.
 
 * ``full_attention`` -- every prefill: causal GQA attention with an optional
   sliding window and per-row ``lengths`` of a right-padded batch; its
   mechanism is the hand-written flash-attention kernel
   (``kernels.ops.flash_attention``), whose plain version runs on the CPU.
+  With ``differentiable=True`` (training) it is the reference's dispatch
+  over three plain-PyTorch versions instead, which autograd differentiates:
+  ``naive_attention`` (materialized scores, S <= 1024),
+  ``blocked_attention`` (online softmax over KV blocks) and
+  ``swa_attention`` (a sliding window past the window, computing only the
+  window).  No kernel has a backward.
 * ``attn_decode``    -- one new token per sequence against a preallocated
   (possibly circular) cache, written in place; its mechanism is the
   hand-written decode-attention kernel (``kernels.ops.decode_attention``).
@@ -18,6 +25,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense_init
+
+NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
@@ -56,18 +65,152 @@ def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
+# Differentiable attention math (q (B, Sq, H, D); k, v (B, Sk, K, D))
+# ---------------------------------------------------------------------------
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q: (B, Sq, K, G, D), k: (B, Sk, K, D) -> (B, K, G, Sq, Sk) in f32."""
+    return torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float())
+
+
+def naive_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+    window: int = 0, q_offset: int = 0, kv_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Materialized-scores attention.  ``kv_mask`` (B, Sk) bool marks the
+    valid keys of a ragged batch."""
+    B, Sq, H, D = q.shape
+    K, Sk = k.shape[2], k.shape[1]
+    G = H // K
+    scores = _gqa_scores(q.reshape(B, Sq, K, G, D), k) * D ** -0.5   # (B,K,G,Sq,Sk)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    kpos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    scores = scores.masked_fill(~mask, NEG_INF)
+    if kv_mask is not None:
+        scores = scores.masked_fill(~kv_mask[:, None, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    return out.reshape(B, Sq, H, D)
+
+
+def blocked_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+    window: int = 0, q_block: int = 512, kv_block: int = 512,
+    kv_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Flash-style attention: an online softmax over KV blocks, O(S *
+    kv_block) memory.  Every KV block is computed and masked.  A length
+    that does not divide into blocks takes ``naive_attention``."""
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    if S % q_block or S % kv_block:
+        return naive_attention(q, k, v, causal=causal, window=window, kv_mask=kv_mask)
+    scale = D ** -0.5
+    nq, nk = S // q_block, S // kv_block
+    dev = q.device
+    qb = q.reshape(B, nq, q_block, K, G, D).float()
+    qpos = (torch.arange(nq, device=dev)[:, None] * q_block
+            + torch.arange(q_block, device=dev)[None, :])             # (nq, qb)
+    m = torch.full((B, nq, K, G, q_block), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, nq, K, G, q_block), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, nq, K, G, q_block, D), dtype=torch.float32, device=dev)
+    for i in range(nk):
+        ks = k[:, i * kv_block:(i + 1) * kv_block]
+        vs = v[:, i * kv_block:(i + 1) * kv_block]
+        s = torch.einsum("bnqkgd,bjkd->bnkgqj", qb, ks.float()) * scale
+        kpos = i * kv_block + torch.arange(kv_block, device=dev)
+        mask = torch.ones((nq, q_block, kv_block), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= qpos[..., None] >= kpos[None, None, :]
+        if window:
+            mask &= qpos[..., None] - kpos[None, None, :] < window
+        s = s.masked_fill(~mask[None, :, None, None], NEG_INF)
+        if kv_mask is not None:
+            km = kv_mask[:, i * kv_block:(i + 1) * kv_block]            # (B, kb)
+            s = s.masked_fill(~km[:, None, None, None, None, :], NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bnkgqj,bjkd->bnkgqd", p.to(vs.dtype), vs)
+        acc = acc * corr[..., None] + pv.float()
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.to(q.dtype).permute(0, 1, 4, 2, 3, 5)                    # (B,nq,qb,K,G,D)
+    return out.reshape(B, S, H, D)
+
+
+def swa_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int,
+    q_block: int = 512, kv_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Sliding-window attention computing only the window: each query block
+    attends a slice of ``window + q_block`` keys ending at its last
+    position.  A ragged batch, or a length this does not cover, takes
+    ``naive_attention``."""
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    if kv_mask is not None or S <= window + q_block or S % q_block:
+        return naive_attention(q, k, v, causal=True, window=window, kv_mask=kv_mask)
+    scale = D ** -0.5
+    span = window + q_block
+    dev = q.device
+    # keys and values padded on the left so every slice is in bounds
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, window, 0))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, window, 0))
+    outs = []
+    for i in range(S // q_block):
+        qs = q[:, i * q_block:(i + 1) * q_block].reshape(B, q_block, K, G, D)
+        # in padded coordinates query block i sees keys [i*qb, i*qb + span)
+        ks = kp[:, i * q_block:i * q_block + span]
+        vs = vp[:, i * q_block:i * q_block + span]
+        s = _gqa_scores(qs, ks) * scale                                   # (B,K,G,qb,span)
+        qpos = i * q_block + torch.arange(q_block, device=dev)
+        kpos = i * q_block + torch.arange(span, device=dev) - window    # original coords
+        mask = ((qpos[:, None] >= kpos[None, :]) & (qpos[:, None] - kpos[None, :] < window)
+                & (kpos[None, :] >= 0))
+        p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
+        o = torch.einsum("bkgqs,bskd->bqkgd", p.to(vs.dtype), vs)
+        outs.append(o.reshape(B, q_block, H, D))
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
 # Full-sequence attention ((B, S, H, D) / (B, S, K, D))
 # ---------------------------------------------------------------------------
 def full_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int = 0,
     lengths: Optional[torch.Tensor] = None, q_offset: int = 0,
+    differentiable: bool = False,
 ) -> torch.Tensor:
     """Causal attention of every prefill, at any length: query i (absolute
     position ``q_offset + i``, keys from position 0) sees keys
     ``i - window < j <= i`` (no lower limit when ``window`` is 0) and
     ``j < lengths[b]``.  Output rows at or past ``lengths[b]`` are zeros
     (they are never read).  K4 on a CUDA tensor, its plain version on the
-    CPU -- the reference's naive, blocked and sliding-window dispatch."""
+    CPU.  ``differentiable``: the reference's dispatch instead (a sliding
+    window past the window ``swa_attention``, S <= 1024 or a query offset
+    ``naive_attention``, else ``blocked_attention``), whose rows past
+    ``lengths[b]`` are not zeroed."""
+    if differentiable:
+        kv_mask = None
+        if lengths is not None:
+            Sk = k.shape[1]
+            lens = torch.as_tensor(lengths, device=q.device).reshape(-1, 1)
+            kv_mask = torch.arange(Sk, device=q.device)[None, :] < lens
+        S = q.shape[1]
+        if q_offset or (S <= 1024 and not (window and S > window)):
+            return naive_attention(q, k, v, causal=True, window=window,
+                                   q_offset=q_offset, kv_mask=kv_mask)
+        if window and S > window:
+            return swa_attention(q, k, v, window=window, kv_mask=kv_mask)
+        return blocked_attention(q, k, v, causal=True, window=window, kv_mask=kv_mask)
     return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                window=window, lengths=lengths, q_offset=q_offset)
 
@@ -82,6 +225,7 @@ def attn_forward(
     positions: Optional[torch.Tensor] = None,
     lengths: Optional[torch.Tensor] = None,
     prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    differentiable: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence attention.  Returns (output, {"k", "v"}) so prefill
     can cache.  ``lengths`` (B,) masks the keys at right-padded positions;
@@ -89,7 +233,8 @@ def attn_forward(
     them as zeros).  ``prefix_kv`` (k, v), each (B, P, K, hd): the cached
     KV of the first P positions (a prefix-cache hit); ``x`` is then the
     suffix at ``positions`` P.., its keys follow the prefix's, and the
-    entry returned is the whole row's."""
+    entry returned is the whole row's.  ``differentiable`` as
+    ``full_attention``'s (training)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
     if positions is None:
@@ -101,7 +246,7 @@ def attn_forward(
         q_offset = prefix_kv[0].shape[1]
         k, v = torch.cat([prefix_kv[0], k], dim=1), torch.cat([prefix_kv[1], v], dim=1)
     out = full_attention(q, k, v, window=cfg.sliding_window, lengths=lengths,
-                         q_offset=q_offset)
+                         q_offset=q_offset, differentiable=differentiable)
     y = out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"]
     return y, {"k": k, "v": v}
 

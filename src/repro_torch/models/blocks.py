@@ -79,11 +79,14 @@ def layer_forward(
     positions: Optional[torch.Tensor] = None,
     lengths: Optional[torch.Tensor] = None,
     prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    differentiable: bool = False,
 ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """Full-sequence layer.  Returns (x, cache_entry, aux_loss); ``lengths``
     (B,) masks right-padded positions of a ragged batch; ``prefix_kv`` as
-    ``attention.attn_forward``'s."""
-    y, cache = mixer_forward(cfg, kind, p, x, positions, lengths, prefix_kv)
+    ``attention.attn_forward``'s; ``differentiable`` as ``mixer_forward``'s
+    (the MoE is the dense-combine reference either way)."""
+    y, cache = mixer_forward(cfg, kind, p, x, positions, lengths, prefix_kv,
+                             differentiable)
     x, aux = ffn_stage(cfg, ffn_kind, p, x + y)
     return x, cache, aux
 
@@ -92,16 +95,20 @@ def mixer_forward(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor,
                   positions: Optional[torch.Tensor] = None,
                   lengths: Optional[torch.Tensor] = None,
                   prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  differentiable: bool = False,
                   ) -> Tuple[torch.Tensor, Dict]:
     """The sequence-mixer half of a layer, without its residual: norm1 ->
     attention (cache ``{"k", "v"}``; ``prefix_kv``: a cached prefix's KV in
     front of the keys, as ``attention.attn_forward``'s) or SSM (cache
-    ``{"h", "conv"}``)."""
+    ``{"h", "conv"}``).  The mechanism is K4 or K5 (serving), or with
+    ``differentiable`` the reference's plain math, which autograd
+    differentiates (training)."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "attn":
-        return attn_mod.attn_forward(cfg, p["attn"], h, positions, lengths, prefix_kv)
+        return attn_mod.attn_forward(cfg, p["attn"], h, positions, lengths, prefix_kv,
+                                     differentiable)
     assert prefix_kv is None, "a cached prefix needs an attention layer"
-    return ssm_mod.ssm_forward(cfg, p["ssm"], h, lengths)
+    return ssm_mod.ssm_forward(cfg, p["ssm"], h, lengths, differentiable)
 
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,

@@ -1,4 +1,4 @@
-"""Shared neural-net primitives: norms, RoPE, initializers."""
+"""Shared neural-net primitives: norms, RoPE, initializers, losses."""
 from __future__ import annotations
 
 from typing import Optional
@@ -46,3 +46,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return rotated.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token NLL in f32.  logits: (B, S, V); labels (B, S)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (lse - label_logit).mean()

@@ -4,13 +4,25 @@ layer followed by an MoE, a dense FFN or nothing.
 Parameters are a dict of tensors with the layers as a per-layer list
 (``params["layers"][i]``), not stacked over layer groups: PyTorch runs
 eagerly, so there is no trace to keep one-group-sized.
+
+``forward`` and ``loss_fn`` are the training path: the reference's plain
+math (``differentiable=True``: no kernel, which would have no backward),
+with remat by ``torch.utils.checkpoint`` over each layer group of
+``layer_pattern`` (the reference's scan body) and a chunked vocabulary
+loss.  ``prefill`` and ``decode_step`` are the serving path (the kernels).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
@@ -72,6 +84,135 @@ def head(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     return h @ w
 
 
+def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+           frontend_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings; ``frontend_emb`` (B, F, D) replaces the first F
+    positions (a modality frontend's frames or patches)."""
+    x = params["embed"][tokens]
+    if frontend_emb is not None:
+        F = frontend_emb.shape[1]
+        x = torch.cat([frontend_emb.to(x.dtype), x[:, F:]], dim=1)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (training / prefill)
+# ---------------------------------------------------------------------------
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat_policy="dots"``: keep the outputs of products without batch
+    dimensions (``mm``/``addmm``, what ``x @ W`` becomes), recompute the
+    rest -- ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, remat_policy: str):
+    """``fn`` under non-reentrant activation checkpointing: its inputs are
+    kept and its body recomputed in the backward pass (``"full"``), or the
+    products ``_dots_policy`` names are kept too (``"dots"``)."""
+    kw = {"use_reentrant": False}
+    if remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_policy)
+    elif remat_policy != "full":
+        raise ValueError(f"remat_policy {remat_policy!r}: 'full' or 'dots'")
+    return functools.partial(checkpoint, fn, **kw)
+
+
+def forward(
+    cfg: ModelConfig,
+    params: Dict,
+    tokens: torch.Tensor,                  # (B, S) int
+    frontend_emb: Optional[torch.Tensor] = None,
+    remat: bool = False,
+    logits_mode: str = "full",             # full | last | none
+    remat_policy: str = "full",            # full | dots
+    lengths: Optional[torch.Tensor] = None,
+    differentiable: bool = True,
+):
+    """Returns (logits (B, S, V), (B, 1, V) or the final hidden state, aux
+    loss (f32), caches).
+
+    ``lengths`` (B,) masks the padded positions of a right-padded batch,
+    and ``logits_mode="last"`` then takes each row's own last token.
+    ``remat`` checkpoints each layer group of ``layer_pattern`` (the
+    reference's scan body) under ``remat_policy``.  ``differentiable``
+    (the default) runs the reference's plain attention and SSM math, which
+    autograd differentiates; False runs the serving kernels (``prefill``)."""
+    pattern = layer_pattern(cfg)
+    B, S = tokens.shape
+    x = _embed(cfg, params, tokens, frontend_emb)
+    positions = torch.arange(S, device=x.device)[None, :]
+
+    def body(x, aux, *group):
+        caches = []
+        for (kind, ffn), p in zip(pattern, group):
+            x, cache, a = layer_forward(cfg, kind, ffn, p, x, positions, lengths,
+                                        differentiable=differentiable)
+            caches.append(cache)
+            aux = aux + a
+        return x, aux, caches
+
+    step = _remat(body, remat_policy) if remat else body
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches: List[Dict] = []
+    g = len(pattern)
+    for lo in range(0, cfg.num_layers, g):
+        x, aux, group_caches = step(x, aux, *params["layers"][lo:lo + g])
+        caches.extend(group_caches)
+    if logits_mode == "none":
+        return x, aux, caches
+    if logits_mode == "last":
+        if lengths is not None:
+            lens = torch.as_tensor(lengths, device=x.device).long()
+            last = x[torch.arange(B, device=x.device), lens - 1][:, None]
+        else:
+            last = x[:, -1:]
+        return head(cfg, params, last), aux, caches
+    return head(cfg, params, x), aux, caches
+
+
+def loss_fn(
+    cfg: ModelConfig,
+    params: Dict,
+    tokens: torch.Tensor,
+    labels: torch.Tensor,
+    frontend_emb: Optional[torch.Tensor] = None,
+    remat: bool = True,
+    aux_weight: float = 0.01,
+    vocab_chunk: int = 1024,
+    remat_policy: str = "full",
+):
+    """Mean-token NLL with a chunked vocabulary projection: the final hidden
+    states are projected and reduced to per-token NLL a sequence chunk at a
+    time (each chunk checkpointed under ``remat``), so the (B, S, V) logits
+    are never all held.  Returns (total, (nll, aux))."""
+    x, aux, _ = forward(cfg, params, tokens, frontend_emb, remat=remat,
+                        logits_mode="none", remat_policy=remat_policy)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    B, S, _ = x.shape
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    n_chunks = max(1, S // vocab_chunk) if S % vocab_chunk == 0 else 1
+    c = S // n_chunks
+
+    def chunk_nll(xs, ls, w):
+        lg = (xs @ w).float()
+        lse = torch.logsumexp(lg, dim=-1)
+        lab = torch.gather(lg, -1, ls[..., None].long())[..., 0]
+        return (lse - lab).sum()
+
+    nll_of = functools.partial(checkpoint, chunk_nll, use_reentrant=False) if remat \
+        else chunk_nll
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, S, c):
+        total = total + nll_of(x[:, lo:lo + c], labels[:, lo:lo + c], w)
+    nll = total / (B * S)
+    return nll + aux_weight * aux, (nll, aux)
+
+
 # ---------------------------------------------------------------------------
 # Prefill and decode
 # ---------------------------------------------------------------------------
@@ -79,27 +220,21 @@ def prefill(
     cfg: ModelConfig,
     params: Dict,
     tokens: torch.Tensor,                  # (B, S) int
+    frontend_emb: Optional[torch.Tensor] = None,
     lengths: Optional[torch.Tensor] = None,
 ):
-    """Returns (last-token logits (B, 1, V), caches).
+    """Returns (last-token logits (B, 1, V), caches): ``forward`` on the
+    serving kernels.
 
     Cache entries are the raw per-layer ``{"k", "v"}`` of shape (B, S, K, hd)
     with rope applied (``serving.kvcache`` aligns them into decode buffers),
     or an SSM layer's ``{"h", "conv"}`` state at each row's length.
-    ``lengths`` (B,) makes a ragged right-padded batch exact.  The MoE runs
+    ``lengths`` (B,) makes a ragged right-padded batch exact;
+    ``frontend_emb`` replaces the first positions' embeddings.  The MoE runs
     the dense-combine reference."""
-    B, S = tokens.shape
-    x = params["embed"][tokens]
-    positions = torch.arange(S, device=x.device)[None, :]
-    caches = []
-    for (kind, ffn), p in zip(layer_schema(cfg), params["layers"]):
-        x, cache, _ = layer_forward(cfg, kind, ffn, p, x, positions, lengths)
-        caches.append(cache)
-    if lengths is not None:
-        last = x[torch.arange(B, device=x.device), lengths.long() - 1][:, None]
-    else:
-        last = x[:, -1:]
-    return head(cfg, params, last), caches
+    logits, _, caches = forward(cfg, params, tokens, frontend_emb, logits_mode="last",
+                                lengths=lengths, differentiable=False)
+    return logits, caches
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> List:

@@ -49,19 +49,28 @@ ROUTER_ROWS = 1024
 def router_logits(router_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``x`` (..., D) @ ``router_w`` (D, E) in f32, in products of
     ``ROUTER_ROWS`` rows: a row's logits do not depend on the rows beside
-    it.  The rows go to f32 in one copy into a buffer of whole blocks (the
-    padding rows zeroed), and each block's product is written in place."""
+    it.  Served: the rows go to f32 in one copy into a buffer of whole
+    blocks (the padding rows zeroed), and each block's product is written
+    in place.  When autograd records (grad mode on, an input requiring
+    grad), which refuses ``out=``, the same block products are
+    concatenated instead: the same values bit for bit."""
     lead, D = x.shape[:-1], x.shape[-1]
     rows = x.reshape(-1, D)
     n = rows.shape[0]
     total = n + (-n) % ROUTER_ROWS
+    E = router_w.shape[1]
+    if torch.is_grad_enabled() and (x.requires_grad or router_w.requires_grad):
+        xf = torch.cat([rows.float(), rows.new_zeros((total - n, D), dtype=torch.float32)])
+        logits = torch.cat([torch.mm(xf[i:i + ROUTER_ROWS], router_w)
+                            for i in range(0, total, ROUTER_ROWS)])
+        return logits[:n].reshape(lead + (E,))
     xf = torch.empty((total, D), dtype=torch.float32, device=x.device)
     xf[:n].copy_(rows)
     xf[n:].zero_()
-    logits = torch.empty((total, router_w.shape[1]), dtype=torch.float32, device=x.device)
+    logits = torch.empty((total, E), dtype=torch.float32, device=x.device)
     for i in range(0, total, ROUTER_ROWS):
         torch.mm(xf[i:i + ROUTER_ROWS], router_w, out=logits[i:i + ROUTER_ROWS])
-    return logits[:n].reshape(lead + (router_w.shape[1],))
+    return logits[:n].reshape(lead + (E,))
 
 
 def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor):

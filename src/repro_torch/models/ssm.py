@@ -16,6 +16,11 @@ recurrence neither decays nor absorbs input there.  At every ``S`` the
 reference accepts, the valid outputs and the final state are what it gives,
 up to the order of float sums; and a row's result does not depend on the
 wave it was prefilled in, which keeps the two schedulers' tokens equal.
+
+Training runs ``ssm_forward(..., differentiable=True)``: the reference's own
+chunked scan (``ssd_scan`` over ``_chunk_math``) in plain PyTorch, which
+autograd differentiates (K5 has no backward), with the reference's
+``Q = min(chunk, S)`` and ``S % Q == 0``.
 """
 from __future__ import annotations
 
@@ -75,11 +80,54 @@ def _proj_inputs(cfg: ModelConfig, p, x: torch.Tensor):
     return z, xs, Bc, Cc, dt
 
 
+def _chunk_math(x_c, B_c, C_c, dt_c, dA_c, H):
+    """One SSD chunk, the reference's arithmetic in f32.  x_c: (Bt, Q, nh,
+    hp); B_c/C_c: (Bt, Q, ns); dt_c/dA_c: (Bt, Q, nh) f32; H: (Bt, nh, ns,
+    hp) f32 carried state.  Returns (Y_c f32, H_next)."""
+    cum = torch.cumsum(dA_c, dim=1)                             # (Bt, Q, nh)
+    Q = x_c.shape[1]
+    diff = cum[:, :, None, :] - cum[:, None, :, :]              # (Bt, i, j, nh)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x_c.device).tril()
+    # masked BEFORE exp: above-diagonal diffs are positive and would overflow
+    # into the backward pass (inf * 0)
+    L = torch.exp(diff.masked_fill(~causal[None, :, :, None], -1e30))
+    Cf, Bf, xf = C_c.float(), B_c.float(), x_c.float()
+    CB = torch.einsum("bis,bjs->bij", Cf, Bf)
+    M = CB[..., None] * L * dt_c[:, None, :, :]                 # (Bt, i, j, nh)
+    y_intra = torch.einsum("bijn,bjnp->binp", M, xf)
+    y_inter = torch.einsum("bis,bnsp->binp", Cf, H) * torch.exp(cum)[..., None]
+    w = torch.exp(cum[:, -1:, :] - cum) * dt_c                  # (Bt, Q, nh)
+    S_c = torch.einsum("bjn,bjs,bjnp->bnsp", w, Bf, xf)
+    H_next = H * torch.exp(cum[:, -1])[:, :, None, None] + S_c
+    return y_intra + y_inter, H_next
+
+
+def ssd_scan(x: torch.Tensor, B_in: torch.Tensor, C_in: torch.Tensor,
+             dt: torch.Tensor, A: torch.Tensor, chunk: int,
+             h0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's chunked SSD, differentiable.  x (B, S, nh, hp), B/C
+    (B, S, ns), dt (B, S, nh) f32, A (nh,) f32 -> (y (B, S, nh, hp) in x's
+    dtype, final state (B, nh, ns, hp) f32)."""
+    Bt, S, nh, hp = x.shape
+    Q = min(chunk, S)
+    assert S % Q == 0, f"seq {S} not divisible by chunk {Q}"
+    dA = dt * A
+    H = (torch.zeros((Bt, nh, B_in.shape[-1], hp), dtype=torch.float32, device=x.device)
+         if h0 is None else h0)
+    ys = []
+    for lo in range(0, S, Q):
+        sl = slice(lo, lo + Q)
+        y, H = _chunk_math(x[:, sl], B_in[:, sl], C_in[:, sl], dt[:, sl], dA[:, sl], H)
+        ys.append(y.to(x.dtype))
+    return torch.cat(ys, dim=1), H
+
+
 def ssm_forward(
     cfg: ModelConfig,
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,
     lengths: Optional[torch.Tensor] = None,
+    differentiable: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence Mamba2 block.  Returns (y, {"h", "conv"}) for prefill
     caching.
@@ -88,7 +136,8 @@ def ssm_forward(
     at padded positions, so the cached state is the state at each row's
     own length, and the conv tail is gathered at each row's own last
     ``W - 1`` positions (zeros where a row is shorter than that, the
-    reference's left zero padding)."""
+    reference's left zero padding).  ``differentiable``: the scan is
+    ``ssd_scan`` (training) instead of K5."""
     B, S, _ = x.shape
     di, ns, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
     z, xs, Bc, Cc, dt = _proj_inputs(cfg, p, x)
@@ -107,9 +156,12 @@ def ssm_forward(
     xs, Bc, Cc = torch.split(u, [di, ns, ns], dim=-1)
     xh = xs.reshape(B, S, nh, hp)
     A = -torch.exp(p["A_log"])
-    y, H = ops.ssd_scan(xh.contiguous(), Bc.contiguous(), Cc.contiguous(),
-                        dt.contiguous(), A.contiguous(), cfg.ssm_chunk,
-                        lengths=lengths)
+    if differentiable:
+        y, H = ssd_scan(xh, Bc, Cc, dt, A, cfg.ssm_chunk)
+    else:
+        y, H = ops.ssd_scan(xh.contiguous(), Bc.contiguous(), Cc.contiguous(),
+                            dt.contiguous(), A.contiguous(), cfg.ssm_chunk,
+                            lengths=lengths)
     y = y + (p["D"][:, None] * xh.float()).to(y.dtype)
     y = y.reshape(B, S, di)
     y = rms_norm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)

@@ -111,7 +111,9 @@ class ServeConfig:
     max_prompt_len: Optional[int] = None
     pad_id: int = 0
     eos_id: Optional[int] = None
-    expert_path: str = "grouped"
+    expert_path: str = "grouped"         # MoE decode stage: grouped | loop
+    grouped_prefill: bool = True         # False: the exact dense-combine
+    #                                      prefill MoE (no capacity probe)
     hw: Optional[HardwareProfile] = None
     max_batch: Optional[int] = None      # engine slots (None = sized at the
     #                                      first step from the submitted queue)
@@ -131,6 +133,7 @@ class ServeConfig:
 
     def __post_init__(self) -> None:
         assert self.scheduler in ("static", "continuous"), self.scheduler
+        assert self.expert_path in ("grouped", "loop"), self.expert_path
         assert self.kv_page_tokens >= 0, self.kv_page_tokens
         if self.prefix_cache:
             assert self.kv_page_tokens > 0, (
@@ -613,7 +616,7 @@ class Server:
         self._engine = ModuleBatchingEngine(
             self.cfg, self.params, self.plan, max_seq=self._max_seq,
             expert_path=self.serve.expert_path,
-            store=self._store,
+            grouped_prefill=self.serve.grouped_prefill, store=self._store,
             cache_config=self._cache_config(),
             device=self.device,
             sctx=self.serve.sctx, ep_chunks=self.serve.ep_chunks,

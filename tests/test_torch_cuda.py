@@ -1285,3 +1285,42 @@ def test_cuda_ep_serve_matches_the_per_module_oracle(cuda):
         assert planned["ep-a2a-batch"] == 2 * n_moe
         assert planned["ep-a2a-combine"] == 3 * n_moe
         assert planned["ep-clock"] == planned["token-readback"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_ops_refuse_autograd(cuda):
+    """On the card each kernel writes an output with no ``grad_fn``, so every
+    op must raise (naming itself) when grad mode is on and an input requires
+    grad; under ``no_grad`` it launches."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def r(*s, rg=True):
+        return torch.randn(s, generator=g, device=cuda).bfloat16().requires_grad_(rg)
+
+    x, wg, wu, wd = r(2, 64, 128), r(2, 128, 64), r(2, 128, 64), r(2, 64, 128)
+    q3, k, v, q4 = r(2, 8, 64), r(2, 32, 2, 64), r(2, 32, 2, 64), r(2, 32, 8, 64)
+    xs, bs, cs = r(1, 64, 2, 64), r(1, 64, 128), r(1, 64, 128)
+    dt = torch.rand((1, 64, 2), generator=g, device=cuda).requires_grad_(True)
+    A = -torch.rand((2,), generator=g, device=cuda)
+    pk, pv = r(3, 16, 2, 64), r(3, 16, 2, 64)
+    frames = torch.tensor([[0, 1]], dtype=torch.int32, device=cuda)
+    calls = {
+        "expert_gate_up": lambda: ops.expert_gate_up(x, wg, wu),
+        "grouped_matmul": lambda: ops.grouped_matmul(x, wg),
+        "grouped_expert_ffn": lambda: ops.grouped_expert_ffn(x, wg, wu, wd),
+        "decode_attention": lambda: ops.decode_attention(q3, k, v, 20),
+        "decode_attention_paged": lambda: ops.decode_attention_paged(
+            q3[:1], pk, pv, None, None, frames, 20, 32),
+        "flash_attention": lambda: ops.flash_attention(q4, k, v),
+        "ssd_scan": lambda: ops.ssd_scan(xs, bs, cs, dt, A, 64),
+    }
+    for name, call in calls.items():
+        before = dict(build.LAUNCHES)
+        with pytest.raises(RuntimeError, match=name):
+            call()
+        assert build.LAUNCHES == before, name            # refused before launching
+        with torch.no_grad():
+            out = call()
+        out = out[0] if isinstance(out, tuple) else out
+        assert out.grad_fn is None and out.is_cuda
+    torch.cuda.synchronize()

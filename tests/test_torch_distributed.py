@@ -150,12 +150,12 @@ def test_router_logits_do_not_depend_on_the_batch(lo, hi):
 
 
 def test_engine_construction_errors():
-    """The reference's construction checks, on a one-rank group; the loop
-    expert path is still not ported (``NotImplementedError``) without one."""
+    """The reference's construction checks, on a one-rank group; without
+    one the loop expert path constructs (single-device only)."""
     m = _model()
     cfg, params, plan = m["cfg"], m["tp"], Plan(**PLAN)
-    with pytest.raises(NotImplementedError, match="loop"):
-        ModuleBatchingEngine(cfg, params, plan, expert_path="loop", device="cpu")
+    loop = ModuleBatchingEngine(cfg, params, plan, expert_path="loop", device="cpu")
+    assert loop.sctx is None and loop.expert_path == "loop" and not loop.fused_eligible()
     with mesh.group(1) as g:
         sctx = ShardCtx(group=g)
         eng = ModuleBatchingEngine(cfg, params, plan, sctx=sctx, device="cpu")

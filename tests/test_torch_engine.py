@@ -183,7 +183,16 @@ def test_default_device_is_cuda_and_never_falls_back():
 
 
 def test_later_slices_raise():
-    _, cfg, _, tp, _ = _setup("olmoe-1b-7b")
-    with pytest.raises(NotImplementedError, match="loop"):
-        ModuleBatchingEngine(cfg, tp, Plan(B=2, b_a=2, b_e=2), expert_path="loop",
+    """The loop expert path, once a later slice, constructs and runs on the
+    CPU: per module (never fused), one expert launch per non-empty chunk;
+    an unknown path is refused."""
+    _, cfg, _, tp, toks = _setup("olmoe-1b-7b")
+    eng = ModuleBatchingEngine(cfg, tp, Plan(B=2, b_a=2, b_e=2), max_seq=S + 3,
+                               expert_path="loop", device="cpu")
+    assert eng.expert_path == "loop" and not eng.fused_eligible()
+    out = eng.generate(toks[:2], 3)
+    assert out.shape == (2, 3) and eng.stats.fused_dispatches == 0
+    assert eng.stats.expert_launches > 0 and eng.stats.expert_tokens > 0
+    with pytest.raises(AssertionError):
+        ModuleBatchingEngine(cfg, tp, Plan(B=2, b_a=2, b_e=2), expert_path="dense",
                              device="cpu")

@@ -13,7 +13,9 @@ serve requests on full-size OLMoE-1B-7B (bf16, seeded weights) in one wave
 and in two waves of the even and the odd requests (two replicas' waves),
 with the plain product patched in and with the port's, and compares each
 request's first-token logits: the largest and median difference over the
-row peak and the rows that are bit-identical.  The last line is the card's
+row peak and the rows that are bit-identical.  Part 1 also holds the form
+``router_logits`` takes under autograd (a router weight that requires grad)
+to the served bits at every batch.  The last line is the card's
 ``nvidia-smi`` name and power limit.
 """
 from __future__ import annotations
@@ -52,12 +54,18 @@ def products(dev) -> dict:
     r = torch.randn((D, E), generator=g, device=dev) * D ** -0.5
     ways = {"plain": lambda z: z.float() @ r, "router_logits": lambda z: moe.router_logits(r, z)}
     out = {}
+    spans = ((0, 32), (32, 64), (0, 64), (100, 5100), (0, 5000), (7, 1007), (0, 16000),
+             (3000, 14000))
     for name, fn in ways.items():
         ref = fn(x)
-        spans = ((0, 32), (32, 64), (0, 64), (100, 5100), (0, 5000), (7, 1007), (0, 16000),
-                 (3000, 14000))
         out[name] = {"invariant": all(torch.equal(ref[lo:hi], fn(x[lo:hi])) for lo, hi in spans),
                      **{f"ms_rows_{m}": time_ms(fn, x[:m]) for m in (64, 5000, 14000)}}
+    # the form autograd records (inputs that require grad): the served bits
+    rg = r.clone().requires_grad_(True)
+    served = moe.router_logits(r, x)
+    out["router_logits"]["differentiable_bit_identical"] = all(
+        torch.equal(moe.router_logits(rg, x[lo:hi]).detach(), served[lo:hi])
+        for lo, hi in spans)
     return out
 
 
