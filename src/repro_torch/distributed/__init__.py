@@ -7,7 +7,9 @@ data-parallel replicas.
   facade;
 * ``replicas`` -- ``ReplicaServer``: one arrival queue fanned across N
   ``Server`` replicas with a pluggable routing policy, failover and a
-  merged report.
+  merged report;
+* ``collectives`` -- the model-sharding path's collectives over a mesh's
+  model and batch axes, as autograd functions with exact gradients.
 """
 from repro_torch.distributed.ep_engine import (
     ExpertParallelEngine,

@@ -38,13 +38,19 @@ reference's home device does; only this stage is collective.
   outputs are summed by ``all_reduce``.  The sum over ranks reassociates a
   token's k copies: allclose to the single-device stage, not bitwise.
 
-The transport is gloo, which exchanges host tensors.  Each exchange stages
-its device buffer through the host in one planned read (an ``allowed``
-scope tagged ``ep-a2a-batch`` on the way out, ``ep-a2a-combine`` for the
-return and the gather, counted in ``EngineStats.planned_reads``) and goes
-back up by one asynchronous copy.  An a2a stage of c chunks makes 2c + 1
-such reads, a psum stage one.  Every collective lives in a function marked
-``@register_collective`` (lint rule MG107).
+The transport is gloo, which exchanges host tensors, through the
+model-sharding path's own (``distributed.collectives``: ``_stage``,
+``_post_all_to_all``, ``_all_gather``, ``_all_reduce``, counted in its
+``STATS`` too).  Each exchange stages its device buffer through the host
+in one planned read (an ``allowed`` scope tagged ``ep-a2a-batch`` on the
+way out, ``ep-a2a-combine`` for the return and the gather, counted in
+``EngineStats.planned_reads``) and goes back up by one asynchronous copy.
+An a2a stage of c chunks makes 2c + 1 such reads, a psum stage one.  The
+bucketing and combine are ``models.moe``'s (``_a2a_pages``,
+``_a2a_buckets``, ``_a2a_rows``, ``_a2a_home``; the psum stage is
+``_dispatch_combine``), which the model path's ``moe_apply_a2a`` and
+``moe_apply_sharded`` run too.  Every collective lives in a function
+marked ``@register_collective`` (lint rule MG107).
 """
 from __future__ import annotations
 
@@ -56,7 +62,7 @@ from repro_torch.analysis import runtime as sanitizer
 from repro_torch.analysis.markers import hot_path
 from repro_torch.analysis.registry import register_collective
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.distributed import collectives as C
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import rms_norm
 from repro_torch.sharding.specs import ShardCtx
@@ -111,7 +117,7 @@ def validate_ep_shard(cfg: ModelConfig, sctx: ShardCtx) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Host staging and the exchanges
+# Byte packing (the exchanges themselves are ``distributed.collectives``')
 # ---------------------------------------------------------------------------
 def _as_bytes(*ts: torch.Tensor) -> torch.Tensor:
     """``ts`` (each with the same first dimension m) side by side as one
@@ -130,51 +136,6 @@ def _from_bytes(b: torch.Tensor, specs: Sequence[Tuple[torch.dtype, Tuple[int, .
         out.append(b[:, c:c + width].contiguous().view(dtype).reshape((m,) + tuple(shape)))
         c += width
     return out
-
-
-@hot_path
-def _to_host(t: torch.Tensor, tag: str, stats) -> torch.Tensor:
-    """``t`` on the host: one planned read, an ``allowed(tag)`` scope counted
-    in ``stats.planned_reads`` (on the CPU, the tensor itself)."""
-    with sanitizer.allowed(tag):
-        host = t.cpu()  # lint: allow[MG101] the stage's planned staging read for the gloo exchange
-    stats.planned_reads += 1
-    return host
-
-
-def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """An exchanged host buffer back on ``device``, without a host wait."""
-    return t.to(device, non_blocking=True)  # lint: allow[MG105] the exchanged rows back up, one asynchronous copy an exchange
-
-
-@register_collective("distributed.a2a")
-def _post_a2a(send: torch.Tensor, group):
-    """Post one ``all_to_all_single`` of host rows ``send`` (n, bytes): row j
-    goes to rank j.  Returns (receive buffer, work)."""
-    import torch.distributed as dist
-
-    recv = torch.empty_like(send)
-    work = dist.all_to_all_single(recv, send, group=group, async_op=True)
-    return recv, work
-
-
-@register_collective("distributed.all_gather")
-def _all_gather(t: torch.Tensor, group, n: int) -> torch.Tensor:
-    """Every rank's (1, bytes) host row ``t``, stacked in rank order."""
-    import torch.distributed as dist
-
-    parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=0)
-
-
-@register_collective("distributed.all_reduce")
-def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum over ranks of host tensor ``t``, in place."""
-    import torch.distributed as dist
-
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
-    return t
 
 
 @register_collective("distributed.clock")
@@ -221,20 +182,14 @@ def _ep_a2a_expert_module(cfg: ModelConfig, sctx: ShardCtx, chunks: int, capacit
     t_c = T_r // chunks
     cap_s = t_c * k                   # a destination's page: no send drops
     cap_l = max(1, min(capacity, n * cap_s))
-    tok = torch.arange(cap_s, device=dev) // k
     meta = [(dt, (cap_s, D)), (torch.int32, (cap_s,))]
 
     def dispatch(c: int):
         """Chunk c's routed copies, paged by owner, sent on their way."""
-        ic = idx[c * t_c:(c + 1) * t_c].reshape(-1)
-        dst = ic // e_loc
-        slot = moe_mod._arrival_slots(dst, n)
-        send = torch.zeros((n, cap_s, D), dtype=dt, device=dev)
-        send.index_put_((dst, slot), h[c * t_c:(c + 1) * t_c][tok], accumulate=True)
-        ids = torch.zeros((n, cap_s), dtype=torch.int32, device=dev)
-        ids.index_put_((dst, slot), (ic % e_loc + 1).to(torch.int32), accumulate=True)
-        return dst, slot, _post_a2a(_to_host(_as_bytes(send, ids), "ep-a2a-batch", stats),
-                                    group)
+        rows = slice(c * t_c, (c + 1) * t_c)
+        send, ids, where = moe_mod._a2a_pages(h[rows], idx[rows], e_loc, n, cap_s)
+        b = _as_bytes(send, ids)
+        return where, b, C._post_all_to_all(b, group, "ep-a2a-batch", stats)
 
     posted = [dispatch(0)]
     ys = []
@@ -242,41 +197,27 @@ def _ep_a2a_expert_module(cfg: ModelConfig, sctx: ShardCtx, chunks: int, capacit
     for c in range(chunks):
         if not serial and c + 1 < chunks:
             posted.append(dispatch(c + 1))        # before chunk c's FFN
-        dst, slot, (recv, work) = posted[c]
-        work.wait()
-        hr, le = _from_bytes(_to_device(recv, dev), meta)
-        hr, le = hr.reshape(n * cap_s, D), le.reshape(-1).long()
+        where, b, (recv, work) = posted[c]
+        C.wait(work)
+        hr, le = _from_bytes(C._unstage(recv, b), meta)
         # the owner's buckets: arrivals in (source rank, source slot) order
-        valid = le > 0
-        le0 = torch.clamp(le - 1, min=0)
-        slot2 = moe_mod._arrival_slots(le0, e_loc, mask=valid)
-        keep = valid & (slot2 < cap_l)
-        slot2_c = torch.clamp(slot2, max=cap_l - 1)
-        buf = torch.zeros((e_loc, cap_l, D), dtype=dt, device=dev)
-        buf.index_put_((le0, slot2_c), hr * keep[:, None].to(dt), accumulate=True)
-        counts = torch.zeros((e_loc,), dtype=torch.int32, device=dev)
-        counts.scatter_add_(0, le0, valid.to(torch.int32))
-        out = ops.grouped_expert_ffn(buf, wg, wu, wd, torch.clamp(counts, max=cap_l))
-        back = (out[le0, slot2_c] * keep[:, None].to(out.dtype)).reshape(n, cap_s, D)
-        ret, rwork = _post_a2a(_to_host(_as_bytes(back), "ep-a2a-combine", stats), group)
-        rwork.wait()
-        (ret,) = _from_bytes(_to_device(ret, dev), meta[:1])
+        buf, counts, at = moe_mod._a2a_buckets(hr.reshape(n * cap_s, D), le.reshape(-1),
+                                               e_loc, cap_l)
+        out = moe_mod._expert_rows(buf, wg, wu, wd, counts, differentiable=False)
+        back = _as_bytes(moe_mod._a2a_rows(out, at).reshape(n, cap_s, D))
+        ret, rwork = C._post_all_to_all(back, group, "ep-a2a-combine", stats)
+        C.wait(rwork)
+        (ret,) = _from_bytes(C._unstage(ret, back), meta[:1])
         # home: grouped_dispatch's gate product and sum over the k copies
-        gc = gates[c * t_c:(c + 1) * t_c].reshape(-1)
-        got = ret[dst, slot] * gc[:, None].to(ret.dtype)
-        got = got.to(dt).reshape(t_c, k, D)
-        y = got[:, 0]
-        for j in range(1, k):
-            y = y + got[:, j]
-        ys.append(y)
-        kept += keep.to(torch.int32).sum(dtype=torch.int32)
+        ys.append(moe_mod._a2a_home(ret, where, gates[c * t_c:(c + 1) * t_c], t_c, k, dt))
+        kept += at[2].to(torch.int32).sum(dtype=torch.int32)
         if serial and c + 1 < chunks:
             posted.append(dispatch(c + 1))        # after chunk c's exchanges
     # every rank's rows and kept counts: one gather in place of the
     # reference's device_put home and psum
     mine = _as_bytes(torch.cat(ys).reshape(1, -1), kept.reshape(1, -1))
-    allb = _all_gather(_to_host(mine, "ep-a2a-combine", stats), group, n)
-    y_all, kept_r = _from_bytes(_to_device(allb, dev), [(dt, (T_r, D)), (torch.int32, (1,))])
+    allb = C._all_gather(mine, group, 0, "ep-a2a-combine", stats)
+    y_all, kept_r = _from_bytes(allb, [(dt, (T_r, D)), (torch.int32, (1,))])
     kept_all = kept_r.sum(dtype=torch.int32)
     return y_all.reshape(T, D), kept_all, T * k - kept_all, load
 
@@ -294,34 +235,20 @@ def _ep_psum_expert_module(cfg: ModelConfig, sctx: ShardCtx, capacity: int,
     partial outputs (with the kept count) summed in f32 by one
     ``all_reduce``."""
     n, r = sctx.model_size, sctx.rank
-    E, k = cfg.num_experts, cfg.experts_per_token
+    E = cfg.num_experts
     e_loc = E // n
     T, D = x.shape
-    dev, dt = x.device, x.dtype
     h = rms_norm(x, norm2_w, cfg.norm_eps)
     gates, idx, _ = moe_mod.route(cfg, router_w, h)
-    fi, fg = idx.reshape(-1), gates.reshape(-1)
-    tok = torch.arange(T * k, device=dev) // k
-    slot = moe_mod._arrival_slots(fi, E)
-    keep = slot < capacity
-    slot_c = torch.clamp(slot, max=capacity - 1)
-    fill = keep & ((fi // e_loc) == r)
-    le = fi % e_loc
-    buf = torch.zeros((e_loc, capacity, D), dtype=dt, device=dev)
-    buf.index_put_((le, slot_c), h[tok] * fill[:, None].to(dt), accumulate=True)
-    load = torch.zeros((E,), dtype=torch.int32, device=dev)
-    load.scatter_add_(0, fi, torch.ones_like(fi, dtype=torch.int32))
-    counts = torch.clamp(load[r * e_loc:(r + 1) * e_loc], max=capacity)
-    out = ops.grouped_expert_ffn(buf, wg, wu, wd, counts)
-    back = out[le, slot_c] * (fill[:, None] * fg[:, None]).to(out.dtype)
-    back = back.to(dt).reshape(T, k, D)
-    y = back[:, 0]
-    for j in range(1, k):
-        y = y + back[:, j]
-    part = torch.cat([y.float().reshape(-1), fill.sum(dtype=torch.int32).float().reshape(1)])
-    total = _to_device(_all_reduce(_to_host(part, "ep-a2a-combine", stats), sctx.group), dev)
+    load = torch.zeros((E,), dtype=torch.int32, device=x.device)
+    load.scatter_add_(0, idx.reshape(-1), torch.ones_like(idx.reshape(-1), dtype=torch.int32))
+    # a copy's slot among its expert's copies is the single-device one
+    y, kept = moe_mod._dispatch_combine(cfg, h, gates, idx, wg, wu, wd, r * e_loc, capacity,
+                                        differentiable=False)
+    part = torch.cat([y.float().reshape(-1), kept.float().reshape(1)])
+    total = C._all_reduce(part, sctx.group, tag="ep-a2a-combine", stats=stats)
     kept = total[-1].to(torch.int32)
-    return total[:-1].reshape(T, D).to(dt), kept, T * k - kept, load
+    return total[:-1].reshape(T, D).to(x.dtype), kept, T * cfg.experts_per_token - kept, load
 
 
 # ---------------------------------------------------------------------------

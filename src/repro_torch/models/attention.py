@@ -50,6 +50,8 @@ def init_attn_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, torch.
 
 
 def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor):
+    """q (B, S, heads, hd), k and v (B, S, KV heads, hd); the head counts are
+    the weights' (on a mesh, this rank's)."""
     B, S, _ = x.shape
     q = x @ p["wq"]
     k = x @ p["wk"]
@@ -58,9 +60,10 @@ def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor):
         q = q + p["wq_bias"]
         k = k + p["wk_bias"]
         v = v + p["wv_bias"]
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    hd = cfg.head_dim
+    q = q.reshape(B, S, p["wq"].shape[-1] // hd, hd)
+    k = k.reshape(B, S, p["wk"].shape[-1] // hd, hd)
+    v = v.reshape(B, S, p["wv"].shape[-1] // hd, hd)
     return q, k, v
 
 
@@ -226,6 +229,7 @@ def attn_forward(
     lengths: Optional[torch.Tensor] = None,
     prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     differentiable: bool = False,
+    ctx=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence attention.  Returns (output, {"k", "v"}) so prefill
     can cache.  ``lengths`` (B,) masks the keys at right-padded positions;
@@ -234,7 +238,10 @@ def attn_forward(
     KV of the first P positions (a prefix-cache hit); ``x`` is then the
     suffix at ``positions`` P.., its keys follow the prefix's, and the
     entry returned is the whole row's.  ``differentiable`` as
-    ``full_attention``'s (training)."""
+    ``full_attention``'s (training).  ``ctx`` on a mesh: ``attn_forward_mesh``."""
+    if ctx is not None and ctx.on_mesh:
+        assert prefix_kv is None, "a cached prefix is not sharded"
+        return attn_forward_mesh(cfg, p, x, ctx, positions, lengths, differentiable)
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
     if positions is None:
@@ -292,13 +299,25 @@ def attn_decode(
     x: torch.Tensor,                       # (B, 1, D)
     cache: Dict[str, torch.Tensor],        # (B, span, K, hd), written in place
     pos,                                   # int or (B,) int: current position
+    ctx=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step against a preallocated (possibly circular) cache.
 
     Each row writes its new K/V IN PLACE at slot ``pos`` (``pos % span``
     under a sliding window, else clamped to the last slot) and attends its
     own slots ``<= pos``; the mechanism is ``ops.decode_attention``.
-    Returns (y (B, 1, D), cache) -- the same cache tensors."""
+    Returns (y (B, 1, D), cache) -- the same cache tensors.
+
+    On a mesh (``ctx``) whose model axis divides the heads, each rank
+    attends its H/m heads against its cache (its K/m KV heads, or all K
+    when the axis does not divide them), ``wo`` row-parallel and its
+    partial sums all-reduced; otherwise every rank computes every head."""
+    m = 1 if ctx is None or not ctx.on_mesh else ctx.model_size
+    split = m > 1 and cfg.num_heads % m == 0
+    if split:
+        from repro_torch.distributed import collectives as C
+
+        x = C.to_model(ctx, x)
     B = x.shape[0]
     posv = torch.as_tensor(pos, dtype=torch.long, device=x.device)
     posv = posv.reshape(-1).expand(B)
@@ -308,6 +327,92 @@ def attn_decode(
     rows = torch.arange(B, device=x.device)
     cache["k"][rows, slot] = k[:, 0]
     cache["v"][rows, slot] = v[:, 0]
-    o = ops.decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"], posv)
-    y = o.reshape(B, 1, cfg.num_heads * cfg.head_dim) @ p["wo"]
-    return y, cache
+    ck, cv = cache["k"], cache["v"]
+    if split and cfg.num_kv_heads % m:
+        ck, cv = (_kv_for_heads(cfg, t, m, ctx.model_rank) for t in (ck, cv))
+    o = ops.decode_attention(q[:, 0].contiguous(), ck, cv, posv)
+    y = o.reshape(B, 1, p["wo"].shape[0]) @ p["wo"]
+    return (C.reduce_model(ctx, y) if split else y), cache
+
+
+# ---------------------------------------------------------------------------
+# On a mesh (the model-sharding path)
+# ---------------------------------------------------------------------------
+def _kv_for_heads(cfg: ModelConfig, k: torch.Tensor, m: int, r: int) -> torch.Tensor:
+    """All ``K`` KV heads (dim 2) -> those rank ``r``'s H/m query heads read,
+    so that the local heads group as GQA does: a contiguous run of KV heads
+    when each serves whole groups, one head when the local heads share it,
+    else one KV head per query head."""
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    G, n = H // K, H // m
+    lo = (r * n) // G
+    if n % G == 0:
+        return k[:, :, lo:lo + n // G]
+    if G % n == 0:
+        return k[:, :, lo:lo + 1]
+    idx = torch.arange(r * n, (r + 1) * n, device=k.device) // G
+    return k.index_select(2, idx)
+
+
+def attn_forward_mesh(cfg: ModelConfig, p, x: torch.Tensor, ctx,
+                      positions: Optional[torch.Tensor] = None,
+                      lengths: Optional[torch.Tensor] = None,
+                      differentiable: bool = False):
+    """``attn_forward`` on a mesh; ``x`` is the residual's layout (``ctx``,
+    ``collectives.enter``).
+
+    When the model axis divides the heads, each rank computes its H/m heads
+    (its KV heads too when it divides those, else every KV head, whole) and
+    ``wo`` is row-parallel: partial sums all-reduced, or reduce-scattered
+    under ``seq_shard``.  Otherwise context parallelism: each rank computes
+    its S/m query rows against the whole sequence's keys and values, every
+    weight whole (all rows on every rank when S does not split, or under a
+    sliding window without autograd, which K4 does not take with a query
+    offset).  The cache entry is this rank's KV heads (or all of them)."""
+    from repro_torch.distributed import collectives as C
+
+    m, r = ctx.model_size, ctx.model_rank
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    split = ctx.residual_split
+    B = x.shape[0]
+    S = x.shape[1] * (m if split else 1)
+    pos = torch.arange(S, device=x.device)[None, :] if positions is None else positions
+    if H % m == 0:
+        h = C.enter(ctx, x)
+        kv_split = K % m == 0
+        if not kv_split:                 # whole KV weights serve every rank's heads
+            p = {n: (t if n in ("wq", "wq_bias", "wo") else C.to_model(ctx, t))
+                 for n, t in p.items()}
+        q, k, v = _project_qkv(cfg, p, h)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+        ka, va = (k, v) if kv_split else (_kv_for_heads(cfg, k, m, r),
+                                          _kv_for_heads(cfg, v, m, r))
+        out = full_attention(q, ka, va, window=cfg.sliding_window, lengths=lengths,
+                             differentiable=differentiable)
+        y = out.reshape(B, S, (H // m) * hd) @ p["wo"]
+        return C.leave(ctx, y), {"k": k, "v": v}
+    # context parallelism: every weight whole, used for this rank's rows
+    rows = S % m == 0 and (differentiable or not cfg.sliding_window)
+    w = {n: (C.to_model(ctx, t) if rows else t) for n, t in p.items()}
+    if rows and split:
+        hq, hkv = x, C.gather_model(ctx, x, 1, partial=True)
+    elif rows:
+        hq, hkv = C.split_model(ctx, x, 1), C.to_model(ctx, x)
+    else:
+        hq = hkv = C.whole_sequence(ctx, x)
+    n_q = hq.shape[1]
+    off = r * n_q if rows else 0
+    q, _, _ = _project_qkv(cfg, w, hq)
+    _, k, v = _project_qkv(cfg, w, hkv)
+    q = apply_rope(q, pos[:, off:off + n_q], cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    # the keys past the last query row are masked: K4 takes q_offset + Sq keys
+    out = full_attention(q, k[:, :off + n_q], v[:, :off + n_q], window=cfg.sliding_window,
+                         lengths=lengths, q_offset=off, differentiable=differentiable)
+    y = out.reshape(B, n_q, H * hd) @ w["wo"]
+    if not rows:
+        y = C.residual_rows(ctx, y)
+    elif not split:
+        y = C.gather_model(ctx, y, 1, partial=False)
+    return y, {"k": k, "v": v}

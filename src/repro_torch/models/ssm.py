@@ -128,6 +128,7 @@ def ssm_forward(
     x: torch.Tensor,
     lengths: Optional[torch.Tensor] = None,
     differentiable: bool = False,
+    ctx=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence Mamba2 block.  Returns (y, {"h", "conv"}) for prefill
     caching.
@@ -137,9 +138,34 @@ def ssm_forward(
     own length, and the conv tail is gathered at each row's own last
     ``W - 1`` positions (zeros where a row is shorter than that, the
     reference's left zero padding).  ``differentiable``: the scan is
-    ``ssd_scan`` (training) instead of K5."""
+    ``ssd_scan`` (training) instead of K5.
+
+    On a mesh (``ctx``; ``x`` the residual's layout) whose model axis
+    divides the heads, each rank runs its nh/m heads (K5 on the card
+    without autograd) with B and C whole (``_local_weights``), the gated
+    norm's squared sum all-reduced, ``out_proj`` row-parallel; the state is
+    this rank's heads and conv channels ``[xs share | B | C]``.  Otherwise
+    every rank runs the whole block on the whole sequence."""
+    if ctx is not None and ctx.on_mesh:
+        from repro_torch.distributed import collectives as C
+
+        if cfg.ssm_nheads % ctx.model_size:      # every rank runs the whole block
+            out, state = _ssm_block(cfg, p, C.whole_sequence(ctx, x), lengths, differentiable)
+            return C.residual_rows(ctx, out), state
+        out, state = _ssm_block(cfg, _local_weights(cfg, p, ctx), C.enter(ctx, x), lengths,
+                                differentiable, ctx)
+        return C.leave(ctx, out), state
+    return _ssm_block(cfg, p, x, lengths, differentiable)
+
+
+def _ssm_block(cfg: ModelConfig, p, x: torch.Tensor, lengths, differentiable: bool,
+               ctx=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``ssm_forward``'s block on the heads and channels ``p`` holds (all of
+    them, or on a mesh, ``ctx``, this rank's: the gated norm's squared sum
+    then spans the model axis)."""
     B, S, _ = x.shape
-    di, ns, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
+    ns, hp = cfg.ssm_state, cfg.ssm_headdim
+    di, nh = p["wx"].shape[1], p["wdt"].shape[1]
     z, xs, Bc, Cc, dt = _proj_inputs(cfg, p, x)
     u = torch.cat([xs, Bc, Cc], dim=-1)
     W = cfg.ssm_conv_width - 1
@@ -163,8 +189,7 @@ def ssm_forward(
                             dt.contiguous(), A.contiguous(), cfg.ssm_chunk,
                             lengths=lengths)
     y = y + (p["D"][:, None] * xh.float()).to(y.dtype)
-    y = y.reshape(B, S, di)
-    y = rms_norm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
+    y = _gated_norm(cfg, ctx, y.reshape(B, S, di), z, p["norm_scale"])
     out = y @ p["out_proj"]
     return out, {"h": H, "conv": conv_tail}
 
@@ -189,12 +214,23 @@ def ssm_decode(
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,                       # (B, 1, D)
     state: Dict[str, torch.Tensor],        # written in place
+    ctx=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """O(1) decode step: the recurrent SSM update.  ``state``'s ``h`` and
     ``conv`` are written IN PLACE (views of the engine's cache rows stay
-    its rows).  Returns (y (B, 1, D), state) -- the same tensors."""
+    its rows).  Returns (y (B, 1, D), state) -- the same tensors.  On a
+    mesh (``ctx``) whose model axis divides the heads each rank steps its
+    own heads and conv channels (its state), the gated norm's squared sum
+    all-reduced and ``out_proj``'s partial sums too."""
+    split = (ctx is not None and ctx.on_mesh and ctx.model_size > 1
+             and cfg.ssm_nheads % ctx.model_size == 0)
+    if split:
+        from repro_torch.distributed import collectives as C
+
+        p, x = _local_weights(cfg, p, ctx), C.to_model(ctx, x)
     B = x.shape[0]
-    di, ns, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
+    ns, hp = cfg.ssm_state, cfg.ssm_headdim
+    di, nh = p["wx"].shape[1], p["wdt"].shape[1]
     z, xs, Bc, Cc, dt = _proj_inputs(cfg, p, x)                 # (B, 1, .)
     u_t = torch.cat([xs, Bc, Cc], dim=-1)                        # (B, 1, ch)
     win = torch.cat([state["conv"], u_t], dim=1)                 # (B, W, ch)
@@ -210,8 +246,48 @@ def ssm_decode(
     y = torch.einsum("bs,bnsp->bnp", Cc.float(), h)
     y = y + p["D"][:, None] * xh
     y = y.reshape(B, 1, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
+    y = _gated_norm(cfg, ctx if split else None, y, z, p["norm_scale"])
     out = y @ p["out_proj"]
     state["h"].copy_(h)
     state["conv"].copy_(win[:, 1:])
-    return out, state
+    return (C.reduce_model(ctx, out) if split else out), state
+
+
+# ---------------------------------------------------------------------------
+# On a mesh (the model-sharding path)
+# ---------------------------------------------------------------------------
+def _local_weights(cfg: ModelConfig, p, ctx):
+    """This rank's SSM weights as used: ``wB``/``wC``, the B and C channels
+    of ``conv_w`` and the whole ``conv_b`` and ``norm_scale`` serve every
+    rank's heads, so their gradients are all-reduced over the model axis;
+    ``conv_b`` is cut to ``[xs share | B | C]`` and the gated norm's scale
+    to this rank's channels."""
+    from repro_torch.distributed import collectives as C
+
+    di, r = cfg.ssm_d_inner, ctx.model_rank
+    di_l = di // ctx.model_size
+    w = dict(p)
+    for n in ("wB", "wC"):
+        w[n] = C.to_model(ctx, p[n])
+    cw = p["conv_w"]
+    w["conv_w"] = torch.cat([cw[:, :di_l], C.to_model(ctx, cw[:, di_l:])], dim=-1)
+    cb = C.to_model(ctx, p["conv_b"])
+    w["conv_b"] = torch.cat([cb[r * di_l:(r + 1) * di_l], cb[di:]])
+    w["norm_scale"] = C.to_model(ctx, p["norm_scale"])[r * di_l:(r + 1) * di_l]
+    return w
+
+
+def _gated_norm(cfg: ModelConfig, ctx, y: torch.Tensor, z: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """``rms_norm(y * silu(z))`` over all of d_inner.  On a mesh (``ctx``)
+    each rank holds a share of the channels: the squared sum is all-reduced
+    over the model axis (its gradient too: every rank's channels read it)."""
+    if ctx is None:
+        return rms_norm(y * F.silu(z), scale, cfg.norm_eps)
+    from repro_torch.distributed import collectives as C
+
+    yz = y * F.silu(z)
+    xf = yz.float()
+    ss = C.to_model(ctx, C.reduce_model(ctx, xf.square().sum(dim=-1, keepdim=True)))
+    out = xf * torch.rsqrt(ss / cfg.ssm_d_inner + cfg.norm_eps)
+    return (out * scale.float()).to(yz.dtype)

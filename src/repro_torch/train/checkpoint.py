@@ -3,7 +3,8 @@
 Keys are the ``/``-joined paths of the leaves in the per-layer layout
 (``layers/3/attn/wq``); a bf16 leaf is stored as f32 under ``key::bf16``
 (numpy has no bf16), and the step under ``__step__``, as the reference's
-``_flatten`` stores them."""
+``_flatten`` stores them.  A sharded run (``save_sharded``) gathers every
+rank's shares and rank 0 writes the file an unsharded run would."""
 from __future__ import annotations
 
 import os
@@ -41,6 +42,20 @@ def save_checkpoint(path: str, params, step: int = 0) -> str:
     flat = _flatten(params)
     flat["__step__"] = np.asarray(step)
     np.savez(path, **flat)
+    return path
+
+
+def save_sharded(path: str, params, step: int, ctx=None, cfg=None) -> str:
+    """``save_checkpoint`` of a run on a mesh (``ctx``): the full tree
+    gathered from the model axis (a collective: every rank calls this) and
+    written by the mesh's first rank only.  Without a mesh, the file."""
+    if ctx is None or not ctx.on_mesh:
+        return save_checkpoint(path, params, step)
+    from repro_torch.sharding.specs import gather_params
+
+    full = gather_params(ctx, cfg, params)
+    if ctx.model_rank == 0 and ctx.batch_rank == 0:
+        save_checkpoint(path, full, step)
     return path
 
 

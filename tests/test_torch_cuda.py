@@ -1324,3 +1324,28 @@ def test_cuda_kernel_ops_refuse_autograd(cuda):
         out = out[0] if isinstance(out, tuple) else out
         assert out.grad_fn is None and out.is_cuda
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_prefill_runs_local_kernels_and_grads_reach_every_leaf(cuda):
+    """Two gloo rank processes on the one card, a (1, 2) mesh with
+    ``seq_shard``, full-width OLMoE at 2 layers in bf16: the sharded prefill
+    launches K4 at 8 of 16 heads and K1 + K2 on 32 of 64 experts (the psum
+    capacity path), once a layer each, every launch the served design; then
+    under autograd (no kernel launched) the loss's gradient reaches every
+    leaf of each rank's shares, finite and non-zero."""
+    from repro_torch.launch import mesh
+
+    import torch_sharded_ranks
+
+    outs = mesh.spawn(torch_sharded_ranks.cuda_sharded_rank, 2, (2, 4, 512), timeout_s=600.0)
+    for out in outs:
+        c = out["counts"]
+        assert c["flash_attention"] == c["flash_attention_wgmma"] == 2
+        assert c["expert_gate_up"] == c["expert_gate_up_wgmma"] == 2
+        assert c["grouped_matmul"] == c["grouped_matmul_wgmma"] == 2
+        assert out["shapes"]["flash_attention"][2] == 8
+        assert out["shapes"]["grouped_expert_ffn"][0] == 32
+        assert out["after_grad"] == c and out["finite_logits"]
+        assert all(fin and peak > 0 for peak, fin in out["grads"].values()), out["grads"]
+    assert outs[0]["loss"] == outs[1]["loss"]
