@@ -74,7 +74,21 @@ Phases, in order (any failure exits non-zero with its traceback):
                musicgen-medium at 2 layers with 256 frontend frames + 44
                tokens;
 8. profile  -- (inside phases 4-6) torch.profiler over each path's decode
-               chunk and one prefill wave.
+               chunk and one prefill wave;
+9. dryrun   -- the compile analysis (``launch.dryrun``: one rank of a mesh
+               on fake CPU tensors over a fake process group, nothing on the
+               card): before the ``sharded`` ranks start, the dry run of its
+               training case, whose collectives by kind (counts and bytes
+               sent) must equal each rank's first step on the card, its step
+               peak printed beside theirs; inside the OLMoE block, the
+               one-rank reading (``model.prefill`` of 32 x 2048 on the card
+               against the dry run's FLOPs over the datasheet peak, not
+               gated); at the end the single-pod production dry run of
+               OLMoE-1B-7B (every shape) and Mixtral-8x7B (decode_32k,
+               long_500k), each ``ok`` or skipped for the reference's
+               reason, and their roofline rows;
+10. examples -- each ``examples/torch_*.py`` ``main`` on the card at its own
+               size: it must return, its asserts holding.
 
 Every served decode tick is a replay of the engine's CUDA graph of the
 fused tick (one token read per chunk).  Each serve phase fails unless every
@@ -5042,6 +5056,7 @@ def sharded_train(dev, ctx, cfg, size: dict) -> dict:
     from repro_torch.train.train_loop import make_train_step
 
     card = dev.type == "cuda"
+    peak_of = torch.cuda.max_memory_allocated if card else (lambda: 0)
     if card:
         torch.cuda.reset_peak_memory_stats()
     local = shard_params(ctx, cfg, M.init_params(cfg, seed=0, device=dev))
@@ -5051,6 +5066,11 @@ def sharded_train(dev, ctx, cfg, size: dict) -> dict:
     opt = adamw_init(local, ctx, cfg)
     tokens, labels = train_batch(cfg, size["train_B"], size["train_S"], dev)
     step = make_train_step(cfg, lr=size["train_lr"], remat=True, remat_policy="full", ctx=ctx)
+    # the peak of the steps alone, from after the shares and the optimizer
+    # state exist (the unsharded init_params before them is a transient)
+    setup_peak = peak_of()
+    if card:
+        torch.cuda.reset_peak_memory_stats()
     steps = []
     for _ in range(size["train_steps"]):
         C.reset_stats()
@@ -5062,10 +5082,13 @@ def sharded_train(dev, ctx, cfg, size: dict) -> dict:
         steps.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
                       "gnorm": float(m["gnorm"]), "collectives": C.STATS["calls"],
                       "collective_bytes": C.STATS["bytes"],
-                      "collective_host_ms": C.STATS["host_s"] * 1e3})
-    peak = torch.cuda.max_memory_allocated() if card else 0
+                      "collective_host_ms": C.STATS["host_s"] * 1e3,
+                      "by_kind": {k: dict(v) for k, v in C.STATS["by_kind"].items()
+                                  if v["calls"]}})
+    step_peak = peak_of()
     del local, opt, m, tokens, labels, step
-    return {"steps": steps, "params_per_rank": n_local, "peak_gb": peak / 1e9,
+    return {"steps": steps, "params_per_rank": n_local,
+            "peak_gb": max(setup_peak, step_peak) / 1e9, "step_peak_gb": step_peak / 1e9,
             "reckoned_gb": 12 * n_local / 1e9}
 
 
@@ -5109,7 +5132,7 @@ def sharded_rank(rank: int, n: int, group, device: str, cfgs: dict, size: dict) 
     return out
 
 
-def phase_sharded(dev):
+def phase_sharded(dev, predicted=None):
     """The model-sharding path on ``SHARDED_RANKS`` gloo rank processes
     sharing the card (``sharded_rank``): f32 parity of the sharded forward,
     loss and gradients with a single-process run (1e-4); one ZeRO-1 step
@@ -5124,8 +5147,11 @@ def phase_sharded(dev):
     48 within 1e-4 in f32 and, in bf16, within twice one process's own bf16
     distance from f32; training whose loss falls.  Each
     part frees its memory on each rank.  Then each kernel is held to its
-    plain version on rank 0's captured inputs.  Returns ({path: launch
-    counts}, kernel rows)."""
+    plain version on rank 0's captured inputs.  ``predicted`` (the dry run
+    of the training case, ``dryrun_sharded_train``) must name exactly the
+    collectives, by kind, counts and bytes sent, of each rank's first train
+    step; its step peak is printed beside the card's.  Returns ({path:
+    launch counts}, kernel rows)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh
 
@@ -5281,11 +5307,25 @@ def phase_sharded(dev):
           "S": size["train_S"], "steps": steps, "median_step_ms": med,
           "tokens_per_s": size["train_B"] * size["train_S"] / (med / 1e3),
           "peak_gb_per_rank": [t["peak_gb"] for t in tr],
+          "step_peak_gb_per_rank": [t["step_peak_gb"] for t in tr],
+          "collectives_by_kind_first_step": [t["steps"][0]["by_kind"] for t in tr],
           "reckoned_gb_per_rank": [t["reckoned_gb"] for t in tr],
           "params_per_rank": [t["params_per_rank"] for t in tr], "card": gpu_line()})
     loss = [st["loss"] for st in steps]
     if not all(torch.isfinite(torch.tensor(loss))) or not loss[-1] < loss[0]:
         failures.append(f"training loss {loss}")
+    if predicted is not None:
+        want = {k: {"calls": v["count"], "bytes": v["sent_bytes"]}
+                for k, v in predicted["collectives"].items()}
+        got = [t["steps"][0]["by_kind"] for t in tr]
+        emit({"phase": "dryrun", "part": "sharded_train", "card": gpu_line(),
+              "predicted_collectives": want, "card_first_step_collectives": got,
+              "collectives_equal": all(g == want for g in got),
+              "predicted_step_peak_gb": predicted["memory"]["peak_size_in_bytes"] / 1e9,
+              "card_step_peak_gb_per_rank": [t["step_peak_gb"] for t in tr],
+              "card_peak_gb_per_rank_from_before_init": [t["peak_gb"] for t in tr]})
+        if any(g != want for g in got):
+            failures.append(f"dry run's train collectives {want} against the card's {got}")
     emit({"phase": "sharded", "spawn_wall_s": wall,
           "part_wall_s": {p: [o[p]["wall_s"] for o in outs]
                           for p in ("parity", "zero1", "serve", "serve_f32", "ssm",
@@ -5305,6 +5345,167 @@ def phase_sharded(dev):
     for kk, v in sm[0]["counts"].items():
         counts[kk] = counts.get(kk, 0) + v
     return counts, kernel_rows
+
+
+# ---------------------------------------------------------------------------
+# The compile analysis: one rank of a mesh on fake tensors (launch.dryrun)
+# ---------------------------------------------------------------------------
+# the single-pod production dry run of the paper's two models: every shape of
+# OLMoE; Mixtral's decode_32k and long_500k only, its train_4k and prefill_32k
+# (~60-85 s of host CPU) run by the CLI (python -m repro_torch.launch.dryrun
+# --arch mixtral-8x7b --mesh single), to keep the default run's total well
+# inside its time limit
+DRYRUN_CASES = {"olmoe-1b-7b": ("train_4k", "prefill_32k", "decode_32k", "long_500k"),
+                "mixtral-8x7b": ("decode_32k", "long_500k")}
+# the one-rank reading: full-width OLMoE's model.prefill on the card
+ONE_RANK_B, ONE_RANK_S = 32, 2048
+ONE_RANK_NOTE = ("the plain versions' FLOPs: attention over the whole S x S scores (the "
+                 "causal mask's half included), the MoE as the dense combine over every "
+                 "expert, the router's products padded to 1024-row blocks")
+
+
+def dryrun_sharded_train() -> dict:
+    """The dry run of the ``sharded`` phase's training case (full-width
+    OLMoE at ``SHARDED["train_layers"]`` layers, a (data 1, model
+    ``SHARDED_RANKS``) mesh with ``seq_shard``, ``train_B`` x ``train_S``,
+    remat full, ZeRO-1) on rank 0 of a fake group: what the card's ranks
+    will exchange and hold.  Printed; ``phase_sharded`` gates it."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    size = SHARDED
+    cfg = replace(get_config("olmoe-1b-7b"), num_layers=size["train_layers"])
+    shape = ShapeSpec("sharded_train", "train", size["train_S"], size["train_B"])
+    t0 = time.perf_counter()
+    r = dryrun.run_case(cfg.name, shape.name, False, save=False, cfg=cfg, shape=shape,
+                        mesh_dims=((1, SHARDED_RANKS), ("data", "model")), trace=False)
+    if r["status"] != "ok":
+        raise AssertionError(f"dryrun: the sharded training case failed: {r.get('traceback')}")
+    emit({"phase": "dryrun", "part": "sharded_train_predicted", "arch": cfg.name,
+          "layers": cfg.num_layers, "B": size["train_B"], "S": size["train_S"],
+          "mesh": r["mesh_dims"], "collectives": r["collectives"],
+          "collective_bytes": r["collective_bytes"], "memory": r["memory"],
+          "dot_flops": r["dot_flops_per_device"], "trace_s": r["trace_s"],
+          "wall_s": time.perf_counter() - t0})
+    return r
+
+
+def dryrun_production() -> None:
+    """The single-pod (16 x 16) production dry run of ``DRYRUN_CASES``
+    (fsdp weights): every case ``ok`` or skipped for the reference's
+    reason; the reports go to ``reports/dryrun_torch/`` and the roofline's
+    rows (reckoned from an H100's datasheet peaks) are printed."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun, roofline
+
+    t0 = time.perf_counter()
+    failures, cases = [], []
+    for arch, shapes in DRYRUN_CASES.items():
+        for shape in shapes:
+            r = dryrun.run_case(arch, shape, False, "fsdp")
+            cases.append({k: r.get(k) for k in ("arch", "shape", "status", "trace_s",
+                                                "memory", "dot_flops_per_device",
+                                                "collective_bytes", "error")})
+            want = dryrun.skip_reason(get_config(arch), SHAPES[shape])
+            if not (r["status"] == "ok" and want is None
+                    or r["status"] == "skipped" and r.get("reason") == want):
+                failures.append(f"{arch} {shape}: {r['status']} {r.get('error', '')}")
+    rows = [row for row in roofline.build_rows("fsdp")
+            if row.shape in DRYRUN_CASES.get(row.arch, ())]
+    emit({"phase": "dryrun", "part": "production", "mesh": "single (data 16 x model 16)",
+          "cases": cases, "wall_s": time.perf_counter() - t0})
+    emit({"phase": "dryrun", "part": "roofline",
+          "peaks": f"reckoned from datasheet peaks, {roofline.CARD}",
+          "rows": [{"arch": row.arch, "shape": row.shape, "status": row.status,
+                    "compute_s": row.compute_s, "memory_s": row.memory_s,
+                    "collective_s": row.collective_s, "dominant": row.dominant,
+                    "useful_ratio": row.useful_ratio, "peak_gb": None if row.peak_bytes is None
+                    else row.peak_bytes / 1e9} for row in rows]})
+    if failures:
+        raise AssertionError("dryrun: " + "; ".join(failures))
+
+
+def one_rank_reading(dev, params) -> None:
+    """Full-width OLMoE's ``model.prefill`` of ``ONE_RANK_B`` x ``ONE_RANK_S``
+    on the card (``params``: the serve phases' weights), its measured ms
+    beside the dry run's FLOPs at (1, 1) over the datasheet peak, and the
+    dry run's step peak beside the card's.  Not gated."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.trace_analysis import storage_bytes
+    from repro_torch.models import model as M
+
+    cfg = get_config("olmoe-1b-7b")
+    shape = ShapeSpec("one_rank", "prefill", ONE_RANK_S, ONE_RANK_B)
+    r = dryrun.run_case(cfg.name, shape.name, False, save=False, cfg=cfg, shape=shape,
+                        mesh_dims=((1, 1), ("data", "model")), trace=False)
+    if r["status"] != "ok":
+        raise AssertionError(f"dryrun: the one-rank prefill failed: {r.get('traceback')}")
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (ONE_RANK_B, ONE_RANK_S), generator=gen,
+                         device=dev)
+
+    def run():
+        with torch.no_grad():
+            return M.prefill(cfg, params, toks)
+
+    out = run()                               # warm-up: the kernels' first calls
+    del out
+    ms = time_ms(run, iters=2, warmup=0)
+    peak = torch.cuda.max_memory_allocated() - before + storage_bytes(params)
+    reckoned_ms = r["dot_flops_per_device"] / roofline.PEAK_FLOPS * 1e3
+    emit({"phase": "dryrun", "part": "one_rank", "card": gpu_line(), "arch": cfg.name,
+          "B": ONE_RANK_B, "S": ONE_RANK_S, "measured_ms": ms,
+          "dot_flops": r["dot_flops_per_device"], "peak_flops": roofline.PEAK_FLOPS,
+          "reckoned_ms_at_peak": reckoned_ms, "share_of_peak": reckoned_ms / ms,
+          "predicted_peak_gb": r["memory"]["peak_size_in_bytes"] / 1e9,
+          "card_peak_gb": peak / 1e9, "note": ONE_RANK_NOTE})
+    del toks
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The examples (examples/torch_*.py), each at its own size on the card
+# ---------------------------------------------------------------------------
+EXAMPLES = ("quickstart", "offline_serve", "omega_split", "serve_online",
+            "serve_prefix_cache", "serve_mesh", "train_small")
+
+
+def phase_examples(dev) -> None:
+    """Each example's ``main(["--device", "cuda"])``, its output captured:
+    it must return (its own asserts hold); its wall and last lines are
+    printed."""
+    import importlib.util
+    import io
+
+    failures = []
+    for name in EXAMPLES:
+        path = os.path.join(ROOT, "examples", f"torch_{name}.py")
+        spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            spec.loader.exec_module(mod)
+            with contextlib.redirect_stdout(out):
+                mod.main(["--device", dev.type])
+            ok = True
+        except Exception as e:  # noqa: BLE001 -- reported, then the phase fails
+            ok = False
+            failures.append(f"{name}: {type(e).__name__}: {e}")
+        emit({"phase": "examples", "example": name, "ok": ok,
+              "wall_s": time.perf_counter() - t0,
+              "last_lines": out.getvalue().strip().splitlines()[-3:]})
+        del mod
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("examples: " + "; ".join(failures))
 
 
 def kernels_line(rows, launches, path_rows=None) -> list:
@@ -5378,7 +5579,8 @@ def main() -> int:
     ap.add_argument("--phases", default="kernels,serve,serve_omega,serve_long,serve_paged,"
                                         "serve_prefix,serve_streamed,serve_faults,"
                                         "serve_replicas,serve_ep,oracles,train,sharded,"
-                                        "serve_ssm,serve_mixtral,parity,profile")
+                                        "serve_ssm,serve_mixtral,parity,profile,dryrun,"
+                                        "examples")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -5410,7 +5612,8 @@ def main() -> int:
     launches = {}                           # per path: counts from its static run
     path_rows = {}                          # per streamed path: its kernel rows
     if phases & {"serve", "serve_long", "serve_streamed", "serve_omega", "serve_paged",
-                  "serve_prefix", "serve_faults", "serve_replicas", "serve_ep", "oracles"}:
+                  "serve_prefix", "serve_faults", "serve_replicas", "serve_ep", "oracles",
+                  "dryrun"}:
         params = init_weights(dev)
         resident = long_reports = None
         if "serve" in phases:
@@ -5442,13 +5645,16 @@ def main() -> int:
             launches["serve_ep"], path_rows["serve_ep"] = phase_serve_ep(dev, params, oracle)
         if "oracles" in phases:
             launches.update(phase_oracles(dev, params))
+        if "dryrun" in phases:
+            one_rank_reading(dev, params)
         del params, resident, long_reports
         torch.cuda.empty_cache()
     if "train" in phases:
         phase_train(dev)
         torch.cuda.empty_cache()
+    predicted = dryrun_sharded_train() if "dryrun" in phases else None
     if "sharded" in phases:
-        launches["sharded"], path_rows["sharded"] = phase_sharded(dev)
+        launches["sharded"], path_rows["sharded"] = phase_sharded(dev, predicted)
         torch.cuda.empty_cache()
     if "serve_ssm" in phases:
         launches["serve_ssm"], _ = phase_serve_ssm(dev, profile="profile" in phases)
@@ -5456,8 +5662,17 @@ def main() -> int:
         launches["serve_mixtral"], path_rows["serve_mixtral"] = phase_serve_mixtral(dev)
     if "parity" in phases:
         phase_parity(dev)
+    walls = {}
+    if "dryrun" in phases:
+        t0 = time.perf_counter()
+        dryrun_production()
+        walls["dryrun_production"] = time.perf_counter() - t0
+    if "examples" in phases:
+        t0 = time.perf_counter()
+        phase_examples(dev)
+        walls["examples"] = time.perf_counter() - t0
     line_rows = kernels_line(rows, launches, path_rows)
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start, "phase_s": walls})
     if line_rows:
         emit({"kernels": line_rows})
     print(line, flush=True)

@@ -30,12 +30,17 @@ planned read (``_stage``), an ``analysis.allowed`` scope tagged
 engine, which shares this transport, passes its ``ep-a2a-*`` tags and its
 ``EngineStats``), and goes back up by one asynchronous copy.  Sums run in
 f32 whatever the tensor's dtype.  ``STATS`` counts the exchanges of both
-callers, the bytes each rank sends and their host wall.
+callers, the bytes each rank sends and their host wall, in all and by kind
+(``all-reduce``, ``all-gather``, ``all-to-all``: the reference's HLO
+names).  ``observed(fn)`` hands ``fn`` one record per exchange (its kind,
+group, ranks, the bytes sent and the bytes of its result), which the dry
+run's trace keeps (``launch.trace_analysis``).
 """
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Optional
+from typing import Callable, Iterator, List, Optional
 
 import torch
 
@@ -43,11 +48,28 @@ from repro_torch.analysis import runtime as sanitizer
 from repro_torch.analysis.markers import hot_path
 from repro_torch.analysis.registry import register_collective
 
-STATS = {"calls": 0, "bytes": 0, "host_s": 0.0}
+KINDS = ("all-reduce", "all-gather", "all-to-all")
+STATS = {"calls": 0, "bytes": 0, "host_s": 0.0,
+         "by_kind": {k: {"calls": 0, "bytes": 0} for k in KINDS}}
+_OBSERVERS: List[Callable[[dict], None]] = []
 
 
 def reset_stats() -> None:
-    STATS.update(calls=0, bytes=0, host_s=0.0)
+    STATS.update(calls=0, bytes=0, host_s=0.0,
+                 by_kind={k: {"calls": 0, "bytes": 0} for k in KINDS})
+
+
+@contextlib.contextmanager
+def observed(fn: Callable[[dict], None]) -> Iterator[None]:
+    """Call ``fn(record)`` for every exchange inside the block: ``kind``,
+    ``group``, ``ranks`` (the group's size), ``sent_bytes`` (this rank's
+    staged buffer, what ``STATS`` counts) and ``bytes`` (the result's
+    size: the gathered tensor of an all-gather)."""
+    _OBSERVERS.append(fn)
+    try:
+        yield
+    finally:
+        _OBSERVERS.remove(fn)
 
 
 @hot_path
@@ -71,10 +93,17 @@ def _unstage(host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return host.to(like.device, dtype=like.dtype, non_blocking=True)
 
 
-def _account(t0: float, nbytes: int) -> None:
+def _account(t0: float, kind: str, group, sent: torch.Tensor, result_bytes: int) -> None:
+    nbytes = sent.numel() * sent.element_size()
     STATS["calls"] += 1
     STATS["bytes"] += nbytes
     STATS["host_s"] += time.perf_counter() - t0
+    STATS["by_kind"][kind]["calls"] += 1
+    STATS["by_kind"][kind]["bytes"] += nbytes
+    for fn in _OBSERVERS:
+        fn({"kind": kind, "group": group, "ranks": _size(group), "sent_bytes": nbytes,
+            "bytes": result_bytes, "dtype": str(sent.dtype).replace("torch.", ""),
+            "shape": list(sent.shape)})
 
 
 def _size(group) -> int:
@@ -96,7 +125,7 @@ def _all_reduce(t: torch.Tensor, group, op: str = "sum", tag: str = "mesh-reduce
     host = _stage(t, tag, torch.float32, stats)
     dist.all_reduce(host, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
                     group=group)
-    _account(t0, host.numel() * host.element_size())
+    _account(t0, "all-reduce", group, host, host.numel() * host.element_size())
     return _unstage(host, t)
 
 
@@ -112,7 +141,7 @@ def _all_gather(t: torch.Tensor, group, dim: int, tag: str = "mesh-gather",
     host = _stage(t, tag, stats=stats)
     parts = [torch.empty_like(host) for _ in range(_size(group))]
     dist.all_gather(parts, host, group=group)
-    _account(t0, host.numel() * host.element_size())
+    _account(t0, "all-gather", group, host, len(parts) * host.numel() * host.element_size())
     return _unstage(torch.cat(parts, dim=dim), t)
 
 
@@ -127,7 +156,7 @@ def _post_all_to_all(t: torch.Tensor, group, tag: str = "mesh-a2a", stats=None):
     host = _stage(t, tag, stats=stats)
     recv = torch.empty_like(host)
     work = dist.all_to_all_single(recv, host, group=group, async_op=True)
-    _account(t0, host.numel() * host.element_size())
+    _account(t0, "all-to-all", group, host, recv.numel() * recv.element_size())
     return recv, work
 
 

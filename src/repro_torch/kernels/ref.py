@@ -240,7 +240,7 @@ def _ssd_scan(x, B, C, dt, A, chunk: int, lengths, mma: bool):
     for lo in range(0, Bt, g):
         hi = min(Bt, lo + g)
         y, h = _ssd_rows(x[lo:hi], B[lo:hi], C[lo:hi], dt[lo:hi], A, chunk,
-                         lens[lo:hi], pos, mma)
+                         lens[lo:hi], pos, mma, whole=lengths is None)
         ys.append(y)
         hs.append(h)
     y = ys[0] if len(ys) == 1 else torch.cat(ys)
@@ -254,7 +254,9 @@ def _hi_lo(t: torch.Tensor):
     return hi, (t - hi).bfloat16().float()
 
 
-def _ssd_rows(x, B, C, dt, A, chunk: int, lens, pos, mma: bool):
+def _ssd_rows(x, B, C, dt, A, chunk: int, lens, pos, mma: bool, whole: bool):
+    """``whole``: every row is S long (no ``lengths``), so the chunk count
+    comes from the shape and no value is read to the host."""
     Bt, S, nh, hp = x.shape
     ns = B.shape[-1]
     live = pos[None, :] < lens[:, None]                          # (Bt, S)
@@ -263,7 +265,12 @@ def _ssd_rows(x, B, C, dt, A, chunk: int, lens, pos, mma: bool):
     Cf = C.float() * live[..., None]
     dtf = dt.float() * live[..., None]
     Af = A.float()
-    n_chunks = -(-int(lens.max()) // chunk) if Bt else 0
+    if not Bt:
+        n_chunks = 0
+    elif whole:
+        n_chunks = -(-S // chunk)
+    else:
+        n_chunks = -(-int(lens.max()) // chunk)
     y = torch.zeros((Bt, S, nh, hp), dtype=torch.float32, device=x.device)
     H = torch.zeros((Bt, nh, ns, hp), dtype=torch.float32, device=x.device)
     for c in range(n_chunks):

@@ -15,6 +15,9 @@ over ``torch.distributed`` ranks, one process each:
 * ``make_ctx(mesh, seq_shard)`` -- the ``ShardCtx`` of a mesh;
 * ``group(world_size=1)`` -- a one-rank gloo group in this process (the
   in-process counterpart of the reference's ``make_debug_mesh(1, 1)``);
+* ``fake_group(world_size)`` -- a group of ``world_size`` ranks of which
+  only this process exists (PyTorch's fake backend): one rank of a large
+  mesh, for the dry run (``launch.dryrun``);
 * ``spawn(fn, n, args)`` -- start ``n`` rank processes, each joined to a
   gloo group of ``n`` ranks, run ``fn(rank, n, group, *args)`` in each and
   return their results in rank order.
@@ -131,6 +134,29 @@ def group(world_size: int = 1, timeout_s: float = GROUP_TIMEOUT_S) -> Iterator[A
             yield g
         finally:
             dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def fake_group(world_size: int) -> Iterator[Any]:
+    """This process as rank 0 of a group of ``world_size`` ranks, the others
+    of which do not exist: PyTorch's fake backend, whose collectives return
+    at once and leave their output buffers as they are (shapes and counts
+    are right, values are not).  The group is the process's default one
+    and is destroyed on exit; raises ``RuntimeError`` when the process
+    already has a default group (a rank process of a real group)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        raise RuntimeError("a fake group needs a process without a default process group; "
+                           f"this one is rank {dist.get_rank()} of {dist.get_world_size()}")
+    # a private module of PyTorch's tests: importing it registers the backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
 
 
 def _rank_main(fn: Callable, rank: int, n: int, rendezvous: str, timeout_s: float,

@@ -12,7 +12,9 @@ On a mesh (``ctx``, ``cfg``; the parameters are this rank's shares,
 summed over the batch axes; the global norm counts each model-split share
 once per rank and each whole leaf once; each leaf's moments and update
 cover only this rank's slice of its ZeRO-1 dim (``specs.zero1_dim``), and
-the updated slices are all-gathered over the batch axes."""
+the updated slices are all-gathered over the batch axes.  ``zero1=False``
+keeps every leaf's state whole on every rank (the reference's
+``weights="tp"``: no ``"batch"`` dim in the optimizer's specs)."""
 from __future__ import annotations
 
 from typing import Callable, List, NamedTuple, Tuple
@@ -50,12 +52,12 @@ def tree_unflatten(like, leaves):
     return tree_map(lambda _: next(it), like)
 
 
-def adamw_init(params, ctx=None, cfg=None) -> AdamWState:
+def adamw_init(params, ctx=None, cfg=None, zero1: bool = True) -> AdamWState:
     """Zero moments in f32; on a mesh (``ctx``, ``cfg``) each leaf's cover
-    this rank's slice of its ZeRO-1 dim."""
+    this rank's slice of its ZeRO-1 dim (``zero1``)."""
     dev = tree_leaves(params)[0].device
     if ctx is not None and ctx.on_mesh:
-        dims = _zero1_dims(ctx, cfg, params)
+        dims = _zero1_dims(ctx, cfg, params, zero1)
         it = iter(dims)
 
         def zero(p):
@@ -74,10 +76,11 @@ def adamw_init(params, ctx=None, cfg=None) -> AdamWState:
     return AdamWState(torch.zeros((), dtype=torch.int32, device=dev), zeros(), zeros())
 
 
-def _zero1_dims(ctx, cfg, params) -> List:
+def _zero1_dims(ctx, cfg, params, zero1: bool = True) -> List:
     from repro_torch.sharding.specs import tree_paths, zero1_dim
 
-    return [zero1_dim(ctx, cfg, path, tuple(p.shape)) for path, p in tree_paths(params)]
+    return [zero1_dim(ctx, cfg, path, tuple(p.shape)) if zero1 else None
+            for path, p in tree_paths(params)]
 
 
 @torch.no_grad()
@@ -93,15 +96,17 @@ def adamw_update(
     grad_clip: float = 1.0,
     ctx=None,
     cfg=None,
+    zero1: bool = True,
 ) -> Tuple[object, AdamWState, torch.Tensor]:
     """One step, IN PLACE: every parameter and both moments are written one
     leaf at a time (no second copy of the optimizer state is ever held).
     Returns (params, the new state, gnorm), the same parameter and moment
-    tensors.  On a mesh (``ctx``, ``cfg``): ZeRO-1 (``_adamw_zero1``), with
-    ``grads`` this rank's (summed over the batch axes here)."""
+    tensors.  On a mesh (``ctx``, ``cfg``): ZeRO-1 (``_adamw_zero1``; with
+    ``zero1=False`` each leaf's state whole), with ``grads`` this rank's
+    (summed over the batch axes here)."""
     if ctx is not None and ctx.on_mesh:
         return _adamw_zero1(params, grads, state, lr, b1, b2, eps, weight_decay, grad_clip,
-                            ctx, cfg)
+                            ctx, cfg, zero1)
     leaves = list(zip(*map(tree_leaves, (params, grads, state.mu, state.nu))))
     gnorm = torch.sqrt(sum(g.float().square().sum() for _, g, _, _ in leaves))
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -119,7 +124,7 @@ def adamw_update(
 
 
 def _adamw_zero1(params, grads, state: AdamWState, lr, b1, b2, eps, weight_decay, grad_clip,
-                 ctx, cfg) -> Tuple[object, AdamWState, torch.Tensor]:
+                 ctx, cfg, zero1: bool = True) -> Tuple[object, AdamWState, torch.Tensor]:
     """``adamw_update`` on a mesh (the arithmetic is the same, on slices)."""
     from repro_torch.distributed import collectives as C
     from repro_torch.sharding.specs import placement, tree_paths
@@ -154,7 +159,7 @@ def _adamw_zero1(params, grads, state: AdamWState, lr, b1, b2, eps, weight_decay
     stepf = step.float()
     c1 = 1.0 - b1 ** stepf
     c2 = 1.0 - b2 ** stepf
-    for path, p, g, mo, vo, z in zip(paths, ps, gs, ms, vs, _zero1_dims(ctx, cfg, params)):
+    for path, p, g, mo, vo, z in zip(paths, ps, gs, ms, vs, _zero1_dims(ctx, cfg, params, zero1)):
         pz = p if z is None else C.batch_share(ctx, p, z)
         gz = (g if z is None else C.batch_share(ctx, g, z)) * scale
         mo.copy_(b1 * mo + (1 - b1) * gz)

@@ -42,12 +42,14 @@ def make_train_step(
     aux_weight: float = 0.01,
     remat_policy: str = "full",
     ctx=None,
+    zero1: bool = True,
 ) -> Callable:
     """Returns ``train_step(params, opt, tokens, labels, frontend_emb=None) ->
     (params, opt, metrics)``.  The parameters must require grad; they and
     the optimizer's moments are updated in place, and ``metrics`` (loss,
     nll, aux, gnorm) stay device tensors.  On a mesh (``ctx``): this rank's
-    shares and rows, ZeRO-1 AdamW."""
+    shares and rows, ZeRO-1 AdamW (``zero1=False``: the state whole on
+    every rank, from ``adamw_init(..., zero1=False)``)."""
 
     def train_step(params, opt, tokens, labels, frontend_emb=None):
         leaves = tree_leaves(params)
@@ -58,7 +60,7 @@ def make_train_step(
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         params, opt, gnorm = adamw_update(params, tree_unflatten(params, grads), opt, lr=lr,
-                                          ctx=ctx, cfg=cfg)
+                                          ctx=ctx, cfg=cfg, zero1=zero1)
         metrics = {"loss": total.detach(), "nll": nll.detach(), "aux": aux.detach(),
                    "gnorm": gnorm}
         return params, opt, metrics

@@ -8,7 +8,8 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+         + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
 BANNED_ROOTS = ("jax", "jaxlib", "repro")
 
 
@@ -64,7 +65,8 @@ def test_guard_flags_banned_code(src):
 def test_guard_scans_the_analysis_and_faults_packages():
     """The port's own analysis and faults packages are among the scanned
     files (they are copies of reference modules, never imports of them)."""
-    scanned = {p.relative_to(ROOT / "src" / "repro_torch").parts[0] for p in FILES[:-1]}
+    scanned = {p.relative_to(ROOT / "src" / "repro_torch").parts[0] for p in FILES
+               if p.is_relative_to(ROOT / "src" / "repro_torch")}
     assert {"analysis", "faults"} <= scanned
 
 
@@ -76,6 +78,19 @@ def test_guard_scans_the_distributed_modules(path):
     ``distributed``, ``sharding`` and ``launch`` modules' logic, never
     imports of them) are among the scanned files."""
     assert ROOT / "src" / "repro_torch" / path in FILES
+
+
+@pytest.mark.parametrize("path", ["src/repro_torch/launch/dryrun.py",
+                                  "src/repro_torch/launch/trace_analysis.py",
+                                  "src/repro_torch/launch/roofline.py",
+                                  *[f"examples/torch_{name}.py" for name in (
+                                      "quickstart", "offline_serve", "omega_split",
+                                      "serve_online", "serve_prefix_cache", "serve_mesh",
+                                      "train_small")]])
+def test_guard_scans_the_compile_analysis_and_the_examples(path):
+    """The dry run, trace analysis and roofline (counterparts of the
+    reference's ``launch`` modules) and the port's examples are scanned."""
+    assert ROOT / path in FILES
 
 
 def test_guard_allows_the_port():

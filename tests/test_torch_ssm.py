@@ -180,3 +180,18 @@ def test_init_ssm_state_defaults_to_cuda_and_never_falls_back():
         pytest.skip("a CUDA device is present: the default runs there")
     with pytest.raises(RuntimeError, match="cuda"):
         ssm.init_ssm_state(cfg, 2)
+
+
+def test_ssd_scan_ref_reads_no_host_value_without_lengths():
+    """Without ``lengths`` the plain scan takes its chunk count from the
+    shape, so it runs on fake tensors (the dry run's), which hold no values;
+    with ``lengths`` it reads their maximum (a plain CPU version)."""
+    from torch._subclasses.fake_tensor import DataDependentOutputException, FakeTensorMode
+
+    with FakeTensorMode():
+        x, B_, C_ = torch.ones((2, 40, 4, 8)), torch.ones((2, 40, 16)), torch.ones((2, 40, 16))
+        dt, A = torch.ones((2, 40, 4)), -torch.ones((4,))
+        y, h = ref.ssd_scan_ref(x, B_, C_, dt, A, 16)
+        assert y.shape == (2, 40, 4, 8) and h.shape == (2, 4, 16, 8)
+        with pytest.raises(DataDependentOutputException):
+            ref.ssd_scan_ref(x, B_, C_, dt, A, 16, lengths=torch.tensor([40, 30]))

@@ -220,3 +220,29 @@ def cuda_sharded_rank(rank: int, n: int, group, layers: int, B: int, S: int):
             "loss": float(total), "after_grad": ops.launch_counts(),
             "grads": {path: (float(g.float().abs().max()), bool(g.isfinite().all()))
                       for (path, _), g in zip(tree_paths(params), grads)}}
+
+
+def dryrun_rank(rank: int, n: int, group, cases):
+    """The dry run's cases (``launch.dryrun.build_case``) on real CPU
+    tensors, this rank of a real gloo mesh: per case (name, config, shape,
+    mesh dims, weights), the collectives of its step by kind
+    (``collectives.STATS``) and the bytes of every tensor the rank holds
+    before it (parameter shares, optimizer state, cache, its rows)."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch import dryrun, mesh
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    out = {}
+    for name, cfg, shape, dims, weights in cases:
+        ctx = mesh.make_ctx(mesh.make_mesh(dims, ("data", "model")),
+                            seq_shard=shape.kind == "train")
+        fn, args, _ = dryrun.build_case(cfg, shape, ctx, weights)
+        C.reset_stats()
+        fn()
+        out[name] = {"by_kind": {k: dict(v) for k, v in C.STATS["by_kind"].items()
+                                 if v["calls"]},
+                     "arg_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(args)
+                                      if isinstance(t, torch.Tensor))}
+    return out
