@@ -83,10 +83,11 @@ Phases, in order (any failure exits non-zero with its traceback):
                peak printed beside theirs; inside the OLMoE block, the
                one-rank reading (``model.prefill`` of 32 x 2048 on the card
                against the dry run's FLOPs over the datasheet peak, not
-               gated); at the end the single-pod production dry run of
-               OLMoE-1B-7B (every shape) and Mixtral-8x7B (decode_32k,
-               long_500k), each ``ok`` or skipped for the reference's
-               reason, and their roofline rows;
+               gated); the single-pod production dry run of OLMoE-1B-7B
+               (every shape) and Mixtral-8x7B (decode_32k, long_500k), in a
+               process of its own from the ``sharded`` phase on (its lines
+               printed at the end), each ``ok`` or skipped for the
+               reference's reason, and their roofline rows;
 10. examples -- each ``examples/torch_*.py`` ``main`` on the card at its own
                size: it must return, its asserts holding.
 
@@ -147,6 +148,8 @@ REL_BF16 = 0.02
 # (row, head) slice's largest value (the state update stays in f32).
 TOL_SSD_F32 = 8e-5
 REL_SSD_STATE = 1e-4
+# K3's log-sum-exp against its plain version's, absolute (natural log units)
+TOL_LSE = 1e-4
 REPLACES = {
     "expert_gate_up": "src/repro/kernels/expert_gemm.py:124",
     "grouped_matmul": "src/repro/kernels/expert_gemm.py:64",
@@ -488,7 +491,7 @@ WORK = {
     "flash_attention": lambda q, *a, lengths=None, **kw: (
         q.shape[0] * q.shape[1] ** 2 if lengths is None
         else int((lengths.long() ** 2).sum())),
-    "decode_attention": lambda q, k, *a: q.shape[0] * k.shape[1],
+    "decode_attention": lambda q, k, *a, **kw: q.shape[0] * k.shape[1],
     "decode_attention_paged": lambda q, *a: q.shape[0] * a[-1],
     "ssd_scan": lambda x, *a, lengths=None, **kw: (
         x.shape[0] * x.shape[1] if lengths is None else int(lengths.long().sum())),
@@ -767,6 +770,78 @@ def check_attention_on(name, q, k, v, pos, timing=False):
         row.update({"prev_ms": time_ms(prev), "ms_again": time_ms(kern),
                     "host_us": host_us(kern), "prev_host_us": host_us(prev)})
     emit({"case": name, "timing": [row]})
+    return row
+
+
+def check_attention_lse(name, gen, B, H, K, hd, S, dtype, dev, pos=None):
+    """K3 with its log-sum-exp (``lse``, what the sharded decode over a
+    span-split cache merges ranks by): the output bit-identical to the call
+    without it, the lse within ``TOL_LSE`` of the plain version's (-inf for
+    a row with no valid slot), and both calls timed in turns with the bound
+    of the call that writes lse.  Returns its row (``"lse": True``)."""
+    if pos is None:
+        pos = torch.randint(0, S, (B,), generator=gen, device=dev, dtype=torch.int32)
+    else:
+        pos = torch.tensor(pos, device=dev, dtype=torch.int32)
+    q = torch.randn((B, H, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, S, K, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, S, K, hd), generator=gen, device=dev).to(dtype)
+    return check_attention_lse_on(name, q, k, v, pos)
+
+
+def check_attention_lse_on(name, q, k, v, pos):
+    """``check_attention_lse`` on these inputs."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops, ref
+
+    B, H, hd = q.shape
+    S, K, dtype, dev = k.shape[1], k.shape[2], q.dtype, q.device
+    pos = pos.to(torch.int32)
+    lse = torch.empty((B, H), dtype=torch.float32, device=dev)
+    got = ops.decode_attention(q, k, v, pos, lse=lse)
+    plain = ops.decode_attention(q, k, v, pos)
+    want_lse = torch.empty_like(lse)
+    want = ref.decode_attention_ref(q, k, v, pos, lse=want_lse)
+    want = torch.where((pos < 0)[:, None, None], torch.zeros_like(want), want)
+    torch.cuda.synchronize()
+    live = pos >= 0
+    same = bool(torch.equal(got, plain))
+    lse_err = float((lse[live] - want_lse[live]).abs().max()) if bool(live.any()) else 0.0
+    dead_ok = bool((torch.isinf(lse[~live]) & (lse[~live] < 0)).all())
+    err, tol = errors(got, want), tolerance(dtype)
+    design = da.decode_attention_design(dtype, H // K, hd)
+    es = q.element_size()
+    n_valid = int(torch.clamp(pos.long() + 1, min=0, max=S).sum())
+    nbytes = 2 * n_valid * K * hd * es + 2 * B * H * hd * es + B * 4 + B * H * 4
+    b_ms, b_by = bound(nbytes, 4.0 * n_valid * H * hd,
+                       PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+    qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=H != K)
+
+    def with_lse():
+        return ops.decode_attention(q, k, v, pos, lse=lse)
+
+    def without():
+        return ops.decode_attention(q, k, v, pos)
+
+    row = {"name": "decode_attention", "case": name, "lse": True, "B": B, "H": H, "K": K,
+           "hd": hd, "S": S, "dtype": str(dtype).replace("torch.", ""), "design": design,
+           "max_abs_err": err[0], "rel_err": err[1], "tolerance": tol,
+           "lse_max_abs_err": lse_err, "lse_tolerance": TOL_LSE,
+           "out_bit_identical_without_lse": same, "lse_neg_inf_rows_pos_lt_0": dead_ok,
+           "ms": time_ms(with_lse), "ms_without_lse": time_ms(without),
+           "ms_again": time_ms(with_lse), "ms_without_lse_again": time_ms(without),
+           "plain_ms": time_ms(lambda: ref.decode_attention_ref(q, k, v, pos, lse=want_lse)),
+           "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+    emit({"case": name, "timing": [row]})
+    if not (same and dead_ok and lse_err < TOL_LSE and within(err, tol)):
+        raise AssertionError(f"{name}: K3 with lse: out bit-identical {same}, lse error "
+                             f"{lse_err} (tolerance {TOL_LSE}), dead rows -inf {dead_ok}, "
+                             f"out error {err} outside {tol}?")
     return row
 
 
@@ -1260,6 +1335,17 @@ def phase_kernels(dev, plan, span: int, prompt_len: int, long_b_a: int,
 
     check_attention("split-edges", gen, 5, 16, 16, 128, long_span, bf, dev,
                     pos=[0, L - 1, L, long_span - 1, -1])
+    # K3 with its log-sum-exp: the serve decode shape, and a production
+    # rank's of the sharded decode over a span-split cache (qwen1.5-4b
+    # decode_32k on the 16 x 16 pod: 8 rows, 20 heads, 32768 / 16 slots),
+    # with a dead row and the split edges
+    for dtype in (bf, f32):
+        tag = str(dtype).replace("torch.", "")
+        rows.append(check_attention_lse(f"olmoe-decode-lse-{tag}", gen, plan.b_a, 16, 16, 128,
+                                        span, dtype, dev))
+        rows.append(check_attention_lse(
+            f"qwen-rank-decode-32k-lse-{tag}", gen, 8, 20, 20, 128, 2048, dtype, dev,
+            pos=[2047, 1023, L - 1, L, 0, -1, 2047, 1500]))
     # K3p: the paged path's shape (32 rows at span 3648 in 128-slot pages,
     # half the frames in the window), 8-slot pages at the serve span and at
     # smoke size (hd 32: the first design), a sliding-window ring, the split
@@ -1598,6 +1684,8 @@ def check_path_kernels(phase: str, calls) -> list:
                                        lens=kw.get("lengths")))
         elif name == "decode_attention_paged":
             rows.append(check_paged_on(case, *args, timing=True))
+        elif kw.get("lse") is not None:        # the decode over a span-split cache
+            rows.append(check_attention_lse_on(case, *args))
         else:
             rows.append(check_attention_on(case, *args, timing=True))
         del args, kw
@@ -4755,12 +4843,24 @@ SHARDED_NOTE = ("two rank processes sharing one card on a (data 1, model 2) mesh
 # in f32 gated to one process, in bf16 against one process's f32 run beside
 # one process's own bf16 run (the witness of what bf16 rounding does there).
 # Training: OLMoE at 4 layers, 4 x 512, remat full, 6 steps at 1e-4, capacity
-# factor 1.25.
+# factor 1.25, on (data 1, model 2); and with the parameters held as ZeRO-1
+# slices (the dry run's weights="fsdp") on (data 2, model 1) at 1 layer and 3
+# steps (its gathers and f32 gradient sums stage ~6 GB a step at 2 layers
+# through the host, 12-16 s a step).
+# The span-split decode (SPAN_RANKS = 3 ranks, (data 1, model 3)):
+# Qwen1.5-4B at full width and 4 layers, whose 20 KV heads 3 does not
+# divide, so each rank holds a third of the cache's span: 8 prompts of
+# 256..1011 tokens right-padded to 1011, 15 tokens (span 1026 = 3 x 342),
+# greedy_generate(ctx) in f32 (every step's logits against one process) and
+# in bf16 (tokens recorded beside one process's).
 SHARDED = {"parity_layers": 2, "parity_B": 2, "parity_S": 512, "serve_layers": 4,
            "serve_prompts": 16, "serve_min": 64, "serve_max": 256, "serve_decode": 16,
            "serve_f32_layers": 2, "ssm_B": 8, "ssm_S": 1024, "ssm_layers": 2,
            "train_layers": 4, "train_B": 4, "train_S": 512, "train_steps": 6,
-           "train_lr": 1e-4}
+           "train_lr": 1e-4, "fsdp_layers": 1, "fsdp_steps": 3, "span_layers": 4, "span_prompts": 8, "span_min": 256,
+           "span_max": 1011, "span_decode": 15}
+SPAN_RANKS = 3
+SPAN_ARCH = "qwen1.5-4b"
 TOL_SHARDED_F32 = 1e-4
 TOL_ZERO1 = 1e-6
 # f32 greedy_generate(ctx): each step's logits per row over the row's peak
@@ -4814,30 +4914,40 @@ def sharded_parity(dev, ctx, cfg, B: int, S: int, rank: int) -> dict:
 
 
 def sharded_zero1(dev, ctx, cfg) -> dict:
-    """One ZeRO-1 AdamW step on ``ctx`` (data 2, model 1): each rank passes
-    half of seeded gradients (the sum over data is the whole gradient,
-    exactly); the updated weights against the unsharded ``adamw_update`` on
-    the whole gradient, per leaf over its peak."""
+    """One ZeRO-1 AdamW step on ``ctx`` (data 2, model 1), the parameters
+    held as their slices over data (``shard_params(..., zero1=True)``): a
+    sliced leaf gets its slice of seeded gradients (what the reduce-scatter
+    of a real step hands it), every other leaf half of them (the sum over
+    data is the whole gradient, exactly); the updated weights, gathered,
+    against the unsharded ``adamw_update`` on the whole gradient, per leaf
+    over its peak."""
     from repro_torch.models import model as M
+    from repro_torch.sharding.specs import gather_params, held_batch_dim, shard_params, \
+        tree_paths
     from repro_torch.train.optimizer import adamw_init, adamw_update, tree_leaves, tree_map
 
-    params = M.init_params(cfg, seed=11, device=dev)
+    full = M.init_params(cfg, seed=11, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     grads = tree_map(lambda p: 1e-3 * torch.randn(p.shape, generator=gen, device=dev,
-                                                  dtype=torch.float32).to(p.dtype), params)
-    want = tree_map(lambda p: p.clone(), params)
-    _, _, gn_want = adamw_update(want, grads, adamw_init(want), lr=1e-3)
-    opt = adamw_init(params, ctx, cfg)
+                                                  dtype=torch.float32).to(p.dtype), full)
+    params = shard_params(ctx, cfg, full, zero1=True)
+    mine = shard_params(ctx, cfg, grads, zero1=True)
+    for path, g in tree_paths(mine):
+        if held_batch_dim(ctx, cfg, path, g.shape) is None:
+            g /= ctx.batch_size
+    _, _, gn_want = adamw_update(full, grads, adamw_init(full), lr=1e-3)
+    opt = adamw_init(params)
     held = sum(t.numel() for t in tree_leaves(opt.mu))
-    _, opt, gn = adamw_update(params, tree_map(lambda g: g / ctx.batch_size, grads), opt,
-                              lr=1e-3, ctx=ctx, cfg=cfg)
+    _, opt, gn = adamw_update(params, mine, opt, lr=1e-3, ctx=ctx, cfg=cfg)
+    got = gather_params(ctx, cfg, params)
     rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-              for a, b in zip(tree_leaves(params), tree_leaves(want)))
-    out = {"params": sum(t.numel() for t in tree_leaves(params)), "moment_elems_held": held,
-           "rel_err_per_leaf_peak": rel,
+              for a, b in zip(tree_leaves(got), tree_leaves(full)))
+    out = {"params": sum(t.numel() for t in tree_leaves(full)),
+           "params_held": sum(t.numel() for t in tree_leaves(params)),
+           "moment_elems_held": held, "rel_err_per_leaf_peak": rel,
            "gnorm_rel": abs(float(gn) - float(gn_want)) / float(gn_want)}
-    del params, grads, want, opt
+    del params, grads, mine, full, opt, got
     return out
 
 
@@ -5045,13 +5155,16 @@ def sharded_ssm(dev, ctx, cfg, B: int, S: int, rank: int, f32: bool = False) -> 
     return out
 
 
-def sharded_train(dev, ctx, cfg, size: dict) -> dict:
-    """Sharded training: this rank's shares, seq_shard, ZeRO-1 AdamW, remat
-    full, on one seeded batch; each step's host wall (synchronised), loss,
-    the collectives' calls, bytes and host seconds; the peak memory."""
+def sharded_train(dev, ctx, cfg, size: dict, zero1: bool = False) -> dict:
+    """Sharded training: this rank's shares (with ``zero1`` also its slices
+    over data: the dry run's weights="fsdp"), seq_shard, AdamW on them,
+    remat full, on this rank's rows of one seeded batch; each step's host
+    wall (synchronised), loss, the collectives' calls, bytes and host
+    seconds; the peak memory; how many leaves the rank holds a slice over
+    data of, and whether each is its 1 / data share."""
     from repro_torch.distributed import collectives as C
     from repro_torch.models import model as M
-    from repro_torch.sharding.specs import shard_params
+    from repro_torch.sharding.specs import held_batch_dim, tree_paths, zero1_dim
     from repro_torch.train.optimizer import adamw_init, tree_leaves
     from repro_torch.train.train_loop import make_train_step
 
@@ -5059,15 +5172,20 @@ def sharded_train(dev, ctx, cfg, size: dict) -> dict:
     peak_of = torch.cuda.max_memory_allocated if card else (lambda: 0)
     if card:
         torch.cuda.reset_peak_memory_stats()
-    local = shard_params(ctx, cfg, M.init_params(cfg, seed=0, device=dev))
+    local = M.init_params(cfg, seed=0, device=dev, ctx=ctx, zero1=zero1)
     n_local = sum(t.numel() for t in tree_leaves(local))
+    # per leaf: its ZeRO-1 dim, and that dim again where the rank holds
+    # exactly its 1 / data share there (held_batch_dim)
+    splits = [(zero1_dim(ctx, cfg, path), held_batch_dim(ctx, cfg, path, t.shape))
+              for path, t in tree_paths(local)]
     for t in tree_leaves(local):
         t.requires_grad_(True)
-    opt = adamw_init(local, ctx, cfg)
-    tokens, labels = train_batch(cfg, size["train_B"], size["train_S"], dev)
+    opt = adamw_init(local)
+    tokens, labels = (M.rows_of(ctx, t)
+                      for t in train_batch(cfg, size["train_B"], size["train_S"], dev))
     step = make_train_step(cfg, lr=size["train_lr"], remat=True, remat_policy="full", ctx=ctx)
     # the peak of the steps alone, from after the shares and the optimizer
-    # state exist (the unsharded init_params before them is a transient)
+    # state exist (init_params' one whole leaf at a time is a transient)
     setup_peak = peak_of()
     if card:
         torch.cuda.reset_peak_memory_stats()
@@ -5087,9 +5205,96 @@ def sharded_train(dev, ctx, cfg, size: dict) -> dict:
                                   if v["calls"]}})
     step_peak = peak_of()
     del local, opt, m, tokens, labels, step
-    return {"steps": steps, "params_per_rank": n_local,
+    return {"steps": steps, "params_per_rank": n_local, "leaves": len(splits),
+            "leaves_split_over_data": sum(z is not None for z, _ in splits),
+            "leaves_held_as_their_share": sum(z is not None and h == z for z, h in splits),
             "peak_gb": max(setup_peak, step_peak) / 1e9, "step_peak_gb": step_peak / 1e9,
             "reckoned_gb": 12 * n_local / 1e9}
+
+
+def sharded_span(dev, ctx, cfg, size: dict, rank: int) -> dict:
+    """``greedy_generate(ctx)`` on a mesh whose model axis divides neither
+    the heads nor the KV heads, so each rank holds a third of the decode
+    cache's span and merges its K3 partials by log-sum-exp
+    (``collectives.merge_lse``), beside rank 0's one-process run on the same
+    weights and prompts: every logits row the run picks a token from (f32:
+    the prefill's and each decode step's), the tokens, the cache each rank
+    keeps, K3's launches and local shapes (its largest call captured)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving import generate as G
+    from repro_torch.serving.generate import greedy_generate
+    from repro_torch.sharding.specs import shard_params
+
+    full = M.init_params(cfg, seed=0, device=dev)
+    toks = sharded_prompts(cfg, dev, size["span_prompts"], size["span_min"], size["span_max"])
+    T = size["span_decode"]
+    out, want, got = {}, [], []
+    if rank == 0:
+        with torch.no_grad(), greedy_logits_tap(want):
+            t0 = time.perf_counter()
+            out["single_tokens"] = greedy_generate(cfg, full, toks, T).cpu()
+            out["single_s"] = time.perf_counter() - t0
+    local = shard_params(ctx, cfg, full)
+    del full
+    kept = {}
+    aligned = G.cache_from_prefill
+
+    def keep(*a, **kw):
+        kept["cache"] = aligned(*a, **kw)
+        return kept["cache"]
+
+    G.cache_from_prefill = keep
+    ops.reset_launch_counts()
+    try:
+        with torch.no_grad(), greedy_logits_tap(got), \
+                capture_calls(("decode_attention",)) as calls:
+            t0 = time.perf_counter()
+            out["tokens"] = greedy_generate(cfg, local, toks, T, ctx=ctx).cpu()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out["sharded_s"] = time.perf_counter() - t0
+    finally:
+        G.cache_from_prefill = aligned
+    out.update(counts=ops.launch_counts(),
+               cache={f"{i}/{n}": tuple(t.shape) for i, c in enumerate(kept["cache"])
+                      for n, t in c.items() if torch.is_tensor(t)},
+               spans=sorted({c.get("span") for c in kept["cache"]}, key=str),
+               local_shapes={n: [tuple(t.shape) for t in a if torch.is_tensor(t)][:2]
+                             for n, (a, _) in calls.items()})
+    if rank == 0:
+        out["step_rows"] = [row_errors(g, w) for g, w in zip(got, want)]
+        out["calls"] = {n: ([t.cpu() if torch.is_tensor(t) else t for t in a],
+                            {k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()})
+                        for n, (a, kw) in calls.items()}
+    del local, toks, got, want, kept, calls
+    return out
+
+
+def span_rank(rank: int, n: int, group, device: str, cfgs: dict, size: dict) -> dict:
+    """One rank of the ``sharded`` phase's span-split decode, in its own
+    process on the card: f32, then bf16 (``sharded_span``), each rank's
+    allocated bytes back to their start after each."""
+    from repro_torch.launch import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    card = dev.type == "cuda"
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    allocated = torch.cuda.memory_allocated if card else (lambda: 0)
+    if card:
+        prime(dev)
+    ctx = mesh.make_ctx(mesh.make_debug_mesh(1, n), seq_shard=True)
+    out, left = {}, {}
+    for name in ("span_f32", "span_bf16"):
+        before = allocated()
+        t0 = time.perf_counter()
+        out[name] = sharded_span(dev, ctx, cfgs[name], size, rank)
+        out[name]["wall_s"] = time.perf_counter() - t0
+        left[name] = allocated() - before
+    out["left_bytes"] = left
+    return out
 
 
 def sharded_rank(rank: int, n: int, group, device: str, cfgs: dict, size: dict) -> dict:
@@ -5121,6 +5326,9 @@ def sharded_rank(rank: int, n: int, group, device: str, cfgs: dict, size: dict) 
         ("ssm_full", lambda: sharded_ssm(dev, ctx, cfgs["ssm_full"], size["ssm_B"],
                                          size["ssm_S"], rank, f32=True)),
         ("train", lambda: sharded_train(dev, ctx, cfgs["train"], size)),
+        ("train_fsdp", lambda: sharded_train(dev, ctx_data, cfgs["train_fsdp"],
+                                             dict(size, train_steps=size["fsdp_steps"]),
+                                             zero1=True)),
     ]
     for name, part in parts:
         before = allocated()
@@ -5145,10 +5353,15 @@ def phase_sharded(dev, predicted=None):
     step's logits within 1e-3 of the row peak, every token equal; Mamba2's
     sharded prefill within 0.02 at 2 layers (K5 at 16 of 32 heads), at all
     48 within 1e-4 in f32 and, in bf16, within twice one process's own bf16
-    distance from f32; training whose loss falls.  Each
+    distance from f32; training whose loss falls, on (1, 2) and with the
+    parameters as ZeRO-1 slices on (2, 1) (every split leaf held as its
+    half).  Then ``SPAN_RANKS`` more ranks on (1, 3): Qwen1.5-4B's decode
+    over a cache split by span, f32 logits of every step within 1e-4 of
+    the row peak of one process and every token equal, bf16 tokens
+    recorded, every K3 launch with its log-sum-exp at the local span.  Each
     part frees its memory on each rank.  Then each kernel is held to its
-    plain version on rank 0's captured inputs.  ``predicted`` (the dry run
-    of the training case, ``dryrun_sharded_train``) must name exactly the
+    plain version on rank 0's captured inputs.  ``predicted`` (the dry runs
+    of the training cases, ``dryrun_sharded_train``) must name exactly the
     collectives, by kind, counts and bytes sent, of each rank's first train
     step; its step peak is printed beside the card's.  Returns ({path:
     launch counts}, kernel rows)."""
@@ -5166,12 +5379,20 @@ def phase_sharded(dev, predicted=None):
                                  capacity_factor=olmoe.num_experts / olmoe.experts_per_token),
             "ssm": replace(get_config(SSM_ARCH), num_layers=size["ssm_layers"]),
             "ssm_full": get_config(SSM_ARCH),
-            "train": replace(olmoe, num_layers=size["train_layers"])}
+            "train": replace(olmoe, num_layers=size["train_layers"]),
+            "train_fsdp": replace(olmoe, num_layers=size["fsdp_layers"])}
+    span_cfgs = {"span_f32": replace(get_config(SPAN_ARCH), num_layers=size["span_layers"],
+                                     dtype="float32"),
+                 "span_bf16": replace(get_config(SPAN_ARCH), num_layers=size["span_layers"])}
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     outs = mesh.spawn(sharded_rank, SHARDED_RANKS, (dev.type, cfgs, size),
                       timeout_s=900.0, group_timeout_s=300.0)
     wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spans = mesh.spawn(span_rank, SPAN_RANKS, (dev.type, span_cfgs, size),
+                       timeout_s=600.0, group_timeout_s=300.0)
+    span_wall = time.perf_counter() - t0
     card = dev.type == "cuda"
     failures = []
     r0 = outs[0]
@@ -5297,53 +5518,114 @@ def phase_sharded(dev, predicted=None):
                 failures.append(f"rank {r} Mamba2 {part} launches {c}, "
                                 f"shapes {s['local_shapes']}")
     sm = [o["ssm_full"] for o in outs]
-    # training
-    tr = [o["train"] for o in outs]
-    steps = tr[0]["steps"]
-    ms = sorted(st["ms"] for st in steps[1:]) or [steps[0]["ms"]]
-    med = ms[len(ms) // 2]
-    emit({"phase": "sharded", "part": "train", "arch": cfgs["train"].name,
-          "layers": size["train_layers"], "dtype": cfgs["train"].dtype, "B": size["train_B"],
-          "S": size["train_S"], "steps": steps, "median_step_ms": med,
-          "tokens_per_s": size["train_B"] * size["train_S"] / (med / 1e3),
-          "peak_gb_per_rank": [t["peak_gb"] for t in tr],
-          "step_peak_gb_per_rank": [t["step_peak_gb"] for t in tr],
-          "collectives_by_kind_first_step": [t["steps"][0]["by_kind"] for t in tr],
-          "reckoned_gb_per_rank": [t["reckoned_gb"] for t in tr],
-          "params_per_rank": [t["params_per_rank"] for t in tr], "card": gpu_line()})
-    loss = [st["loss"] for st in steps]
-    if not all(torch.isfinite(torch.tensor(loss))) or not loss[-1] < loss[0]:
-        failures.append(f"training loss {loss}")
-    if predicted is not None:
-        want = {k: {"calls": v["count"], "bytes": v["sent_bytes"]}
-                for k, v in predicted["collectives"].items()}
-        got = [t["steps"][0]["by_kind"] for t in tr]
-        emit({"phase": "dryrun", "part": "sharded_train", "card": gpu_line(),
-              "predicted_collectives": want, "card_first_step_collectives": got,
-              "collectives_equal": all(g == want for g in got),
-              "predicted_step_peak_gb": predicted["memory"]["peak_size_in_bytes"] / 1e9,
-              "card_step_peak_gb_per_rank": [t["step_peak_gb"] for t in tr],
-              "card_peak_gb_per_rank_from_before_init": [t["peak_gb"] for t in tr]})
-        if any(g != want for g in got):
-            failures.append(f"dry run's train collectives {want} against the card's {got}")
-    emit({"phase": "sharded", "spawn_wall_s": wall,
+    # the decode over a span-split cache: (data 1, model 3), Qwen1.5-4B
+    span_cfg = span_cfgs["span_f32"]
+    span = size["span_max"] + size["span_decode"]
+    Ls, Ts = span_cfg.num_layers, size["span_decode"]
+    for part in ("span_f32", "span_bf16"):
+        sp = [o[part] for o in spans]
+        rec = {"phase": "sharded", "part": part, "arch": span_cfg.name,
+               "mesh": {"data": 1, "model": SPAN_RANKS}, "layers": Ls,
+               "dtype": span_cfgs[part].dtype, "prompts": size["span_prompts"],
+               "prompt_lens": [size["span_min"], size["span_max"]], "decode": Ts,
+               "span": span, "cache_spans": [x["spans"] for x in sp],
+               "cache_leaf_shapes_rank0": sp[0]["cache"], "local_shapes": sp[0]["local_shapes"],
+               "launches": [x["counts"] for x in sp], "single_s": sp[0]["single_s"],
+               "sharded_s": [x["sharded_s"] for x in sp],
+               "token_share_equal": float((sp[0]["tokens"] == sp[0]["single_tokens"])
+                                          .float().mean()),
+               "ranks_tokens_equal": all(torch.equal(x["tokens"], sp[0]["tokens"]) for x in sp),
+               "rel_err_max_per_step": [max(r) for r in sp[0]["step_rows"]]}
+        if part == "span_f32":
+            rec["tolerance"] = {"rel_per_row": TOL_SHARDED_F32}
+            steps_max = rec["rel_err_max_per_step"]
+            if (len(steps_max) != Ts or max(steps_max) >= TOL_SHARDED_F32
+                    or rec["token_share_equal"] != 1.0):
+                failures.append(f"f32 span-split decode: steps {steps_max}, token share "
+                                f"{rec['token_share_equal']}")
+        emit(rec)
+        if not rec["ranks_tokens_equal"]:
+            failures.append(f"{part}: the ranks' tokens differ")
+        n = span // SPAN_RANKS
+        for r, x in enumerate(sp):
+            c, shp = x["counts"], x["local_shapes"]
+            kv = [v for k_, v in x["cache"].items() if k_.endswith(("/k", "/v"))]
+            want = {"decode_attention": Ls * (Ts - 1), "decode_attention_lse": Ls * (Ts - 1)}
+            if part == "span_bf16":
+                want["decode_attention_split"] = Ls * (Ts - 1)
+            if (x["spans"] != [span] or any(t[1] != n or t[2] != span_cfg.num_kv_heads
+                                            for t in kv)
+                    or (card and (any(c.get(kk, 0) != v for kk, v in want.items())
+                                  or shp["decode_attention"][1][1] != n))):
+                failures.append(f"rank {r} {part}: spans {x['spans']}, cache {x['cache']}, "
+                                f"launches {c}, K3 shapes {shp}")
+    # training: (data 1, model 2), and the parameters as ZeRO-1 slices on
+    # (data 2, model 1)
+    tr_all = {part: [o[part] for o in outs] for part in ("train", "train_fsdp")}
+    for part, tr in tr_all.items():
+        steps = tr[0]["steps"]
+        ms = sorted(st["ms"] for st in steps[1:]) or [steps[0]["ms"]]
+        med = ms[len(ms) // 2]
+        emit({"phase": "sharded", "part": part, "arch": cfgs[part].name,
+              "mesh": ({"data": 1, "model": SHARDED_RANKS} if part == "train"
+                       else {"data": SHARDED_RANKS, "model": 1}),
+              "layers": cfgs[part].num_layers, "dtype": cfgs[part].dtype,
+              "B": size["train_B"], "S": size["train_S"], "steps": steps,
+              "median_step_ms": med,
+              "tokens_per_s": size["train_B"] * size["train_S"] / (med / 1e3),
+              "peak_gb_per_rank": [t["peak_gb"] for t in tr],
+              "step_peak_gb_per_rank": [t["step_peak_gb"] for t in tr],
+              "collectives_by_kind_first_step": [t["steps"][0]["by_kind"] for t in tr],
+              "reckoned_gb_per_rank": [t["reckoned_gb"] for t in tr],
+              "params_per_rank": [t["params_per_rank"] for t in tr],
+              "leaves": tr[0]["leaves"],
+              "leaves_split_over_data": [t["leaves_split_over_data"] for t in tr],
+              "leaves_held_as_their_share": [t["leaves_held_as_their_share"] for t in tr],
+              "card": gpu_line()})
+        loss = [st["loss"] for st in steps]
+        if not all(torch.isfinite(torch.tensor(loss))) or not loss[-1] < loss[0]:
+            failures.append(f"{part} loss {loss}")
+        if part == "train_fsdp" and not all(
+                0 < t["leaves_split_over_data"] == t["leaves_held_as_their_share"] for t in tr):
+            failures.append(f"train_fsdp: leaves split over data "
+                            f"{[t['leaves_split_over_data'] for t in tr]}, held as their "
+                            f"share {[t['leaves_held_as_their_share'] for t in tr]}")
+        pred = (predicted or {}).get(part)
+        if pred is not None:
+            want = {k: {"calls": v["count"], "bytes": v["sent_bytes"]}
+                    for k, v in pred["collectives"].items()}
+            got = [t["steps"][0]["by_kind"] for t in tr]
+            emit({"phase": "dryrun", "part": f"sharded_{part}", "card": gpu_line(),
+                  "predicted_collectives": want, "card_first_step_collectives": got,
+                  "collectives_equal": all(g == want for g in got),
+                  "predicted_step_peak_gb": pred["memory"]["peak_size_in_bytes"] / 1e9,
+                  "predicted_argument_gb": pred["memory"]["argument_size_in_bytes"] / 1e9,
+                  "card_step_peak_gb_per_rank": [t["step_peak_gb"] for t in tr],
+                  "card_peak_gb_per_rank_from_before_init": [t["peak_gb"] for t in tr]})
+            if any(g != want for g in got):
+                failures.append(f"dry run's {part} collectives {want} against the card's {got}")
+    emit({"phase": "sharded", "spawn_wall_s": wall, "span_spawn_wall_s": span_wall,
           "part_wall_s": {p: [o[p]["wall_s"] for o in outs]
                           for p in ("parity", "zero1", "serve", "serve_f32", "ssm",
-                                    "ssm_full", "train")},
-          "left_bytes": [o["left_bytes"] for o in outs]})
-    if card and any(v for o in outs for v in o["left_bytes"].values()):
-        failures.append(f"memory left after a part: {[o['left_bytes'] for o in outs]}")
+                                    "ssm_full", "train", "train_fsdp")},
+          "span_part_wall_s": {p: [o[p]["wall_s"] for o in spans]
+                               for p in ("span_f32", "span_bf16")},
+          "left_bytes": [o["left_bytes"] for o in outs + spans]})
+    if card and any(v for o in outs + spans for v in o["left_bytes"].values()):
+        failures.append(f"memory left after a part: {[o['left_bytes'] for o in outs + spans]}")
     if failures:
         raise AssertionError("sharded: " + "; ".join(failures))
     # rank 0's captured inputs, back on the card (they crossed as host copies)
     on_card = lambda v: v.to(dev) if torch.is_tensor(v) else v  # noqa: E731
     calls = {(where, n): ([on_card(a) for a in args], {k: on_card(v) for k, v in kw.items()})
-             for where, part in (("serve", sv[0]), ("ssm", sm[0]))
+             for where, part in (("serve", sv[0]), ("ssm", sm[0]),
+                                 ("span", spans[0]["span_bf16"]))
              for n, (args, kw) in part["calls"].items()}
     kernel_rows = check_path_kernels("sharded", calls)
     counts = dict(sv[0]["counts"])
-    for kk, v in sm[0]["counts"].items():
-        counts[kk] = counts.get(kk, 0) + v
+    for part in (sm[0], spans[0]["span_bf16"]):
+        for kk, v in part["counts"].items():
+            counts[kk] = counts.get(kk, 0) + v
     return counts, kernel_rows
 
 
@@ -5365,30 +5647,37 @@ ONE_RANK_NOTE = ("the plain versions' FLOPs: attention over the whole S x S scor
 
 
 def dryrun_sharded_train() -> dict:
-    """The dry run of the ``sharded`` phase's training case (full-width
-    OLMoE at ``SHARDED["train_layers"]`` layers, a (data 1, model
-    ``SHARDED_RANKS``) mesh with ``seq_shard``, ``train_B`` x ``train_S``,
-    remat full, ZeRO-1) on rank 0 of a fake group: what the card's ranks
-    will exchange and hold.  Printed; ``phase_sharded`` gates it."""
+    """The dry run of the ``sharded`` phase's training cases (full-width
+    OLMoE, ``train_B`` x ``train_S``, remat full, weights="fsdp"):
+    ``"train"`` at ``train_layers`` on a (data 1, model ``SHARDED_RANKS``)
+    mesh with ``seq_shard``, ``"train_fsdp"`` at ``fsdp_layers`` on (data
+    ``SHARDED_RANKS``, model 1), its parameters split over data; rank 0 of
+    a fake group each: what the card's ranks will exchange and hold.
+    Printed; ``phase_sharded`` gates them."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun
 
     size = SHARDED
-    cfg = replace(get_config("olmoe-1b-7b"), num_layers=size["train_layers"])
     shape = ShapeSpec("sharded_train", "train", size["train_S"], size["train_B"])
-    t0 = time.perf_counter()
-    r = dryrun.run_case(cfg.name, shape.name, False, save=False, cfg=cfg, shape=shape,
-                        mesh_dims=((1, SHARDED_RANKS), ("data", "model")), trace=False)
-    if r["status"] != "ok":
-        raise AssertionError(f"dryrun: the sharded training case failed: {r.get('traceback')}")
-    emit({"phase": "dryrun", "part": "sharded_train_predicted", "arch": cfg.name,
-          "layers": cfg.num_layers, "B": size["train_B"], "S": size["train_S"],
-          "mesh": r["mesh_dims"], "collectives": r["collectives"],
-          "collective_bytes": r["collective_bytes"], "memory": r["memory"],
-          "dot_flops": r["dot_flops_per_device"], "trace_s": r["trace_s"],
-          "wall_s": time.perf_counter() - t0})
-    return r
+    out = {}
+    for part, dims, layers in (("train", (1, SHARDED_RANKS), size["train_layers"]),
+                               ("train_fsdp", (SHARDED_RANKS, 1), size["fsdp_layers"])):
+        cfg = replace(get_config("olmoe-1b-7b"), num_layers=layers)
+        t0 = time.perf_counter()
+        r = dryrun.run_case(cfg.name, shape.name, False, save=False, cfg=cfg, shape=shape,
+                            mesh_dims=(dims, ("data", "model")), trace=False)
+        if r["status"] != "ok":
+            raise AssertionError(f"dryrun: the sharded {part} case failed: "
+                                 f"{r.get('traceback')}")
+        emit({"phase": "dryrun", "part": f"sharded_{part}_predicted", "arch": cfg.name,
+              "layers": cfg.num_layers, "B": size["train_B"], "S": size["train_S"],
+              "mesh": r["mesh_dims"], "collectives": r["collectives"],
+              "collective_bytes": r["collective_bytes"], "memory": r["memory"],
+              "dot_flops": r["dot_flops_per_device"], "trace_s": r["trace_s"],
+              "wall_s": time.perf_counter() - t0})
+        out[part] = r
+    return out
 
 
 def dryrun_production() -> None:
@@ -5424,6 +5713,57 @@ def dryrun_production() -> None:
                     else row.peak_bytes / 1e9} for row in rows]})
     if failures:
         raise AssertionError("dryrun: " + "; ".join(failures))
+
+
+def _dryrun_production_child(conn) -> None:
+    """``dryrun_production`` in a process of its own (the host CPU only:
+    fake tensors over a fake group), its printed lines and, if it failed,
+    its traceback sent back through ``conn``."""
+    import io
+    import traceback
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    out, err = io.StringIO(), None
+    try:
+        with contextlib.redirect_stdout(out):
+            dryrun_production()
+    except Exception:  # noqa: BLE001 -- sent to the parent, which fails the phase
+        err = traceback.format_exc()
+    conn.send((out.getvalue(), err))
+    conn.close()
+
+
+def start_dryrun_production():
+    """Start ``dryrun_production`` beside the card phases that follow: it
+    needs no card, and ~40 s of the host CPU.  A daemon process, so it ends
+    with the script whatever happens."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_dryrun_production_child, args=(send,), daemon=True)
+    proc.start()
+    send.close()
+    return proc, recv
+
+
+def finish_dryrun_production(handle, timeout_s: float = 900.0) -> None:
+    """Wait for ``start_dryrun_production``'s process, print its lines and
+    fail as it failed."""
+    proc, recv = handle
+    try:
+        if not recv.poll(timeout_s):
+            raise AssertionError(f"dryrun: the production dry run sent nothing in {timeout_s} s")
+        text, err = recv.recv()
+    finally:
+        proc.join(60)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
+    sys.stdout.write(text)
+    sys.stdout.flush()
+    if err is not None:
+        raise AssertionError(f"dryrun: the production dry run failed:\n{err}")
 
 
 def one_rank_reading(dev, params) -> None:
@@ -5535,6 +5875,14 @@ def kernels_line(rows, launches, path_rows=None) -> list:
             "design": r["design"],
             "prev_ms": r.get("prev_ms"), "ms_again": r.get("ms_again"),
         })
+        lse_rows = [x for x in rows if x["name"] == r["name"] and x.get("lse")]
+        if lse_rows:                           # K3 writing its log-sum-exp
+            line_rows[-1]["lse_cases"] = [
+                {k: x.get(k) for k in ("case", "dtype", "design", "ms", "ms_again",
+                                       "ms_without_lse", "ms_without_lse_again", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms", "max_abs_err",
+                                       "lse_max_abs_err", "out_bit_identical_without_lse")}
+                for x in lse_rows]
         if "k3_ms" in r:                       # K3p: K3 on the gathered copy
             line_rows[-1].update({"k3_ms": r["k3_ms"], "library": r["library"]})
         offsets = [x for x in rows if x["name"] == r["name"] and "q_offset" in x]
@@ -5593,6 +5941,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    walls, t_lap = {}, [t_start]
+
+    def lap(phase: str) -> None:
+        """The wall seconds since the previous lap, under ``phase``."""
+        now = time.perf_counter()
+        walls[phase] = walls.get(phase, 0.0) + now - t_lap[0]
+        t_lap[0] = now
+
     name, line = torch.cuda.get_device_name(0), gpu_line()
     emit({"phase": "device", "name": name, "nvidia_smi": line,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -5601,6 +5957,7 @@ def main() -> int:
           "ptxas": {n: ptxas_summary(build.ptxas_log(n)) for n in build.SOURCES}})
     rows = []
     prime(dev)
+    lap("build")
     if "kernels" in phases:
         _, plan, lens, decode_len = serve_setup(short_lengths(), 32)
         long_plan = serve_setup(long_lengths(), LONG_DECODE)[1]
@@ -5609,68 +5966,87 @@ def main() -> int:
                              prompt_len=max(lens), long_b_a=long_plan.b_a,
                              ssm_b_a=ssm_plan.b_a)
         emit({"kernel_cases": rows})
+        lap("kernels")
     launches = {}                           # per path: counts from its static run
     path_rows = {}                          # per streamed path: its kernel rows
     if phases & {"serve", "serve_long", "serve_streamed", "serve_omega", "serve_paged",
                   "serve_prefix", "serve_faults", "serve_replicas", "serve_ep", "oracles",
                   "dryrun"}:
         params = init_weights(dev)
+        lap("weights")
         resident = long_reports = None
         if "serve" in phases:
             resident = phase_serve(dev, params, profile="profile" in phases)
             launches["serve"] = resident[0]["static"]
+            lap("serve")
         if "serve_omega" in phases:
             launches["serve_omega"], _ = phase_serve_omega(dev, params, resident)
+            lap("serve_omega")
         if "serve_long" in phases:
             launches["serve_long"], long_reports = phase_serve_long(
                 dev, params, profile="profile" in phases)
+            lap("serve_long")
         if "serve_paged" in phases:
             launches["serve_paged"], path_rows["serve_paged"] = phase_serve_paged(
                 dev, params, long_reports)
+            lap("serve_paged")
         if "serve_prefix" in phases:
             launches["serve_prefix"] = phase_serve_prefix(dev, params,
                                                           profile="profile" in phases)
+            lap("serve_prefix")
         if "serve_streamed" in phases:
             launches["serve_streamed"], path_rows["serve_streamed"] = phase_serve_streamed(
                 dev, params, resident)
+            lap("serve_streamed")
         if "serve_faults" in phases:
             for run, counts in phase_serve_faults(dev, params, resident,
                                                   long_reports).items():
                 launches[f"serve_faults_{run}"] = counts
+            lap("serve_faults")
         if "serve_replicas" in phases:
             launches["serve_replicas"] = phase_serve_replicas(dev, params)
+            lap("serve_replicas")
         if "serve_ep" in phases:
             oracle = (None if resident is None else
                       [r.tokens for r in resident[1]["static"].request_results])
             launches["serve_ep"], path_rows["serve_ep"] = phase_serve_ep(dev, params, oracle)
+            lap("serve_ep")
         if "oracles" in phases:
             launches.update(phase_oracles(dev, params))
+            lap("oracles")
         if "dryrun" in phases:
             one_rank_reading(dev, params)
+            lap("dryrun_one_rank")
         del params, resident, long_reports
         torch.cuda.empty_cache()
     if "train" in phases:
         phase_train(dev)
         torch.cuda.empty_cache()
+        lap("train")
     predicted = dryrun_sharded_train() if "dryrun" in phases else None
+    lap("dryrun_sharded_train")
+    # the production dry run needs only the host CPU: it runs beside the
+    # sharded phase (whose ranks wait on host-staged collectives) and later
+    production = start_dryrun_production() if "dryrun" in phases else None
     if "sharded" in phases:
         launches["sharded"], path_rows["sharded"] = phase_sharded(dev, predicted)
         torch.cuda.empty_cache()
+        lap("sharded")
     if "serve_ssm" in phases:
         launches["serve_ssm"], _ = phase_serve_ssm(dev, profile="profile" in phases)
+        lap("serve_ssm")
     if "serve_mixtral" in phases:
         launches["serve_mixtral"], path_rows["serve_mixtral"] = phase_serve_mixtral(dev)
+        lap("serve_mixtral")
     if "parity" in phases:
         phase_parity(dev)
-    walls = {}
-    if "dryrun" in phases:
-        t0 = time.perf_counter()
-        dryrun_production()
-        walls["dryrun_production"] = time.perf_counter() - t0
+        lap("parity")
+    if production is not None:
+        finish_dryrun_production(production)
+        lap("dryrun_production")            # the wait for it, past the phases above
     if "examples" in phases:
-        t0 = time.perf_counter()
         phase_examples(dev)
-        walls["examples"] = time.perf_counter() - t0
+        lap("examples")
     line_rows = kernels_line(rows, launches, path_rows)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start, "phase_s": walls})
     if line_rows:

@@ -17,7 +17,14 @@ Megatron's conjugate pairs:
 * ``gather_model(partial=False)`` -- all-gather into a tensor every rank
   uses whole: the backward keeps this rank's share; ``split_model`` (keep a
   share, all-gather backward) is its reverse;
-* ``all_to_all_model`` -- the a2a MoE exchange, its own transpose.
+* ``all_to_all_model`` -- the a2a MoE exchange, its own transpose;
+* ``gather_batch`` -- a parameter's ZeRO-1 slice over the batch axes
+  gathered whole for use: all-gather forward, reduce-scatter (sum)
+  backward, so its gradient arrives summed over the batch axes as the
+  slice.
+
+``merge_lse`` merges per-rank attention partials over the model axis by
+their log-sum-exp (the decode over a cache whose span splits over it).
 
 ``enter``/``leave``/``rows_weight`` pick among them by the residual's
 layout (``ShardCtx.residual_split``).  Every collective is a no-op on an
@@ -301,6 +308,13 @@ def split_model(ctx, x: torch.Tensor, dim: int) -> torch.Tensor:
     return x if g is None else _Split.apply(x, g, dim)
 
 
+def gather_batch(ctx, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """A parameter's slice over the batch axes (``dim``) gathered whole:
+    all-gather forward, reduce-scatter (sum) backward."""
+    g = ctx.batch_group
+    return x if g is None else _Gather.apply(x.contiguous(), g, dim, True)
+
+
 def all_to_all_model(ctx, x: torch.Tensor) -> torch.Tensor:
     """The a2a exchange over the model axis (row j to rank j)."""
     g = ctx.model_group
@@ -326,14 +340,44 @@ def all_reduce_value(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def all_gather_batch(ctx, x: torch.Tensor, dim: int) -> torch.Tensor:
-    """All-gather over the batch axes, no gradient (ZeRO-1's updated
-    slices)."""
+    """All-gather over the batch axes, no gradient (a checkpoint's
+    parameter slices)."""
     return _all_gather(x.detach(), ctx.batch_group, dim)
 
 
-def batch_share(ctx, x: torch.Tensor, dim: int) -> torch.Tensor:
-    """This rank's share of ``x`` over the batch axes along ``dim``."""
-    return _share(x, ctx.batch_group, dim)
+@register_collective("mesh.merge_lse")
+def merge_lse(ctx, o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Every model rank's attention partial ``o`` (B, H, hd), normalised
+    over its own slots, and their log-sum-exp ``lse`` (B, H) f32 (-inf for
+    a row with no valid slot there) merged into the attention over all
+    slots: one all-gather of both, then in f32 and in rank order
+    ``sum_r w_r o_r / sum_r w_r`` with ``w_r = exp(lse_r - max_r lse_r)``;
+    a rank whose row has no valid slot weighs 0, and a row with none on
+    any rank is zeros.  No gradient."""
+    g = ctx.model_group
+    if g is None:
+        return o
+    B, H, hd = o.shape
+    both = torch.cat([o.detach().float().reshape(B, H * hd), lse.detach().float()], dim=1)
+    parts = _all_gather(both[None], g, 0)                         # (m, B, H hd + H)
+    return lse_merge(parts[:, :, :H * hd].reshape(-1, B, H, hd),
+                     parts[:, :, H * hd:]).to(o.dtype)
+
+
+def lse_merge(os_: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """``merge_lse``'s arithmetic on partials already side by side: ``os_``
+    (m, B, H, hd) and ``lses`` (m, B, H) -> (B, H, hd) f32, summed in f32 in
+    order of the first dim."""
+    top = lses.float().amax(dim=0)
+    top = torch.where(torch.isinf(top), torch.zeros_like(top), top)
+    w = torch.exp(lses.float() - top)                             # exp(-inf) = 0
+    num = torch.zeros(os_.shape[1:], dtype=torch.float32, device=os_.device)
+    den = torch.zeros(lses.shape[1:], dtype=torch.float32, device=os_.device)
+    for r in range(os_.shape[0]):
+        num = num + w[r][..., None] * os_[r].float()
+        den = den + w[r]
+    return torch.where(den[..., None] > 0, num / torch.clamp(den, min=1e-30)[..., None],
+                       torch.zeros_like(num))
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,8 @@ LAUNCHES: Dict[str, int] = {"expert_gate_up": 0, "expert_gate_up_wgmma": 0,
                             "grouped_matmul_wgmma": 0, "grouped_matmul_prev": 0,
                             "decode_attention": 0, "decode_attention_split": 0,
                             "decode_attention_prev": 0, "decode_attention_paged": 0,
-                            "decode_attention_paged_split": 0, "flash_attention": 0,
+                            "decode_attention_paged_split": 0, "decode_attention_lse": 0,
+                            "flash_attention": 0,
                             "flash_attention_wgmma": 0, "flash_attention_prev": 0,
                             "ssd_scan": 0, "ssd_scan_mma": 0, "ssd_scan_prev": 0}
 
@@ -47,8 +48,8 @@ _ARGTYPES = {
     "repro_expert_gate_up_wgmma": [_ptr, _ptr, _ptr, _ptr, _ptr] + [_c_int] * 4 + [_ptr],
     "repro_grouped_matmul": [_ptr, _ptr, _ptr, _ptr] + [_c_int] * 5 + [_ptr],
     "repro_grouped_matmul_wgmma": [_ptr, _ptr, _ptr, _ptr] + [_c_int] * 4 + [_ptr],
-    "repro_decode_attention": [_ptr] * 5 + [_c_int] * 6 + [_ptr],
-    "repro_decode_attention_split": [_ptr] * 7 + [_c_int] * 6 + [_ptr],
+    "repro_decode_attention": [_ptr] * 6 + [_c_int] * 6 + [_ptr],
+    "repro_decode_attention_split": [_ptr] * 8 + [_c_int] * 6 + [_ptr],
     "repro_decode_attention_paged": [_ptr] * 8 + [_c_int] * 9 + [_ptr],
     "repro_decode_attention_paged_split": [_ptr] * 10 + [_c_int] * 9 + [_ptr],
     "repro_flash_attention": [_ptr] * 5 + [_c_int] * 8 + [_ptr],

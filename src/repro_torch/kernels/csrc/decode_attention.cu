@@ -64,6 +64,16 @@
 // the order of every sum -- is K3's, so K3p's output is bit-identical to
 // K3's on the gathered contiguous copy of the same slots.
 //
+// The log-sum-exp (both designs, K3 only; K3p passes null): with a non-null
+// `lse` (B, H) f32, each row's natural log of the sum of exp(score * scale)
+// over its valid slots is written beside the output, -inf for a row with no
+// valid slot.  The split design keeps its max and sum in base 2, so it
+// writes (M + log2 L) ln 2 where it normalises (the one split of a short row,
+// or the merging block).  It is one more store: the output's arithmetic is
+// the same, so `out` is bit-identical with and without it.  The
+// model-sharding path merges ranks' partials over a cache split by span
+// with it.
+//
 // Numerics: the first design keeps the probabilities in f32 through the PV
 // product.  The JAX attn_decode (models/attention.py) casts them to the
 // cache dtype first, so the two agree exactly in f32 and differ by bf16
@@ -192,7 +202,7 @@ struct PagedKV {                           // a page table over two frame sets
 template <typename T, int G, int EPL, class KV>
 __global__ void __launch_bounds__(NW * 32)
 decode_attn_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__ pos,
-                   T* __restrict__ out, int S, int K, float scale) {
+                   T* __restrict__ out, float* __restrict__ lse, int S, int K, float scale) {
   constexpr int HD = EPL * 32;
   __shared__ float sm_m[NW][G];
   __shared__ float sm_l[NW][G];
@@ -280,33 +290,35 @@ decode_attn_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__
     }
     float y = M == -INFINITY ? 0.0f : A / fmaxf(L, 1e-30f);
     Vec<T, 1>::store(out + ((size_t)b * H + kh * G + g) * HD + d, &y);
+    if (lse != nullptr && d == 0)
+      lse[(size_t)b * H + kh * G + g] = M == -INFINITY ? -INFINITY : M + logf(L);
   }
 }
 
 template <typename T, int G, class KV>
-int dispatch_hd(const void* q, const KV& kv, const int* pos, void* out, int B, int K, int S,
-                int hd, cudaStream_t stream) {
+int dispatch_hd(const void* q, const KV& kv, const int* pos, void* out, float* lse, int B,
+                int K, int S, int hd, cudaStream_t stream) {
   dim3 grid(K, B);
   const float scale = 1.0f / sqrtf((float)hd);
   const T* qt = static_cast<const T*>(q);
   T* ot = static_cast<T*>(out);
   switch (hd) {
-    case 32: decode_attn_kernel<T, G, 1, KV><<<grid, NW * 32, 0, stream>>>(qt, kv, pos, ot, S, K, scale); break;
-    case 64: decode_attn_kernel<T, G, 2, KV><<<grid, NW * 32, 0, stream>>>(qt, kv, pos, ot, S, K, scale); break;
-    case 128: decode_attn_kernel<T, G, 4, KV><<<grid, NW * 32, 0, stream>>>(qt, kv, pos, ot, S, K, scale); break;
+    case 32: decode_attn_kernel<T, G, 1, KV><<<grid, NW * 32, 0, stream>>>(qt, kv, pos, ot, lse, S, K, scale); break;
+    case 64: decode_attn_kernel<T, G, 2, KV><<<grid, NW * 32, 0, stream>>>(qt, kv, pos, ot, lse, S, K, scale); break;
+    case 128: decode_attn_kernel<T, G, 4, KV><<<grid, NW * 32, 0, stream>>>(qt, kv, pos, ot, lse, S, K, scale); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
 template <typename T, class KV>
-int dispatch_g(const void* q, const KV& kv, const int* pos, void* out, int B, int G, int K,
-               int S, int hd, cudaStream_t stream) {
+int dispatch_g(const void* q, const KV& kv, const int* pos, void* out, float* lse, int B, int G,
+               int K, int S, int hd, cudaStream_t stream) {
   switch (G) {
-    case 1: return dispatch_hd<T, 1>(q, kv, pos, out, B, K, S, hd, stream);
-    case 2: return dispatch_hd<T, 2>(q, kv, pos, out, B, K, S, hd, stream);
-    case 4: return dispatch_hd<T, 4>(q, kv, pos, out, B, K, S, hd, stream);
-    case 8: return dispatch_hd<T, 8>(q, kv, pos, out, B, K, S, hd, stream);
+    case 1: return dispatch_hd<T, 1>(q, kv, pos, out, lse, B, K, S, hd, stream);
+    case 2: return dispatch_hd<T, 2>(q, kv, pos, out, lse, B, K, S, hd, stream);
+    case 4: return dispatch_hd<T, 4>(q, kv, pos, out, lse, B, K, S, hd, stream);
+    case 8: return dispatch_hd<T, 8>(q, kv, pos, out, lse, B, K, S, hd, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -317,6 +329,7 @@ constexpr int KV_STAGES = 3;              // depth of the cp.async ring
 constexpr int SPLIT_WARPS = 4;
 constexpr int SPLIT_THREADS = SPLIT_WARPS * 32;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
 struct SplitSmem {
@@ -404,7 +417,7 @@ __device__ __forceinline__ void stage_tile(bf16* ks, bf16* vs, const KV& kv, int
 template <int G, int HD, class KV>
 __global__ void __launch_bounds__(SPLIT_THREADS)
 decode_split_kernel(const bf16* __restrict__ q, const KV kv, const int* __restrict__ pos,
-                    bf16* __restrict__ out, float* __restrict__ acc_part,
+                    bf16* __restrict__ out, float* __restrict__ lse, float* __restrict__ acc_part,
                     float2* __restrict__ ml_part, int* __restrict__ tickets, int S, int K,
                     int split_len, float scale_log2) {
   static_assert(HD == 64 || HD == 128, "the split design is built for hd 64 and 128");
@@ -428,8 +441,10 @@ decode_split_kernel(const bf16* __restrict__ q, const KV kv, const int* __restri
   const int s0 = split * split_len;
   const size_t head0 = (size_t)b * H + kh * G;  // this block's first (row, head)
   if (s0 >= n) {                                // nothing of this split is valid
-    if (n == 0 && split == 0)
+    if (n == 0 && split == 0) {
       for (int i = tid; i < G * HD; i += SPLIT_THREADS) out[head0 * HD + i] = __float2bfloat16(0.0f);
+      if (lse != nullptr && tid < G) lse[head0 + tid] = -INFINITY;
+    }
     return;
   }
   const int nv = (n + split_len - 1) / split_len;
@@ -556,6 +571,7 @@ decode_split_kernel(const bf16* __restrict__ q, const KV kv, const int* __restri
       for (int i = 0; i < OT; ++i)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
             __floats2bfloat162_rn(o[i][0] / l, o[i][1] / l);
+      if (lse != nullptr && warp == 0 && t4 == 0) lse[head0 + g] = (m + log2f(l)) * LN2;
     }
     return;
   }
@@ -596,6 +612,7 @@ decode_split_kernel(const bf16* __restrict__ q, const KV kv, const int* __restri
       L += sl[tid * nv + sp] * f;
     }
     sL[tid] = L;
+    if (lse != nullptr) lse[head0 + tid] = (M + log2f(L)) * LN2;
   }
   __syncthreads();
   for (int idx = tid; idx < G * HD; idx += SPLIT_THREADS) {
@@ -610,8 +627,9 @@ decode_split_kernel(const bf16* __restrict__ q, const KV kv, const int* __restri
 }
 
 template <int G, int HD, class KV>
-int launch_split(const void* q, const KV& kv, const int* pos, void* out, float* part,
-                 int* tickets, int B, int K, int S, int split_len, cudaStream_t stream) {
+int launch_split(const void* q, const KV& kv, const int* pos, void* out, float* lse,
+                 float* part, int* tickets, int B, int K, int S, int split_len,
+                 cudaStream_t stream) {
   const int nsplit = (S + split_len - 1) / split_len;
   const int H = K * G;
   // the ring, or the merge's 2 G nsplit + G floats where that is more
@@ -627,22 +645,22 @@ int launch_split(const void* q, const KV& kv, const int* pos, void* out, float* 
   float2* ml = reinterpret_cast<float2*>(part + (size_t)B * H * nsplit * HD);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)HD);
   decode_split_kernel<G, HD, KV><<<dim3(nsplit, K, B), SPLIT_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), kv, pos, static_cast<bf16*>(out), part, ml, tickets, S, K,
-      split_len, scale_log2);
+      static_cast<const bf16*>(q), kv, pos, static_cast<bf16*>(out), lse, part, ml, tickets, S,
+      K, split_len, scale_log2);
   return (int)cudaGetLastError();
 }
 
 template <class KV>
-int split_dispatch(const void* q, const KV& kv, const int* pos, void* out, float* part,
-                   int* tickets, int B, int H, int K, int S, int hd, int split_len,
+int split_dispatch(const void* q, const KV& kv, const int* pos, void* out, float* lse,
+                   float* part, int* tickets, int B, int H, int K, int S, int hd, int split_len,
                    cudaStream_t s) {
   if (B <= 0 || K <= 0 || S <= 0 || H % K != 0 || split_len <= 0 || split_len % TILE)
     return (int)cudaErrorInvalidValue;
   const int G = H / K;
 #define REPRO_SPLIT_HD(GG)                                                                   \
   switch (hd) {                                                                             \
-    case 64: return launch_split<GG, 64>(q, kv, pos, out, part, tickets, B, K, S, split_len, s); \
-    case 128: return launch_split<GG, 128>(q, kv, pos, out, part, tickets, B, K, S, split_len, s); \
+    case 64: return launch_split<GG, 64>(q, kv, pos, out, lse, part, tickets, B, K, S, split_len, s); \
+    case 128: return launch_split<GG, 128>(q, kv, pos, out, lse, part, tickets, B, K, S, split_len, s); \
     default: return (int)cudaErrorInvalidValue;                                              \
   }
   switch (G) {
@@ -674,26 +692,29 @@ extern "C" {
 
 // out (B, H, hd) = softmax(q k^T * hd**-0.5 over slots <= pos[b]) v; the
 // first design.  Supported: H / K in {1, 2, 4, 8}, hd in {32, 64, 128}.
+// lse (B, H) f32 or null: each row's log-sum-exp of its scaled scores.
 int repro_decode_attention(const void* q, const void* k, const void* v, const int* pos,
-                           void* out, int B, int H, int K, int S, int hd, int is_bf16,
-                           void* stream) {
+                           void* out, float* lse, int B, int H, int K, int S, int hd,
+                           int is_bf16, void* stream) {
   if (B <= 0 || K <= 0 || S <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = H / K;
-  return is_bf16 ? dispatch_g<bf16>(q, contig<bf16>(k, v, S, K, hd), pos, out, B, G, K, S, hd, s)
-                 : dispatch_g<float>(q, contig<float>(k, v, S, K, hd), pos, out, B, G, K, S, hd, s);
+  return is_bf16
+             ? dispatch_g<bf16>(q, contig<bf16>(k, v, S, K, hd), pos, out, lse, B, G, K, S, hd, s)
+             : dispatch_g<float>(q, contig<float>(k, v, S, K, hd), pos, out, lse, B, G, K, S, hd,
+                                 s);
 }
 
 // The bf16 split-KV design: the same function for hd in {64, 128}.  `part`
 // is f32 scratch of B * H * ceil(S / split_len) * (hd + 2) floats (the
 // partials); `tickets` is B * K int32, zero before the launch and zero again
 // after it (the kernel resets what it uses); split_len is a multiple of the
-// 32-slot tile.
+// 32-slot tile; lse as in repro_decode_attention.
 int repro_decode_attention_split(const void* q, const void* k, const void* v, const int* pos,
-                                 void* out, float* part, int* tickets, int B, int H, int K,
-                                 int S, int hd, int split_len, void* stream) {
-  return split_dispatch(q, contig<bf16>(k, v, S, K, hd), pos, out, part, tickets, B, H, K, S,
-                        hd, split_len, static_cast<cudaStream_t>(stream));
+                                 void* out, float* lse, float* part, int* tickets, int B, int H,
+                                 int K, int S, int hd, int split_len, void* stream) {
+  return split_dispatch(q, contig<bf16>(k, v, S, K, hd), pos, out, lse, part, tickets, B, H, K,
+                        S, hd, split_len, static_cast<cudaStream_t>(stream));
 }
 
 // K3p, the first design: the n rows' slots through a page table.  pk/pv
@@ -710,9 +731,9 @@ int repro_decode_attention_paged(const void* q, const void* pk, const void* pv, 
   const int G = H / K;
   return is_bf16
              ? dispatch_g<bf16>(q, paged<bf16>(pk, pv, ek, ev, frames, pages, pt, p1, K, hd),
-                                pos, out, n, G, K, span, hd, s)
+                                pos, out, nullptr, n, G, K, span, hd, s)
              : dispatch_g<float>(q, paged<float>(pk, pv, ek, ev, frames, pages, pt, p1, K, hd),
-                                 pos, out, n, G, K, span, hd, s);
+                                 pos, out, nullptr, n, G, K, span, hd, s);
 }
 
 // K3p, the split design (bf16, hd 64/128): as repro_decode_attention_split
@@ -724,7 +745,7 @@ int repro_decode_attention_paged_split(const void* q, const void* pk, const void
                                        int p1, int split_len, void* stream) {
   if (pt <= 0 || pages * pt < span) return (int)cudaErrorInvalidValue;
   return split_dispatch(q, paged<bf16>(pk, pv, ek, ev, frames, pages, pt, p1, K, hd), pos, out,
-                        part, tickets, n, H, K, span, hd, split_len,
+                        nullptr, part, tickets, n, H, K, span, hd, split_len,
                         static_cast<cudaStream_t>(stream));
 }
 

@@ -2,8 +2,10 @@
 
 One query per sequence against its (S, K, hd) cache row, masked per row to
 slots ``<= pos[b]``.  On a CUDA tensor the wrapper launches the kernel (or
-raises); on a CPU tensor it runs ``kernels.ref.decode_attention_ref``.  Two
-designs, chosen by dtype and head width alone (``decode_attention_design``):
+raises); on a CPU tensor it runs ``kernels.ref.decode_attention_ref``.  With an
+``lse`` buffer it also writes each row's log-sum-exp (the model-sharding
+path's decode over a cache split by span merges ranks' partials with it).
+Two designs, chosen by dtype and head width alone (``decode_attention_design``):
 ``split`` (bf16 at hd 64 and 128, every served shape: split-KV over
 ``SPLIT_SLOTS``-slot splits fixed by slot index, mma.sync tiles, the last
 split of a row to finish merging the row's partials) and ``simt`` (f32 and
@@ -90,13 +92,26 @@ def _check_shapes(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) 
         raise ValueError(f"{name}: shapes {q.shape} {k.shape} {v.shape}")
 
 
+def _check_lse(q: torch.Tensor, lse: Optional[torch.Tensor]) -> None:
+    if lse is not None and (lse.shape != q.shape[:2] or lse.dtype != torch.float32
+                            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"decode_attention: lse must be a contiguous f32 {tuple(q.shape[:2])} "
+                         f"tensor on {q.device}, got {lse.dtype} {tuple(lse.shape)} "
+                         f"on {lse.device}")
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos) -> torch.Tensor:
-    """q (B, H, hd), k/v (B, S, K, hd), pos int or (B,) int -> (B, H, hd)."""
+                     pos, lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B, H, hd), k/v (B, S, K, hd), pos int or (B,) int -> (B, H, hd).
+    ``lse`` (B, H) f32, when given, is written with each row's log-sum-exp
+    of its scaled scores over its valid slots (-inf for a row with none),
+    which is what merging attention over slot ranges takes
+    (``collectives.merge_lse``); the output is the same bits either way."""
     _check_shapes("decode_attention", q, k, v)
+    _check_lse(q, lse)
     refuse_autograd("decode_attention", q, k, v)
     if _is_cpu(q):
-        return ref.decode_attention_ref(q, k, v, pos)
+        return ref.decode_attention_ref(q, k, v, pos, lse)
     posv = _prepare("decode_attention", q, k, v, pos)
     B, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
@@ -109,19 +124,21 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 torch.empty(B * H * nsplit * (hd + 2), dtype=torch.float32, device=q.device))
         err = lib.repro_decode_attention_split(
             build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(posv), build.ptr(out),
-            build.ptr(part), build.ptr(reserve_tickets(B * K, q.device)), B, H, K, S, hd,
-            SPLIT_SLOTS, build.stream_of(q),
+            build.ptr(lse), build.ptr(part), build.ptr(reserve_tickets(B * K, q.device)),
+            B, H, K, S, hd, SPLIT_SLOTS, build.stream_of(q),
         )
         build.check(err, "decode_attention")
         build.LAUNCHES["decode_attention_split"] += 1
     else:
         err = lib.repro_decode_attention(
             build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(posv),
-            build.ptr(out), B, H, K, S, hd, int(q.dtype == torch.bfloat16),
+            build.ptr(out), build.ptr(lse), B, H, K, S, hd, int(q.dtype == torch.bfloat16),
             build.stream_of(q),
         )
         build.check(err, "decode_attention")
     build.LAUNCHES["decode_attention"] += 1
+    if lse is not None:
+        build.LAUNCHES["decode_attention_lse"] += 1
     return out
 
 
@@ -138,7 +155,7 @@ def decode_attention_prev(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S, K = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     err = build.library("decode_attention").repro_decode_attention(
-        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(posv), build.ptr(out),
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(posv), build.ptr(out), None,
         B, H, K, S, hd, int(q.dtype == torch.bfloat16), build.stream_of(q),
     )
     build.check(err, "decode_attention_prev")

@@ -49,7 +49,11 @@ def decode_attention_ref(
     k: torch.Tensor,       # (B, S, K, D)
     v: torch.Tensor,       # (B, S, K, D)
     pos,                   # int or (B,) int: row b attends slots <= pos[b]
+    lse: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
+    """``lse`` (B, H) f32, when given, is written with each row's
+    log-sum-exp of its scaled scores over its valid slots (-inf for a row
+    with none)."""
     B, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
     G = H // K
@@ -57,6 +61,9 @@ def decode_attention_ref(
     s = torch.einsum("bkgd,bskd->bkgs", qf, k.float()) * (D ** -0.5)
     posv = torch.as_tensor(pos, device=q.device).reshape(-1, 1)  # (B|1, 1)
     valid = torch.arange(S, device=q.device)[None, :] <= posv    # (B|1, S)
+    if lse is not None:
+        live = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+        lse.copy_(torch.logsumexp(live, dim=-1).reshape(B, H))
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v.float())

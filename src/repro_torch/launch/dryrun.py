@@ -16,9 +16,15 @@ ONE rank (rank 0) of the production mesh in this process:
   forced host devices, not a fallback: the kernel ops take their plain
   versions (``kernels/ref.py``) because the tensors are CPU tensors;
 * the rank's own step, as the port runs it: ``make_train_step(remat=True)``
-  with ZeRO-1 AdamW (``weights="fsdp"``; ``"tp"`` keeps the optimizer
-  state whole), ``models.model.prefill`` or one ``decode_step`` against a
-  cache of ``seq_len``, under ``trace_analysis.Recorder``.
+  with AdamW, ``models.model.prefill`` or one ``decode_step`` against a
+  cache of ``seq_len`` (the rank's share, ``specs.cache_placement``), under
+  ``trace_analysis.Recorder``.  ``weights="fsdp"`` places the parameters
+  as the reference's ``param_shardings(zero1=True)`` does (each leaf also
+  split over the batch axes, gathered where a layer starts; the optimizer
+  state likewise), ``"tp"`` over the model axis only.  Building them is
+  counted apart (``build_peak_size_in_bytes``): each weight is drawn whole
+  and cut to the rank's share at once, and the cache is allocated at the
+  share's shape.
 
 What the counts mean: the FLOPs are the plain versions' (attention over
 the full S x S scores, as in the reference's XLA math; the router's
@@ -53,6 +59,7 @@ from repro_torch.configs import SHAPES, get_config, list_archs
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.launch import trace_analysis
 from repro_torch.launch.mesh import fake_group, make_ctx, make_mesh, make_production_mesh
+from repro_torch.sharding.specs import leaf_shapes
 
 REPORT_DIR = os.path.join(os.path.dirname(__file__), "../../../reports/dryrun_torch")
 
@@ -98,13 +105,12 @@ def build_case(cfg: ModelConfig, shape: ShapeSpec, ctx, weights: str = "fsdp"):
     optimizer state, cache, its rows of the inputs)."""
     from repro_torch.models import model as M
     from repro_torch.models.frontends import frontend_spec
-    from repro_torch.sharding.specs import shard_params
     from repro_torch.train.optimizer import adamw_init, tree_leaves
     from repro_torch.train.train_loop import make_train_step
 
     zero1 = weights == "fsdp"
     B, S = shape.global_batch, shape.seq_len
-    local = shard_params(ctx, cfg, M.init_params(cfg, device="cpu"))
+    local = M.init_params(cfg, device="cpu", ctx=ctx, zero1=zero1)
     spec = frontend_spec(cfg, B)
     fe = None if spec is None else _rows(ctx, torch.empty(spec.shape, dtype=spec.dtype))
     tokens = _rows(ctx, torch.zeros((B, S if shape.kind != "decode" else 1),
@@ -113,9 +119,9 @@ def build_case(cfg: ModelConfig, shape: ShapeSpec, ctx, weights: str = "fsdp"):
     if shape.kind == "train":
         for p in tree_leaves(local):
             p.requires_grad_(True)
-        opt = adamw_init(local, ctx, cfg, zero1=zero1)
+        opt = adamw_init(local)
         labels = torch.zeros_like(tokens)
-        step = make_train_step(cfg, remat=True, ctx=ctx, zero1=zero1)
+        step = make_train_step(cfg, remat=True, ctx=ctx)
         args = {"params": local, "opt": opt, "tokens": tokens, "labels": labels, "fe": fe}
         return (lambda: step(local, opt, tokens, labels, fe)), args, cfg.num_layers
 
@@ -175,7 +181,9 @@ def run_case(arch: str, shape_name: str, multi_pod: bool, weights: str = "fsdp",
                 # every data rank holds the whole batch
                 ctx = replace(ctx, batch_axes=())
                 out["batch_replicated"] = True
-            fn, args, layers = build_case(cfg, shape, ctx, weights)
+            leaf_shapes(cfg)        # its fake whole tree is analysis, not the rank's
+            with trace_analysis.Recorder(mesh) as build:
+                fn, args, layers = build_case(cfg, shape, ctx, weights)
             rec = trace_analysis.Recorder(mesh)
             rec.hold(args)
             arg_bytes = rec.live_bytes
@@ -196,6 +204,7 @@ def run_case(arch: str, shape_name: str, multi_pod: bool, weights: str = "fsdp",
                 "output_size_in_bytes": out_bytes,
                 "temp_size_in_bytes": peak - arg_bytes,
                 "peak_size_in_bytes": peak,
+                "build_peak_size_in_bytes": build.peak_bytes,
             },
             flops=trace_analysis.total_flops(records),
             dot_flops_per_device=trace_analysis.dot_flops(records),

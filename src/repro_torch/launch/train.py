@@ -11,8 +11,9 @@ loss with remat, AdamW, a checkpoint at ``--checkpoint``).  ``--device`` is
 path on the CPU.  ``--ranks N`` is the reference's multi-device branch: N
 gloo rank processes (``launch.mesh.spawn``; rank r on CUDA device r modulo
 the cards there are) on a mesh of data = max(1, N // 16) x model = N //
-data, ``seq_shard``, each rank holding its parameter shares and ZeRO-1
-AdamW state, the batch's rows split over data.
+data, ``seq_shard``, each rank holding its parameter shares, split over
+data too as the reference's ``param_shardings(zero1=True)`` places them,
+and the AdamW state of the same slices, the batch's rows split over data.
 """
 from __future__ import annotations
 
@@ -38,15 +39,12 @@ def _batches(cfg, args, dev, ctx=None):
 
 
 def _train(cfg, args, dev, ctx=None):
-    params = M.init_params(cfg, seed=0, device=dev)
+    params = M.init_params(cfg, seed=0, device=dev, ctx=ctx, zero1=True)
     n = sum(p.numel() for p in tree_leaves(params))
-    if ctx is not None:
-        from repro_torch.sharding.specs import shard_params
-
-        params = shard_params(ctx, cfg, params)
     if ctx is None or ctx.model_rank == ctx.batch_rank == 0:
         where = dev if ctx is None else f"{ctx.mesh.size} ranks, mesh {ctx.mesh.shape}"
-        print(f"{cfg.name}: {n/1e6:.1f}M params, {args.steps} steps "
+        held = "" if ctx is None else " on the first rank"
+        print(f"{cfg.name}: {n/1e6:.1f}M params{held}, {args.steps} steps "
               f"of {args.batch}x{args.seq} on {where}")
     _, _, history = train_loop(
         cfg, params, _batches(cfg, args, dev, ctx), steps=args.steps, lr=args.lr,

@@ -24,7 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, as_drawn, dense_init
 
 NEG_INF = -1e30
 
@@ -32,20 +32,20 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
-def init_attn_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+def init_attn_params(cfg: ModelConfig, gen: torch.Generator,
+                     keep=as_drawn) -> Dict[str, torch.Tensor]:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = torch_dtype(cfg.dtype)
     p = {
-        "wq": dense_init((d, h * hd), gen, dtype=dt),
-        "wk": dense_init((d, kv * hd), gen, dtype=dt),
-        "wv": dense_init((d, kv * hd), gen, dtype=dt),
-        "wo": dense_init((h * hd, d), gen, in_dim=h * hd, dtype=dt),
+        "wq": keep("wq", dense_init((d, h * hd), gen, dtype=dt)),
+        "wk": keep("wk", dense_init((d, kv * hd), gen, dtype=dt)),
+        "wv": keep("wv", dense_init((d, kv * hd), gen, dtype=dt)),
+        "wo": keep("wo", dense_init((h * hd, d), gen, in_dim=h * hd, dtype=dt)),
     }
     if cfg.qkv_bias:
         dev = gen.device
-        p["wq_bias"] = torch.zeros((h * hd,), dtype=dt, device=dev)
-        p["wk_bias"] = torch.zeros((kv * hd,), dtype=dt, device=dev)
-        p["wv_bias"] = torch.zeros((kv * hd,), dtype=dt, device=dev)
+        for name, n in (("wq_bias", h * hd), ("wk_bias", kv * hd), ("wv_bias", kv * hd)):
+            p[name] = keep(name, torch.zeros((n,), dtype=dt, device=dev))
     return p
 
 
@@ -308,11 +308,15 @@ def attn_decode(
     own slots ``<= pos``; the mechanism is ``ops.decode_attention``.
     Returns (y (B, 1, D), cache) -- the same cache tensors.
 
-    On a mesh (``ctx``) whose model axis divides the heads, each rank
-    attends its H/m heads against its cache (its K/m KV heads, or all K
-    when the axis does not divide them), ``wo`` row-parallel and its
-    partial sums all-reduced; otherwise every rank computes every head."""
+    On a mesh (``ctx``) the cache is this rank's share
+    (``specs.cache_placement``).  Split on the KV heads (or whole): where
+    the model axis divides the heads each rank attends its H/m heads, ``wo``
+    row-parallel and its partial sums all-reduced; otherwise every rank
+    computes every head.  Split on the span or on head_dim:
+    ``attn_decode_split_cache``."""
     m = 1 if ctx is None or not ctx.on_mesh else ctx.model_size
+    if m > 1 and ("span" in cache or cache["k"].shape[3] != cfg.head_dim):
+        return attn_decode_split_cache(cfg, p, x, cache, pos, ctx)
     split = m > 1 and cfg.num_heads % m == 0
     if split:
         from repro_torch.distributed import collectives as C
@@ -352,6 +356,68 @@ def _kv_for_heads(cfg: ModelConfig, k: torch.Tensor, m: int, r: int) -> torch.Te
         return k[:, :, lo:lo + 1]
     idx = torch.arange(r * n, (r + 1) * n, device=k.device) // G
     return k.index_select(2, idx)
+
+
+def attn_decode_split_cache(cfg: ModelConfig, p, x: torch.Tensor,
+                            cache: Dict[str, torch.Tensor], pos, ctx):
+    """``attn_decode`` on a mesh whose cache splits over the model axis by
+    span (``cache["span"]`` the full span; rank r holds slots ``[r n, (r +
+    1) n)``) or by head_dim, every KV head on every rank.
+
+    Where the axis divides the heads (``wq``/``wo`` by heads, ``wk``/``wv``
+    whole) the local query heads are gathered over the axis and the rank's
+    H/m heads kept after the attention, for the row-parallel ``wo``;
+    otherwise every rank computes every head with whole weights.  The new
+    K/V goes to the rank that owns its slot (span) or to each rank's
+    columns (head_dim).  Span: K3 over the rank's slots at local position
+    ``clamp(min(pos, span - 1) - r n, -1, n - 1)``, with its log-sum-exp,
+    the partials merged by ``collectives.merge_lse``.  head_dim: the
+    reference's math in plain PyTorch, each rank's partial scores over its
+    columns summed over the axis, the softmax, then P V on its columns,
+    all-gathered.  A sliding-window ring works alike: every slot of a full
+    ring is valid."""
+    from repro_torch.distributed import collectives as C
+
+    m, r = ctx.model_size, ctx.model_rank
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    heads = H % m == 0
+    B = x.shape[0]
+    posv = torch.as_tensor(pos, dtype=torch.long, device=x.device).reshape(-1).expand(B)
+    q, k, v = decode_qkv(cfg, p, x, posv)                  # (B, 1, ., hd)
+    if heads:
+        q = C.all_gather_value(ctx, q, 2)                 # every query head
+    q = q[:, 0].contiguous()                               # (B, H, hd)
+    ck, cv = cache["k"], cache["v"]
+    rows = torch.arange(B, device=x.device)
+    if "span" in cache:
+        span = cache["span"]
+        n = span // m
+        slot = decode_slot(cfg, posv, span)
+        mine = (slot // n == r)[:, None, None]
+        at = torch.clamp(slot - r * n, 0, n - 1)
+        ck[rows, at] = torch.where(mine, k[:, 0], ck[rows, at])
+        cv[rows, at] = torch.where(mine, v[:, 0], cv[rows, at])
+        local = torch.clamp(torch.clamp(posv, max=span - 1) - r * n, -1, n - 1)
+        lse = torch.empty((B, H), dtype=torch.float32, device=x.device)
+        o = ops.decode_attention(q, ck, cv, local, lse=lse)
+        o = C.merge_lse(ctx, o, lse)
+    else:
+        span, d = ck.shape[1], hd // m
+        slot = decode_slot(cfg, posv, span)
+        ck[rows, slot] = k[:, 0, :, r * d:(r + 1) * d]
+        cv[rows, slot] = v[:, 0, :, r * d:(r + 1) * d]
+        qs = q.reshape(B, K, H // K, hd)[..., r * d:(r + 1) * d]
+        s = C.all_reduce_value(torch.einsum("bkgd,bskd->bkgs", qs.float(), ck.float()),
+                               ctx.model_group) * hd ** -0.5
+        valid = torch.arange(span, device=x.device)[None, :] <= posv[:, None]
+        s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+        pr = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgs,bskd->bkgd", pr, cv.float()).to(q.dtype)
+        o = C.all_gather_value(ctx, o.reshape(B, H, d), 2)
+    if heads:
+        o = o[:, r * (H // m):(r + 1) * (H // m)]
+    y = o.reshape(B, 1, -1) @ p["wo"]
+    return (C.reduce_model(ctx, y) if heads else y), cache
 
 
 def attn_forward_mesh(cfg: ModelConfig, p, x: torch.Tensor, ctx,

@@ -11,19 +11,21 @@ from repro_torch.device import torch_dtype
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import as_drawn, dense_init, rms_norm
+from repro_torch.sharding.specs import gathered
 
 
 # ---------------------------------------------------------------------------
 # Dense FFN
 # ---------------------------------------------------------------------------
-def init_ffn_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+def init_ffn_params(cfg: ModelConfig, gen: torch.Generator,
+                    keep=as_drawn) -> Dict[str, torch.Tensor]:
     d, f = cfg.d_model, cfg.d_ff
     dt = torch_dtype(cfg.dtype)
     return {
-        "w_gate": dense_init((d, f), gen, dtype=dt),
-        "w_up": dense_init((d, f), gen, dtype=dt),
-        "w_down": dense_init((f, d), gen, dtype=dt),
+        "w_gate": keep("w_gate", dense_init((d, f), gen, dtype=dt)),
+        "w_up": keep("w_up", dense_init((d, f), gen, dtype=dt)),
+        "w_down": keep("w_down", dense_init((f, d), gen, dtype=dt)),
     }
 
 
@@ -49,20 +51,29 @@ def ffn_apply_mesh(cfg: ModelConfig, p, x: torch.Tensor, ctx) -> torch.Tensor:
 # One layer
 # ---------------------------------------------------------------------------
 def init_layer_params(cfg: ModelConfig, kind: str, ffn_kind: str,
-                      gen: torch.Generator) -> Dict:
+                      gen: torch.Generator, keep=as_drawn) -> Dict:
+    """One layer's weights; each leaf passes through ``keep(path, leaf)``
+    (``path`` within the layer, ``attn/wq``) as soon as it is drawn."""
     dt = torch_dtype(cfg.dtype)
     dev = gen.device
-    p: Dict = {"norm1": torch.ones((cfg.d_model,), dtype=dt, device=dev)}
+
+    def under(module):
+        return lambda name, t: keep(f"{module}/{name}", t)
+
+    def norm(name):
+        return keep(name, torch.ones((cfg.d_model,), dtype=dt, device=dev))
+
+    p: Dict = {"norm1": norm("norm1")}
     if kind == "attn":
-        p["attn"] = attn_mod.init_attn_params(cfg, gen)
+        p["attn"] = attn_mod.init_attn_params(cfg, gen, under("attn"))
     else:
-        p["ssm"] = ssm_mod.init_ssm_params(cfg, gen)
+        p["ssm"] = ssm_mod.init_ssm_params(cfg, gen, under("ssm"))
     if ffn_kind == "moe":
-        p["norm2"] = torch.ones((cfg.d_model,), dtype=dt, device=dev)
-        p["moe"] = moe_mod.init_moe_params(cfg, gen)
+        p["norm2"] = norm("norm2")
+        p["moe"] = moe_mod.init_moe_params(cfg, gen, under("moe"))
     elif cfg.d_ff > 0:
-        p["norm2"] = torch.ones((cfg.d_model,), dtype=dt, device=dev)
-        p["ffn"] = init_ffn_params(cfg, gen)
+        p["norm2"] = norm("norm2")
+        p["ffn"] = init_ffn_params(cfg, gen, under("ffn"))
     return p
 
 
@@ -116,7 +127,10 @@ def layer_forward(
     ``attention.attn_forward``'s; ``differentiable`` as ``mixer_forward``'s
     (without a mesh the MoE is the dense-combine reference either way).
     ``ctx``: a mesh context for this pass (``ShardCtx.for_sequence``); ``x``
-    is then the residual's layout."""
+    is then the residual's layout, and the leaves of ``p`` held as ZeRO-1
+    slices are gathered here (``specs.gathered``), inside the caller's remat
+    region."""
+    p = gathered(ctx, cfg, p, "layers/*/")
     y, cache = mixer_forward(cfg, kind, p, x, positions, lengths, prefix_kv,
                              differentiable, ctx)
     x, aux = ffn_stage(cfg, ffn_kind, p, x + y, ctx, differentiable)
@@ -163,7 +177,9 @@ def layer_decode(
     ctx=None,
 ) -> Tuple[torch.Tensor, Dict]:
     """One decode step of a layer; the cache (KV or SSM state) is written in
-    place.  ``ctx``: a mesh context (the cache is this rank's share)."""
+    place.  ``ctx``: a mesh context (the cache is this rank's share; ZeRO-1
+    slices of ``p`` gathered here)."""
+    p = gathered(ctx, cfg, p, "layers/*/")
     h = _norm(cfg, ctx, x, p["norm1"])
     if kind == "attn":
         y, cache = attn_mod.attn_decode(cfg, p["attn"], h, cache, pos, ctx)

@@ -9,12 +9,20 @@ import torch
 def dense_init(shape, generator: torch.Generator, in_dim: Optional[int] = None,
                dtype=torch.bfloat16, device=None) -> torch.Tensor:
     """Normal weights scaled by ``in_dim ** -0.5`` (``shape[0]`` by
-    default), drawn in f32 from ``generator`` and cast to ``dtype``."""
+    default), drawn in f32 from ``generator``, scaled in place and cast to
+    ``dtype``."""
     in_dim = in_dim if in_dim is not None else shape[0]
     scale = (1.0 / max(in_dim, 1)) ** 0.5
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device if device is not None else generator.device)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)
+
+
+def as_drawn(name: str, t: torch.Tensor) -> torch.Tensor:
+    """The default ``keep`` of the ``init_*_params`` functions, which pass
+    each leaf through ``keep(name, leaf)`` as soon as it is drawn (on a
+    mesh: the rank's share of it): the leaf itself."""
+    return t
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:

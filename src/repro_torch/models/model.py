@@ -14,7 +14,10 @@ loss.  ``prefill`` and ``decode_step`` are the serving path (the kernels).
 Each takes a ``ctx`` (``sharding.specs.ShardCtx``): on a mesh of rank
 processes, ``params`` are this rank's tensors (``specs.shard_params``),
 ``tokens`` (and ``labels``, ``lengths``) this rank's rows of the batch
-(``rows_of``), and the caches this rank's share.  The embedding is split on
+(``rows_of``), and the caches this rank's share.  Parameters held as
+ZeRO-1 slices over the batch axes (``shard_params(..., zero1=True)``) are
+gathered where each layer starts (``blocks``) and for the LM head.  The
+embedding is split on
 D and all-gathered, the LM head on the vocabulary (the loss is a
 vocabulary-parallel log-sum-exp, so no rank holds the (B, S, V) logits);
 ``forward``'s logits come back whole (all-gathered over the vocabulary) for
@@ -41,7 +44,7 @@ from repro_torch.models.blocks import (
     layer_decode,
     layer_forward,
 )
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import as_drawn, dense_init, rms_norm
 
 
 def layer_pattern(cfg: ModelConfig) -> List[Tuple[str, str]]:
@@ -63,26 +66,41 @@ def layer_schema(cfg: ModelConfig) -> List[Tuple[str, str]]:
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", ctx=None,
+                zero1: bool = False) -> Dict:
     """Seeded weights drawn on ``device`` with a ``torch.Generator``: the
-    JAX package's shapes, dtypes and ``dense_init`` scales, not its bits."""
+    JAX package's shapes, dtypes and ``dense_init`` scales, not its bits.
+    On a mesh (``ctx``): this rank's tensors of the same weights
+    (``specs.shard_params`` with ``zero1``), each leaf cut to the rank's
+    share as soon as it is drawn, so no more than one whole leaf is held at
+    once."""
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
-    layers = [init_layer_params(cfg, kind, ffn, gen)
-              for kind, ffn in layer_schema(cfg)]
-    return {"layers": layers, **init_base_params(cfg, gen)}
+    keep = as_drawn
+    if ctx is not None and ctx.on_mesh:
+        from repro_torch.sharding.specs import shard_leaf
+
+        def keep(path, t):
+            return shard_leaf(ctx, cfg, path, t, zero1)
+
+    layers = [init_layer_params(cfg, kind, ffn, gen,
+                                lambda name, t, i=i: keep(f"layers/{i}/{name}", t))
+              for i, (kind, ffn) in enumerate(layer_schema(cfg))]
+    return {"layers": layers, **init_base_params(cfg, gen, keep)}
 
 
-def init_base_params(cfg: ModelConfig, gen: torch.Generator) -> Dict:
+def init_base_params(cfg: ModelConfig, gen: torch.Generator, keep=as_drawn) -> Dict:
     """The base weights (embedding, final norm, LM head), drawn from
     ``gen`` after every layer, as ``init_params`` draws them."""
     dt = torch_dtype(cfg.dtype)
     base = {
-        "embed": dense_init((cfg.vocab_size, cfg.d_model), gen, dtype=dt),
-        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=gen.device),
+        "embed": keep("embed", dense_init((cfg.vocab_size, cfg.d_model), gen, dtype=dt)),
+        "final_norm": keep("final_norm",
+                           torch.ones((cfg.d_model,), dtype=dt, device=gen.device)),
     }
     if not cfg.tie_embeddings:
-        base["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size), gen, dtype=dt)
+        base["lm_head"] = keep("lm_head",
+                               dense_init((cfg.d_model, cfg.vocab_size), gen, dtype=dt))
     return base
 
 
@@ -268,14 +286,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda",
                ctx=None) -> List:
     """Zeroed decode caches of every layer (KV buffers or SSM states) on
     ``device`` (``cuda`` by default, like ``init_params``; raises without
-    CUDA).  On a mesh (``ctx``): this rank's share (``specs.shard_cache``)."""
+    CUDA).  On a mesh (``ctx``): only this rank's share of each leaf is
+    allocated (``specs.cache_share``'s shapes)."""
     dev = resolve_device(device)
-    cache = [init_layer_cache(cfg, kind, batch, max_seq, dev)
-             for kind, _ in layer_schema(cfg)]
-    if ctx is not None and ctx.on_mesh:
-        from repro_torch.sharding.specs import shard_cache
+    if ctx is None or not ctx.on_mesh:
+        return [init_layer_cache(cfg, kind, batch, max_seq, dev)
+                for kind, _ in layer_schema(cfg)]
+    from repro_torch.sharding.specs import cache_share
 
-        cache = shard_cache(ctx, cfg, cache)
+    cache = []
+    for kind, _ in layer_schema(cfg):
+        # the share's shapes from a zero-row cache, which holds no storage
+        # (no leaf splits its rows over the model axis)
+        share = cache_share(ctx, cfg, kind, init_layer_cache(cfg, kind, 0, max_seq, dev))
+        cache.append({n: t.new_zeros((batch, *t.shape[1:])) if torch.is_tensor(t) else t
+                      for n, t in share.items()})
     return cache
 
 
@@ -341,10 +366,13 @@ def _head_weight(cfg: ModelConfig, params: Dict, ctx):
     from repro_torch.distributed import collectives as C
     from repro_torch.sharding.specs import placement
 
+    from repro_torch.sharding.specs import gathered
+
     m, r = ctx.model_size, ctx.model_rank
     V = cfg.vocab_size
     if not cfg.tie_embeddings:
-        return params["lm_head"], placement(cfg, m, "lm_head") is not None
+        return (gathered(ctx, cfg, params["lm_head"], "lm_head/"),
+                placement(cfg, m, "lm_head") is not None)
     e = params["embed"]
     d_split = placement(cfg, m, "embed") is not None
     if V % m or m == 1:

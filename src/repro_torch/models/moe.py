@@ -25,20 +25,21 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import as_drawn, dense_init
 
 
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
-def init_moe_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+def init_moe_params(cfg: ModelConfig, gen: torch.Generator,
+                    keep=as_drawn) -> Dict[str, torch.Tensor]:
     d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
     dt = torch_dtype(cfg.dtype)
     return {
-        "router": dense_init((d, e), gen, dtype=torch.float32),
-        "experts_w_gate": dense_init((e, d, f), gen, in_dim=d, dtype=dt),
-        "experts_w_up": dense_init((e, d, f), gen, in_dim=d, dtype=dt),
-        "experts_w_down": dense_init((e, f, d), gen, in_dim=f, dtype=dt),
+        "router": keep("router", dense_init((d, e), gen, dtype=torch.float32)),
+        "experts_w_gate": keep("experts_w_gate", dense_init((e, d, f), gen, in_dim=d, dtype=dt)),
+        "experts_w_up": keep("experts_w_up", dense_init((e, d, f), gen, in_dim=d, dtype=dt)),
+        "experts_w_down": keep("experts_w_down", dense_init((e, f, d), gen, in_dim=f, dtype=dt)),
     }
 
 

@@ -32,10 +32,11 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import as_drawn, dense_init, rms_norm
 
 
-def init_ssm_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+def init_ssm_params(cfg: ModelConfig, gen: torch.Generator,
+                    keep=as_drawn) -> Dict[str, torch.Tensor]:
     """The JAX package's shapes and scales; ``A_log``, ``D`` and
     ``dt_bias`` stay f32."""
     d, di, ns, nh = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads
@@ -45,18 +46,18 @@ def init_ssm_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, torch.T
     ch = di + 2 * ns
     a = torch.rand((nh,), generator=gen, dtype=torch.float32, device=dev)
     return {
-        "wz": dense_init((d, di), gen, dtype=dt),
-        "wx": dense_init((d, di), gen, dtype=dt),
-        "wB": dense_init((d, ns), gen, dtype=dt),
-        "wC": dense_init((d, ns), gen, dtype=dt),
-        "wdt": dense_init((d, nh), gen, dtype=dt),
-        "dt_bias": torch.zeros((nh,), dtype=torch.float32, device=dev),
-        "A_log": torch.log(1.0 + 15.0 * a),            # uniform(1, 16)
-        "D": torch.ones((nh,), dtype=torch.float32, device=dev),
-        "conv_w": dense_init((w, ch), gen, in_dim=w, dtype=dt),
-        "conv_b": torch.zeros((ch,), dtype=dt, device=dev),
-        "norm_scale": torch.ones((di,), dtype=dt, device=dev),
-        "out_proj": dense_init((di, d), gen, dtype=dt),
+        "wz": keep("wz", dense_init((d, di), gen, dtype=dt)),
+        "wx": keep("wx", dense_init((d, di), gen, dtype=dt)),
+        "wB": keep("wB", dense_init((d, ns), gen, dtype=dt)),
+        "wC": keep("wC", dense_init((d, ns), gen, dtype=dt)),
+        "wdt": keep("wdt", dense_init((d, nh), gen, dtype=dt)),
+        "dt_bias": keep("dt_bias", torch.zeros((nh,), dtype=torch.float32, device=dev)),
+        "A_log": keep("A_log", torch.log(1.0 + 15.0 * a)),            # uniform(1, 16)
+        "D": keep("D", torch.ones((nh,), dtype=torch.float32, device=dev)),
+        "conv_w": keep("conv_w", dense_init((w, ch), gen, in_dim=w, dtype=dt)),
+        "conv_b": keep("conv_b", torch.zeros((ch,), dtype=dt, device=dev)),
+        "norm_scale": keep("norm_scale", torch.ones((di,), dtype=dt, device=dev)),
+        "out_proj": keep("out_proj", dense_init((di, d), gen, dtype=dt)),
     }
 
 

@@ -29,10 +29,11 @@ def greedy_generate(
 ) -> torch.Tensor:
     """Returns (B, decode_len) generated tokens (greedy).  On a mesh
     (``ctx``): ``params`` are this rank's shares and ``tokens`` its rows
-    (``model.rows_of``); every rank of a model axis gets the same tokens."""
+    (``model.rows_of``), and each rank keeps its share of the decode cache;
+    every rank of a model axis gets the same tokens."""
     B, S = tokens.shape
     logits, caches = model_mod.prefill(cfg, params, tokens, frontend_emb, ctx=ctx)
-    cache = cache_from_prefill(cfg, caches, max_seq=S + decode_len)
+    cache = cache_from_prefill(cfg, caches, max_seq=S + decode_len, ctx=ctx)
     out = [greedy(logits[:, 0])]
     for t in range(decode_len - 1):
         logits, cache = model_mod.decode_step(cfg, params, cache, out[-1], S + t, ctx=ctx)

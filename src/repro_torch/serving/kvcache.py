@@ -38,17 +38,27 @@ def aligned_kv(
     return nk, nv
 
 
-def cache_from_prefill(cfg: ModelConfig, caches: List[Dict], max_seq: int) -> List[Dict]:
+def cache_from_prefill(cfg: ModelConfig, caches: List[Dict], max_seq: int,
+                       ctx=None) -> List[Dict]:
     """Convert raw prefill caches into decode-ready buffers of span
-    ``kv_span(cfg, max_seq)``; SSM states pass through."""
+    ``kv_span(cfg, max_seq)``; SSM states pass through.  On a mesh
+    (``ctx``): the sharded prefill's entries (this rank's KV heads when the
+    model axis divides them, else all of them) aligned, then this rank's
+    share of the span or of head_dim kept (``specs.cache_share``)."""
     span = kv_span(cfg, max_seq)
+    mesh = ctx is not None and ctx.on_mesh and ctx.model_size > 1
     out = []
     for c in caches:
         if "h" in c:
             out.append(c)
             continue
         nk, nv = aligned_kv(cfg, c["k"], c["v"], span)
-        out.append({"k": nk, "v": nv})
+        entry = {"k": nk, "v": nv}
+        if mesh and cfg.num_kv_heads % ctx.model_size:
+            from repro_torch.sharding.specs import cache_share
+
+            entry = cache_share(ctx, cfg, "attn", entry)
+        out.append(entry)
     return out
 
 

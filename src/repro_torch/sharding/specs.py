@@ -36,8 +36,16 @@ whole on every rank:
   and all of B and C (``conv_b`` is whole, as its spec says);
 * a module whose split the model axis does not divide (all its weights).
 
-Only the model axis splits parameters: the reference's ZeRO-1 ``"batch"``
-dim splits the optimizer state (``train.optimizer``), not the weights.
+Under ZeRO-1 (``shard_params(..., zero1=True)``: the dry run's
+``weights="fsdp"`` and training, as the reference places its parameters by
+``param_shardings(zero1=True)``) each leaf is also split over the batch
+axes on its ``"batch"`` dim (``zero1_dim``), where they divide it; the
+model code gathers a layer's slices where the layer starts (``gathered``)
+and the optimizer state covers the same slices.
+
+A decode cache leaf follows ``cache_shardings`` (``cache_placement``): the
+KV heads when the model axis divides them, else the span, else head_dim;
+a span-split attention entry carries its full span under ``"span"``.
 """
 from __future__ import annotations
 
@@ -422,24 +430,37 @@ def local_share(t, where: Optional[Tuple[int, int]], m: int, r: int):
     return torch.cat([share, t.narrow(dim, head, t.shape[dim] - head)], dim=dim)
 
 
-def shard_params(ctx: ShardCtx, cfg, params):
-    """This rank's tensors of the full parameter tree ``params`` (copies,
-    so the full tree can be freed)."""
-    m, r = ctx.model_size, ctx.model_rank
-    return _tree_with(params, lambda path, t: local_share(
-        t, placement(cfg, m, path), m, r).clone())
+def shard_leaf(ctx: ShardCtx, cfg, path: str, t, zero1: bool = False):
+    """This rank's tensor of the full leaf ``t`` at ``path`` (a copy, so
+    the full leaf can be freed): its model share and, with ``zero1``, its
+    slice of the ``zero1_dim`` over the batch axes."""
+    m, b = ctx.model_size, ctx.batch_size
+    t = local_share(t, placement(cfg, m, path), m, ctx.model_rank)
+    z = zero1_dim(ctx, cfg, path) if zero1 else None
+    if z is not None:
+        t = t.narrow(z, ctx.batch_rank * (t.shape[z] // b), t.shape[z] // b)
+    return t.clone()
+
+
+def shard_params(ctx: ShardCtx, cfg, params, zero1: bool = False):
+    """``shard_leaf`` of every leaf of the full parameter tree ``params``."""
+    return _tree_with(params, lambda path, t: shard_leaf(ctx, cfg, path, t, zero1))
 
 
 def gather_params(ctx: ShardCtx, cfg, local):
-    """The full tree from every model rank's ``local`` tensors (detached):
-    ``shard_params``' inverse.  A collective: every rank of the model axis
-    calls it, and each gets the full tree."""
+    """The full tree from every rank's ``local`` tensors (detached):
+    ``shard_params``' inverse, slices over the batch axes first.  A
+    collective: every rank of the mesh calls it, and each gets the full
+    tree."""
     from repro_torch.distributed import collectives
 
     m = ctx.model_size
 
     def one(path, t):
         t = t.detach()
+        z = held_batch_dim(ctx, cfg, path, t.shape)
+        if z is not None:
+            t = collectives.all_gather_batch(ctx, t.contiguous(), z)
         where = placement(cfg, m, path)
         if where is None:
             return t.clone()
@@ -455,28 +476,58 @@ def gather_params(ctx: ShardCtx, cfg, local):
     return _tree_with(local, one)
 
 
-def cache_placement(cfg, m: int, kind: str, name: str) -> Optional[Tuple[int, int]]:
-    """``placement`` for a decode cache leaf of a layer of ``kind``:
-    attention ``k``/``v`` (B, span, K, hd) split on the KV heads when the
-    model axis divides the heads and the KV heads, SSM ``h`` (B, nh, ns, hp)
-    on the heads and ``conv`` (B, W - 1, di + 2 ns) as ``conv_w``'s
-    channels; else whole."""
+def gathered(ctx: Optional[ShardCtx], cfg, tree, prefix: str = ""):
+    """``tree`` (a layer's parameters under ``prefix`` ``"layers/*/"``, or a
+    base leaf) with every leaf held as its batch-axes slice gathered whole
+    for use (``collectives.gather_batch``: its gradient comes back summed
+    over the batch axes, as the slice).  The gathered copy lives as long as
+    the caller keeps it: one layer's forward (and its recompute)."""
+    if ctx is None or ctx.batch_size <= 1:
+        return tree
+    from repro_torch.distributed import collectives
+
+    def one(path, t):
+        z = held_batch_dim(ctx, cfg, path, t.shape)
+        return t if z is None else collectives.gather_batch(ctx, t, z)
+
+    return _tree_with(tree, one, prefix)
+
+
+def cache_placement(cfg, m: int, kind: str, name: str,
+                    span: int) -> Optional[Tuple[int, int]]:
+    """``placement`` for a decode cache leaf of a layer of ``kind``, as
+    ``cache_shardings`` splits it over a model axis of ``m`` ranks:
+    attention ``k``/``v`` (B, span, K, hd) on the KV heads when the axis
+    divides them, else on the span (context parallelism: rank r holds
+    slots ``[r n, (r + 1) n)``, n = span / m), else on head_dim, else
+    whole; SSM ``h`` (B, nh, ns, hp) on the heads and ``conv`` (B, W - 1,
+    di + 2 ns) as ``conv_w``'s channels, when the axis divides the heads
+    (``span`` is read for attention leaves only, and must be their span)."""
     if m <= 1:
         return None
     if kind == "attn":
-        ok = cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
-        return (2, cfg.num_kv_heads) if ok else None
+        if span <= 0:
+            raise ValueError(f"an attention cache leaf needs its span, not {span}")
+        for dim, size in ((2, cfg.num_kv_heads), (1, span), (3, cfg.head_dim)):
+            if size % m == 0:
+                return (dim, size)
+        return None
     if cfg.ssm_nheads % m:
         return None
     return (1, cfg.ssm_nheads) if name == "h" else (2, cfg.ssm_d_inner)
 
 
-def shard_cache(ctx: ShardCtx, cfg, cache):
-    """This rank's share of full decode caches (the per-layer list)."""
+def cache_share(ctx: ShardCtx, cfg, kind: str, entry: Dict) -> Dict:
+    """This rank's share of one layer's full decode cache ``entry`` (each
+    leaf a copy); a span-split attention entry gets its full span under
+    ``"span"`` (what ``models.attention.attn_decode`` reads)."""
     m, r = ctx.model_size, ctx.model_rank
-    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
-    return [{n: local_share(t, cache_placement(cfg, m, kind, n), m, r).clone()
-             for n, t in c.items()} for kind, c in zip(kinds, cache)]
+    span = entry["k"].shape[1] if kind == "attn" else 0
+    out = {n: local_share(t, cache_placement(cfg, m, kind, n, span), m, r).clone()
+           for n, t in entry.items()}
+    if kind == "attn" and cache_placement(cfg, m, kind, "k", span) == (1, span):
+        out["span"] = span
+    return out
 
 
 def full_shape(cfg, m: int, path: str, local_shape: Sequence[int]) -> Tuple[int, ...]:
@@ -489,13 +540,24 @@ def full_shape(cfg, m: int, path: str, local_shape: Sequence[int]) -> Tuple[int,
     return tuple(s)
 
 
-def zero1_dim(ctx: ShardCtx, cfg, path: str, local_shape: Sequence[int]) -> Optional[int]:
-    """The dim of a leaf whose AdamW state splits over the batch axes under
-    ZeRO-1: ``_rule_for``'s ``"batch"`` dim when the batch axes divide it
-    (None: the state stays whole on every rank)."""
+def zero1_dim(ctx: ShardCtx, cfg, path: str) -> Optional[int]:
+    """The dim of a leaf that splits over the batch axes under ZeRO-1:
+    ``param_shardings(zero1=True)``'s ``"batch"`` dim at the leaf's full
+    shape, when the batch axes divide it (None: whole on every data rank).
+    It is never the leaf's model dim."""
     if ctx.batch_size <= 1:
         return None
-    shape = full_shape(cfg, ctx.model_size, path, local_shape)
+    shape = leaf_shapes(cfg)[_shape_key(path)]
     spec = ctx.spec(*logical_axes(ctx.model_size, path, shape, True), shape=shape)
     batch = ctx.spec("batch")[0]
     return next((i for i, a in enumerate(spec) if a == batch), None)
+
+
+def held_batch_dim(ctx: ShardCtx, cfg, path: str, held: Sequence[int]) -> Optional[int]:
+    """The ``zero1_dim`` of a leaf this rank holds with shape ``held`` when
+    it holds only its batch-axes slice there (``shard_params(...,
+    zero1=True)``), else None."""
+    z = zero1_dim(ctx, cfg, path)
+    if z is None or held[z] * ctx.batch_size != leaf_shapes(cfg)[_shape_key(path)][z]:
+        return None
+    return z

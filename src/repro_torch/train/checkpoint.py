@@ -4,7 +4,10 @@ Keys are the ``/``-joined paths of the leaves in the per-layer layout
 (``layers/3/attn/wq``); a bf16 leaf is stored as f32 under ``key::bf16``
 (numpy has no bf16), and the step under ``__step__``, as the reference's
 ``_flatten`` stores them.  A sharded run (``save_sharded``) gathers every
-rank's shares and rank 0 writes the file an unsharded run would."""
+rank's shares (over the model axis and, for ZeRO-1 slices, the batch axes)
+and rank 0 writes the file an unsharded run would, so a file written on one
+mesh restores on one device, or on any other mesh as ``load_checkpoint``
+into the full template followed by ``specs.shard_params``."""
 from __future__ import annotations
 
 import os
@@ -82,3 +85,4 @@ def load_checkpoint(path: str, like) -> Tuple[dict, int]:
             return t.to(leaf.device)  # lint: allow[MG105] a checkpoint's weights placed once, at load
 
         return tree_map(restore, like), step
+

@@ -4,8 +4,9 @@ the models' differentiable math (``models.model.loss_fn``), never a kernel:
 the kernels have no backward.  No ``torch.compile``.
 
 With a mesh ``ctx`` the step is the sharded one: each rank's loss over its
-batch rows and parameter shares (``sharding.specs.shard_params``), the
-gradients summed over the batch axes and the update ZeRO-1
+batch rows and parameter shares (``sharding.specs.shard_params``, with
+``zero1``: slices over the batch axes, gathered where each layer starts),
+the gradients summed over the batch axes and the update ZeRO-1
 (``train.optimizer``); a checkpoint gathers the shares
 (``specs.gather_params``) and rank 0 writes the file an unsharded run
 would."""
@@ -42,14 +43,13 @@ def make_train_step(
     aux_weight: float = 0.01,
     remat_policy: str = "full",
     ctx=None,
-    zero1: bool = True,
 ) -> Callable:
     """Returns ``train_step(params, opt, tokens, labels, frontend_emb=None) ->
     (params, opt, metrics)``.  The parameters must require grad; they and
     the optimizer's moments are updated in place, and ``metrics`` (loss,
     nll, aux, gnorm) stay device tensors.  On a mesh (``ctx``): this rank's
-    shares and rows, ZeRO-1 AdamW (``zero1=False``: the state whole on
-    every rank, from ``adamw_init(..., zero1=False)``)."""
+    tensors and rows, AdamW on them (ZeRO-1 where they are slices over
+    the batch axes, ``train.optimizer``)."""
 
     def train_step(params, opt, tokens, labels, frontend_emb=None):
         leaves = tree_leaves(params)
@@ -60,7 +60,7 @@ def make_train_step(
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         params, opt, gnorm = adamw_update(params, tree_unflatten(params, grads), opt, lr=lr,
-                                          ctx=ctx, cfg=cfg, zero1=zero1)
+                                          ctx=ctx, cfg=cfg)
         metrics = {"loss": total.detach(), "nll": nll.detach(), "aux": aux.detach(),
                    "gnorm": gnorm}
         return params, opt, metrics
@@ -91,7 +91,7 @@ def train_loop(
     for p in tree_leaves(params):
         p.requires_grad_(True)
     step_fn = make_train_step(cfg, lr=lr, ctx=ctx)
-    opt = adamw_init(params, ctx, cfg)
+    opt = adamw_init(params)
     first = ctx is None or not ctx.on_mesh or (ctx.model_rank == 0 and ctx.batch_rank == 0)
     history = []
     t0 = time.perf_counter()

@@ -204,6 +204,30 @@ def test_cuda_decode_attention_split_batch_invariant(cuda, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 256, 257, 2048])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_lse_matches_plain(cuda, dtype, G, S):
+    """K3 with ``lse``: the output bit-identical to the call without it, the
+    log-sum-exp within 1e-4 of the plain version's, -inf for a row with no
+    valid slot (rows ending on slot 0, at a split edge, the last slot, and
+    pos -1), in both designs."""
+    B, K, hd = 5, 2, 128
+    q, k, v = _decode_inputs(cuda, B, K * G, K, hd, S, dtype)
+    pos = torch.tensor([0, min(S - 1, SPLIT_SLOTS - 1), min(S - 1, SPLIT_SLOTS), S - 1, -1],
+                       dtype=torch.int32, device=cuda)
+    lse = torch.empty((B, K * G), dtype=torch.float32, device=cuda)
+    build.reset_launch_counts()
+    got = ops.decode_attention(q, k, v, pos, lse=lse)
+    assert build.launch_counts()["decode_attention_lse"] == 1
+    assert torch.equal(got, ops.decode_attention(q, k, v, pos))
+    want = torch.empty_like(lse)
+    ref.decode_attention_ref(q, k, v, pos, lse=want)
+    assert (lse[:4] - want[:4]).abs().max() < 1e-4
+    assert torch.isinf(lse[4]).all() and (lse[4] < 0).all()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_decode_attention_negative_pos_writes_zeros(cuda, dtype):
     q, k, v = _decode_inputs(cuda, 3, 8, 4, 128, 300, dtype)

@@ -75,8 +75,8 @@ def test_dryrun_equals_a_real_four_rank_run():
 
 
 def test_tp_weights_keep_the_optimizer_state_whole():
-    """``weights="tp"``: no ZeRO-1 split, so more state per rank and no
-    all-gather of updated slices over the batch axes."""
+    """``weights="tp"``: no ZeRO-1 split of the parameters or their state,
+    so more held per rank and no all-gather over the batch axes."""
     fsdp = _case("olmoe-1b-7b", "train", (2, 2), trace=False)
     tp = _case("olmoe-1b-7b", "train", (2, 2), weights="tp", trace=True)
     assert tp["memory"]["argument_size_in_bytes"] > fsdp["memory"]["argument_size_in_bytes"]
@@ -130,6 +130,32 @@ def test_production_case_at_full_size():
     kv = 2 * cfg.num_layers * rows * 32768 * (cfg.num_kv_heads // 16) * cfg.head_dim * 2
     assert r["memory"]["argument_size_in_bytes"] > kv
     assert r["collectives"]["all-reduce"]["count"] > 0
+    assert not dist.is_initialized()
+
+
+def test_production_decode_splits_the_cache_span():
+    """qwen1.5-4b ``decode_32k`` on rank 0 of the single pod: 20 KV heads,
+    which the 16-way model axis does not divide, so the rank holds a
+    sixteenth of the span of its 8 rows, 6,710,886,400 bytes of KV cache
+    (40 layers x 8 x 2048 x 20 x 128 x 2 B, K and V), as
+    ``cache_shardings`` gives it, and both building its arguments and its
+    step peak below the card's 80 GB (the cache is allocated at the share's
+    shape, never whole)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import trace_analysis
+
+    cfg, shape = get_config("qwen1.5-4b"), SHAPES["decode_32k"]
+    prod = mesh.make_production_mesh()
+    with dryrun.rank_of(prod.dims, prod.axis_names) as m, FakeTensorMode():
+        _, args, _ = dryrun.build_case(cfg, shape, mesh.make_ctx(m), "fsdp")
+        cache_bytes = trace_analysis.storage_bytes(args["cache"])
+        spans = {c["k"].shape[1] for c in args["cache"]}
+    assert cache_bytes == 6_710_886_400 and spans == {2048}
+    r = dryrun.run_case("qwen1.5-4b", "decode_32k", False, save=False, trace=False)
+    assert r["status"] == "ok", r.get("traceback")
+    assert r["memory"]["peak_size_in_bytes"] < 80e9
+    assert r["memory"]["build_peak_size_in_bytes"] < 80e9
     assert not dist.is_initialized()
 
 

@@ -102,6 +102,40 @@ def test_plain_decode_attention_poisoned_slots():
     assert (base - poisoned).abs().max() < 1e-5
 
 
+@pytest.mark.parametrize("B,H,K,hd,S", [(4, 8, 2, 32, 64), (3, 4, 4, 64, 40)])
+def test_plain_decode_attention_lse_merges_slot_ranges(B, H, K, hd, S):
+    """K3's log-sum-exp (``lse``): the call over 4 slot ranges (local pos
+    ``clamp(pos - lo, -1, n - 1)``), merged by ``collectives.lse_merge``,
+    equals the whole call within 2e-5 (f32), with rows that have no valid
+    slot in some ranges; the ranges' log-sum-exps combine into the whole
+    one's; a row with none anywhere has lse -inf and merges to zeros.  The
+    output is the same bits with and without ``lse``."""
+    from repro_torch.distributed.collectives import lse_merge
+
+    q, k, v = _t(_rand((B, H, hd))), _t(_rand((B, S, K, hd))), _t(_rand((B, S, K, hd)))
+    pos = torch.tensor([S - 1, 3, S // 2, -1][:B])
+    whole_lse = torch.empty((B, H))
+    whole = ops.decode_attention(q, k, v, pos, lse=whole_lse)
+    assert torch.equal(whole, ops.decode_attention(q, k, v, pos))
+    n = S // 4
+    outs, lses = [], []
+    for r in range(4):
+        local = torch.clamp(pos - r * n, -1, n - 1)
+        lse = torch.empty((B, H))
+        outs.append(ops.decode_attention(q, k[:, r * n:(r + 1) * n].contiguous(),
+                                         v[:, r * n:(r + 1) * n].contiguous(), local, lse=lse))
+        lses.append(lse)
+    assert torch.isinf(lses[3][1]).all()                      # pos 3: no slot past 3
+    merged = lse_merge(torch.stack(outs), torch.stack(lses))
+    live = pos >= 0
+    assert (merged[live] - whole[live]).abs().max() < TOL
+    assert torch.allclose(torch.logsumexp(torch.stack(lses), 0)[live], whole_lse[live],
+                          atol=TOL, rtol=0)
+    if not live.all():
+        assert torch.isinf(whole_lse[~live]).all() and (whole_lse[~live] < 0).all()
+        assert torch.count_nonzero(merged[~live]) == 0
+
+
 def test_wrappers_reject_unsupported_devices():
     x = torch.zeros((1, 2, 32), device="meta")
     w = torch.zeros((1, 32, 16), device="meta")

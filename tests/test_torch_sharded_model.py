@@ -9,11 +9,15 @@ bodies live in ``tests/torch_sharded_ranks.py``, which imports no JAX.
 Against the JAX package's unsharded functions on the same weights:
 ``forward`` logits within 1e-4 relative (olmoe, mixtral, jamba, mamba2 smoke
 and a 3-head config the model axis does not divide: context parallelism),
-``decode_step`` from ``init_cache(ctx)`` (mixtral, jamba), the MoE
-layer's psum capacity path, a2a, the replica split (E 2 on model 4) and the
-hidden-dim fallback (E 3 on model 2) with their gradients, ``loss_fn`` (loss
-1e-5, every gradient 1e-4 of its leaf's peak), one ZeRO-1 AdamW step (1e-6)
-and ``greedy_generate``'s tokens (equal).  ``capacity_factor`` is 32, so no
+``decode_step`` from ``init_cache(ctx)`` (mixtral, jamba, the 3-head
+config, a sliding-window ring) with each rank's cache leaves the shape
+``cache_shardings`` gives them (split on the KV heads, the span or
+head_dim), the MoE layer's psum capacity path, a2a, the replica split (E 2
+on model 4) and the hidden-dim fallback (E 3 on model 2) with their
+gradients, ``loss_fn`` (loss 1e-5, every gradient 1e-4 of its leaf's peak;
+also with the parameters held as ZeRO-1 slices), one ZeRO-1 AdamW step
+(1e-6) on the shares ``param_shardings(zero1=True)`` gives, checkpoints
+across meshes, and ``greedy_generate``'s tokens (equal).  ``capacity_factor`` is 32, so no
 routed copy is dropped.  One subprocess holds the port's (2, 2) forward to
 the reference's own sharded forward on an Auto-axes mesh of 4 forced host
 devices.  The training launcher's ``--ranks 2`` runs in this process.
@@ -21,6 +25,7 @@ devices.  The training launcher's ``--ranks 2`` runs in this process.
 import os
 import subprocess
 import sys
+import tempfile
 from dataclasses import replace
 
 import pytest
@@ -38,10 +43,13 @@ from repro.models import moe as jmoe  # noqa: E402
 from repro.serving.generate import greedy_generate as jgreedy  # noqa: E402
 from repro.train.optimizer import adamw_init as jadamw_init  # noqa: E402
 from repro.train.optimizer import adamw_update as jadamw_update  # noqa: E402
-from repro_torch.bridge import unstack_layers  # noqa: E402
+from repro_torch.bridge import from_numpy_params, unstack_layers  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.sharding import specs  # noqa: E402
+from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, S, DECODE = 4, 16, 4
@@ -51,7 +59,9 @@ ARCHS = {"olmoe": ("olmoe-1b-7b", {}), "mixtral": ("mixtral-8x7b", {}),
          "jamba": ("jamba-1.5-large-398b", {}),
          "mamba": ("mamba2-370m", {}),            # pure SSM, tied embeddings
          # 3 heads: no model axis of 2 or 4 divides them (context parallelism)
-         "odd_heads": ("qwen1.5-4b", {"num_heads": 3, "num_kv_heads": 3})}
+         "odd_heads": ("qwen1.5-4b", {"num_heads": 3, "num_kv_heads": 3}),
+         # a 2-slot sliding-window ring, every slot valid past position 1
+         "ring": ("mixtral-8x7b", {"sliding_window": 2})}
 _MODELS: dict = {}
 _WANT: dict = {}
 _RUNS: dict = {}
@@ -100,18 +110,24 @@ def _grads_like(np_params, seed=5):
 
 MOE = {"psum": (4, "psum"), "a2a": (4, "a2a"), "fallback": (3, "psum"),
        "replica": (2, "psum")}
-# per world size: (mesh dims, seq_shard, cases), the meshes built in turn
+# per world size: (mesh dims, seq_shard, cases), the meshes built in turn.
+# "decode:<model>[:<max_seq>]" decodes DECODE tokens into a cache of max_seq
+# (DECODE by default); "loss:<model>:fsdp" holds the parameters as ZeRO-1
+# slices; "generate[:<model>]" defaults to olmoe.
 PLAN = {
     2: [((1, 2), True, ["forward:olmoe", "forward:mixtral", "forward:jamba", "forward:mamba",
                         "forward:odd_heads", "loss:olmoe", "loss:jamba", "moe:psum", "moe:a2a",
-                        "moe:fallback", "decode:mixtral", "decode:jamba", "generate"]),
+                        "moe:fallback", "decode:mixtral", "decode:jamba", "decode:odd_heads",
+                        "decode:ring", "generate", "generate:odd_heads"]),
         ((2, 1), False, ["forward:olmoe", "forward:jamba", "zero1"])],
     4: [((2, 2), True, ["forward:olmoe", "forward:mixtral", "forward:jamba", "forward:mamba",
                         "forward:odd_heads", "loss:jamba", "moe:psum", "moe:a2a", "zero1",
-                        "decode:jamba", "generate"]),
+                        "decode:jamba", "generate", "loss:olmoe:fsdp", "ckpt"]),
         ((1, 4), False, ["forward:olmoe", "forward:jamba", "forward:odd_heads",
-                         "moe:replica"])],
+                         "moe:replica", "decode:odd_heads", "decode:mixtral",
+                         "decode:odd_heads:5"])],
 }
+CKPT_DIR = tempfile.mkdtemp(prefix="torch_sharded_ckpt_")
 
 
 def _cases(kind):
@@ -122,13 +138,15 @@ def _cases(kind):
 
 def _args(case):
     kind, _, what = case.partition(":")
+    what, _, opt = what.partition(":")
     toks, labels = _tokens()
     if kind == "forward":
         return "forward", (_model(what)[1], _model(what)[3], toks)
     if kind == "loss":
-        return "loss", (_model(what)[1], _model(what)[3], toks, labels)
+        return "loss", (_model(what)[1], _model(what)[3], toks, labels, opt == "fsdp")
     if kind == "decode":
-        return "decode", (_model(what)[1], _model(what)[3], toks[:, :DECODE].copy())
+        return "decode", (_model(what)[1], _model(what)[3], toks[:, :DECODE].copy(),
+                          int(opt or DECODE))
     if kind == "moe":
         E, disp = MOE[what]
         _, cfg, p, x = _moe_inputs(E)
@@ -136,7 +154,12 @@ def _args(case):
     ol = _model("olmoe")
     if kind == "zero1":
         return "zero1", (ol[1], ol[3], _grads_like(ol[3]), LR)
-    return "generate", (ol[1], ol[3], toks[:, :8].copy(), DECODE)
+    if kind == "ckpt":
+        path_in = os.path.join(CKPT_DIR, "one_device.npz")
+        save_checkpoint(path_in, from_numpy_params(ol[1], ol[3], "cpu"), step=7)
+        return "ckpt", (ol[1], ol[3], os.path.join(CKPT_DIR, "mesh.npz"), path_in)
+    gen = _model(what or "olmoe")
+    return "generate", (gen[1], gen[3], toks[:, :8].copy(), DECODE)
 
 
 def _runs(n):
@@ -206,17 +229,71 @@ def test_sharded_forward_matches_reference(n, dims, case):
         assert abs(got["aux"] - aux) <= 1e-5 * max(abs(aux), 1.0)
 
 
+def _shape_ctx(dims):
+    return mesh.make_ctx(specs.Mesh(("data", "model"), dims))
+
+
+def _spec_share(shape, spec, dims):
+    """A leaf's shape on one rank under ``spec`` on a (data, model) mesh."""
+    size = {"data": dims[0], "model": dims[1], None: 1}
+    out = []
+    for n, a in zip(shape, spec):
+        for ax in (a if isinstance(a, tuple) else (a,)):
+            n //= size[ax]
+        out.append(n)
+    return tuple(out)
+
+
+def _want_params_held(cfg, dims):
+    """Each leaf's shape on a rank under ``param_shardings(zero1=True)``:
+    its ``"data"`` dims split, its model dim as ``placement`` splits it
+    (whole where the port keeps a module whole; ``conv_w`` its ``xs``
+    share and all of B and C)."""
+    full = M.init_params(cfg, device="cpu")
+    spec = dict(specs.tree_paths(specs.param_shardings(_shape_ctx(dims), full, zero1=True)))
+    want = {}
+    for path, t in specs.tree_paths(full):
+        shape = list(t.shape)
+        for i, a in enumerate(spec[path]):
+            if a == "data":
+                shape[i] //= dims[0]
+        where = specs.placement(cfg, dims[1], path)
+        if where is not None:
+            shape[where[0]] -= where[1] - where[1] // dims[1]
+        want[path] = tuple(shape)
+    return want
+
+
+def _check_cache_held(cfg, dims, B_all: int, max_seq: int, held: dict):
+    """Every KV and SSM-state leaf a rank holds has ``cache_shardings``'
+    shard shape (``conv`` its ``xs`` share and all of B and C)."""
+    full = M.init_cache(cfg, B_all, max_seq, device="cpu")
+    spec = dict(specs.tree_paths(specs.cache_shardings(_shape_ctx(dims), full)))
+    assert set(held) == {p for p, _ in specs.tree_paths(full)}
+    for path, t in specs.tree_paths(full):
+        want = _spec_share(tuple(t.shape), spec[path], dims)
+        if path.endswith("conv") and cfg.ssm_nheads % dims[1] == 0:
+            want = want[:2] + (cfg.ssm_d_inner // dims[1] + 2 * cfg.ssm_state,)
+        assert held[path] == want, (path, held[path], want, spec[path])
+
+
 @pytest.mark.parametrize("n,dims,case", _cases("loss"), ids=_ids)
 def test_sharded_loss_and_grads_match_reference(n, dims, case):
     """``loss_fn`` (remat on, the vocabulary-parallel NLL) within 1e-5 of
     ``jax.value_and_grad``'s loss on every rank, and every leaf's gradient
     (summed over the data axis, gathered over the model axis) within 1e-4
-    of its peak."""
-    jl, jg = _want_grads(case.split(":")[1])
+    of its peak.  ``:fsdp``: the parameters held as the ZeRO-1 slices
+    ``param_shardings(zero1=True)`` gives, gathered where each layer starts
+    and their gradients reduce-scattered back."""
+    name = case.split(":")[1]
+    jl, jg = _want_grads(name)
     outs = _runs(n)
+    held = _want_params_held(_model(name)[1], dims) if case.endswith(":fsdp") else None
     for out in outs:
         got = out[case + str(dims)]
         assert abs(got["loss"] - jl) / abs(jl) < LOSS_REL
+        if held is not None:
+            assert got["held"] == held
     grads = outs[0][case + str(dims)]["grads"]
     assert len(grads) == len(jax.tree.leaves(jg))
     for path, g in grads.items():
@@ -270,12 +347,14 @@ def test_sharded_moe_matches_reference(n, dims, case):
 
 @pytest.mark.parametrize("n,dims,case", _cases("zero1"), ids=_ids)
 def test_zero1_adamw_step_matches_reference(n, dims, case):
-    """One ZeRO-1 AdamW step (moments and update on each rank's slice of the
-    ZeRO-1 dim, the slices all-gathered) equals the JAX AdamW step on the
-    whole gradients within 1e-6 of each leaf's peak (a weight near zero
-    after the step is a difference of nearly equal terms, so its own
-    relative error is float rounding), the norm within 1e-6; the moments
-    held per rank shrink with the data-parallel degree."""
+    """One ZeRO-1 AdamW step (parameters, moments and update on each rank's
+    slice of the ZeRO-1 dim) equals the JAX AdamW step on the whole
+    gradients within 1e-6 of each leaf's peak (a weight near zero after the
+    step is a difference of nearly equal terms, so its own relative error
+    is float rounding), the norm within 1e-6; each rank holds exactly the
+    share ``param_shardings(zero1=True)`` gives each leaf (the model dim as
+    ``placement`` splits it), and the moments held per rank shrink with the
+    data-parallel degree."""
     _, cfg, jp, np_params = _model("olmoe")
     grads = _grads_like(np_params)
     new, _, jn = jadamw_update(jp, jax.tree.map(jnp.asarray, grads), jadamw_init(jp), lr=LR)
@@ -284,46 +363,79 @@ def test_zero1_adamw_step_matches_reference(n, dims, case):
            "layers": unstack_layers(cfg, new["layers"])}
     outs = _runs(n)
     total = sum(a.size for a in jax.tree.leaves(np_params))
+    held = _want_params_held(cfg, dims)
     for out in outs:
         got = out[case + str(dims)]
         assert got["step"] == 1 and abs(got["gnorm"] - float(jn)) / float(jn) < ADAM_REL
         assert got["moment_elems"] < total / dims[1] * (1 + dims[0]) / (2 * dims[0]) + 1
+        assert got["held"] == held
     for path, v in outs[0][case + str(dims)]["params"].items():
         assert _rel(v, _at(new, path)) < ADAM_REL, path
 
 
 @pytest.mark.parametrize("n,dims,case", _cases("decode"), ids=_ids)
 def test_sharded_decode_steps_match_reference(n, dims, case):
-    """``decode_step(ctx)`` from ``init_cache(ctx)`` (each rank's share of
-    the KV heads or, when the model axis does not divide them, all of them;
-    the SSM's heads and conv channels ``[xs share | B | C]``), one step per
-    token: every step's logits within 1e-4 relative of the JAX
-    ``decode_step`` from ``init_cache``."""
-    name = case.split(":")[1]
-    if ("decode", name) not in _WANT:
+    """``decode_step(ctx)`` from ``init_cache(ctx)``, one step per token:
+    every step's logits within 1e-4 relative of the JAX ``decode_step``
+    from ``init_cache`` of the same ``max_seq``, and every cache leaf a rank
+    holds of the shape ``cache_shardings`` gives it: the KV heads split
+    where the model axis divides them, else the span (mixtral and jamba
+    with 1 KV head, the 3-head config at 4 slots, the ring), else head_dim
+    (the 3-head config at 5 slots on 4 ranks); the SSM's heads, and conv
+    channels ``[xs share | B | C]``."""
+    _, name, *opt = case.split(":")
+    max_seq = int(opt[0]) if opt else DECODE
+    if ("decode", name, max_seq) not in _WANT:
         jcfg, _, jp, _ = _model(name)
         toks = _tokens()[0][:, :DECODE]
-        cache, want = JM.init_cache(jcfg, B, DECODE), []
+        cache, want = JM.init_cache(jcfg, B, max_seq), []
         for t in range(DECODE):
             logits, cache = JM.decode_step(jcfg, jp, cache, jnp.asarray(toks[:, t]),
                                            jnp.int32(t))
             want.append(np.asarray(logits))
-        _WANT[("decode", name)] = np.stack(want, axis=1)
-    want = _WANT[("decode", name)]
+        _WANT[("decode", name, max_seq)] = np.stack(want, axis=1)
+    want = _WANT[("decode", name, max_seq)]
+    cfg = _model(name)[1]
     for out in _runs(n):
-        assert _rel(out[case + str(dims)], want[_rows(dims, out)]) < REL
+        got = out[case + str(dims)]
+        assert _rel(got["logits"], want[_rows(dims, out)]) < REL
+        _check_cache_held(cfg, dims, B, max_seq, got["cache"])
 
 
 @pytest.mark.parametrize("n,dims,case", _cases("generate"), ids=_ids)
 def test_sharded_greedy_generate_matches_reference(n, dims, case):
     """``greedy_generate(ctx)`` (sharded prefill, then sharded decode steps
-    on each rank's cache share) gives the JAX ``greedy_generate``'s tokens
-    on every rank's rows."""
-    jcfg, _, jp, _ = _model("olmoe")
+    on each rank's cache share: the KV heads for olmoe, the span for the
+    3-head config) gives the JAX ``greedy_generate``'s tokens on every
+    rank's rows, and the cache it keeps has ``cache_shardings``' shapes."""
+    name = case.partition(":")[2] or "olmoe"
+    jcfg, cfg, jp, _ = _model(name)
     prompt = _tokens()[0][:, :8]
     want = np.asarray(jgreedy(jcfg, jp, jnp.asarray(prompt), DECODE))
     for out in _runs(n):
-        np.testing.assert_array_equal(out[case + str(dims)], want[_rows(dims, out)])
+        got = out[case + str(dims)]
+        np.testing.assert_array_equal(got["tokens"], want[_rows(dims, out)])
+        _check_cache_held(cfg, dims, B, prompt.shape[1] + DECODE, got["cache"])
+
+
+@pytest.mark.parametrize("n,dims,case", _cases("ckpt"), ids=_ids)
+def test_checkpoint_round_trips_across_meshes(n, dims, case):
+    """A checkpoint of ZeRO-1 parameters written on (2, 2) (``save_sharded``)
+    restores on one device (``load_checkpoint``) to the weights it was cut
+    from, bit for bit; a one-device file restores on (2, 2)
+    (``load_checkpoint``, then ``shard_params``) to each rank's own
+    tensors, with the step."""
+    _, cfg, _, np_params = _model("olmoe")
+    outs = _runs(n)
+    full = from_numpy_params(cfg, np_params, "cpu")
+    got, step = load_checkpoint(os.path.join(CKPT_DIR, "mesh.npz"), full)
+    assert step == 3
+    for (path, a), (_, b) in zip(specs.tree_paths(got), specs.tree_paths(full)):
+        assert torch.equal(a, b), path
+    held = _want_params_held(cfg, dims)
+    for out in outs:
+        res = out[case + str(dims)]
+        assert res["step"] == 7 and res["restored_equal"] and res["held"] == held
 
 
 REFERENCE_MESH = r"""

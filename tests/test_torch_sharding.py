@@ -153,6 +153,33 @@ def test_cache_specs_equal_reference(arch, smoke):
         assert ref[0] is None and spec == ref[1:], (path, spec, ref)
 
 
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("m", [2, 4, 16])
+def test_cache_placement_splits_the_spec_model_dim(m, arch, smoke):
+    """What a rank holds of a decode cache (``cache_placement``) is split on
+    exactly the dim ``cache_shardings`` puts ``"model"`` on -- the KV
+    heads, else the span, else head_dim; the SSM state's heads and conv
+    channels -- and whole where the spec has none, at spans 64 (which
+    every m divides) and 33 (which none does)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    cfg = get_config(arch, smoke=smoke)
+    ctx = mesh.make_ctx(Mesh(("data", "model"), (1, m)))
+    for span in (64, 33):
+        with FakeTensorMode():
+            cache = M.init_cache(cfg, 32, span, device="cpu")
+        spec = dict(specs.tree_paths(specs.cache_shardings(ctx, cache)))
+        for path, leaf in specs.tree_paths(cache):
+            i, name = path.split("/")
+            kind = cfg.layer_kind(int(i))
+            where = specs.cache_placement(cfg, m, kind, name, leaf.shape[1])
+            model = [d for d, a in enumerate(spec[path]) if a == "model"]
+            assert model == ([] if where is None else [where[0]]), (path, spec[path], where)
+            if where is not None and kind == "attn":
+                assert where[1] == leaf.shape[where[0]], (path, where)
+
+
 # what each rank holds differs from the spec only for these leaves
 WHOLE_WHERE_SPEC_SPLITS = {"wB", "wC"}
 
@@ -197,7 +224,7 @@ def test_shard_and_gather_round_trip_in_one_process():
     """``shard_params`` then the shares concatenated back (what
     ``gather_params`` all-gathers) give the full tree on a model axis of 2,
     the SSM conv's B and C columns whole in both shares;
-    ``shard_cache`` likewise; ``full_shape`` recovers every leaf's shape."""
+    ``cache_share`` likewise; ``full_shape`` recovers every leaf's shape."""
     cfg = replace(get_config("jamba-1.5-large-398b", smoke=True), dtype="float32")
     params = M.init_params(cfg, seed=0, device="cpu")
     m = 2
@@ -220,9 +247,55 @@ def test_shard_and_gather_round_trip_in_one_process():
         assert torch.equal(torch.cat([joined] + tail[:1], dim=dim), full), path
         assert all(torch.equal(t, tail[0]) for t in tail), path
     cache = M.init_cache(cfg, 2, 8, device="cpu")
-    local = specs.shard_cache(ctx, cfg, cache)
+    local = [specs.cache_share(ctx, cfg, cfg.layer_kind(i), c) for i, c in enumerate(cache)]
     assert local[0]["conv"].shape[-1] == cfg.ssm_d_inner // m + 2 * cfg.ssm_state
     assert local[0]["h"].shape[1] == cfg.ssm_nheads // m
+
+
+@pytest.mark.parametrize("arch,over,dims,max_seq", [
+    ("jamba-1.5-large-398b", {}, (2, 2), 8),                     # KV heads, SSM heads
+    ("qwen1.5-4b", {"num_heads": 3, "num_kv_heads": 3}, (2, 2), 8),   # the span
+    ("qwen1.5-4b", {"num_heads": 3, "num_kv_heads": 3}, (1, 4), 5),   # head_dim
+])
+def test_init_builds_each_ranks_share_directly(arch, over, dims, max_seq):
+    """``init_params(ctx, zero1=True)`` gives every rank of a (data, model)
+    mesh the tensors ``shard_params`` cuts from the whole ``init_params``,
+    bit for bit (each leaf cut as soon as it is drawn); ``init_cache(ctx)``
+    allocates only the share ``cache_share`` keeps of the whole cache: the
+    same leaves, shapes, dtypes and span, all zeros."""
+    cfg = replace(get_config(arch, smoke=True), **over)
+    full = M.init_params(cfg, seed=0, device="cpu")
+    whole_cache = M.init_cache(cfg, 2, max_seq, device="cpu")
+    for b in range(dims[0]):
+        for r in range(dims[1]):
+            ctx = ShardCtx(mesh=Mesh(("data", "model"), dims, (b, r)), batch_axes=("data",),
+                           model_axis="model")
+            got = dict(specs.tree_paths(M.init_params(cfg, seed=0, device="cpu", ctx=ctx,
+                                                      zero1=True)))
+            want = specs.tree_paths(specs.shard_params(ctx, cfg, full, zero1=True))
+            for path, t in want:
+                assert torch.equal(got.pop(path), t), (path, b, r)
+            assert not got
+            cache = M.init_cache(cfg, 2, max_seq, device="cpu", ctx=ctx)
+            kept_all = [specs.cache_share(ctx, cfg, cfg.layer_kind(i), c)
+                        for i, c in enumerate(whole_cache)]
+            for mine, kept in zip(cache, kept_all, strict=True):
+                assert mine.keys() == kept.keys()
+                for name, t in kept.items():
+                    if not torch.is_tensor(t):
+                        assert mine[name] == t
+                        continue
+                    assert (mine[name].shape, mine[name].dtype) == (t.shape, t.dtype), name
+                    assert not mine[name].any()
+
+
+def test_cache_placement_needs_an_attention_span():
+    """An attention cache leaf's placement needs its span: without it the
+    span branch would take any axis (0 divides by everything)."""
+    cfg = get_config("qwen1.5-4b")
+    with pytest.raises(ValueError):
+        specs.cache_placement(cfg, 16, "attn", "k", 0)
+    assert specs.cache_placement(cfg, 16, "attn", "k", 32768) == (1, 32768)
 
 
 def test_shard_ctx_keeps_the_engine_contract():

@@ -27,11 +27,18 @@ def _ctx(dims, seq_shard: bool, dispatch: str = "psum"):
                    moe_dispatch=dispatch)
 
 
-def _local(cfg, np_params, ctx):
+def _local(cfg, np_params, ctx, zero1: bool = False):
     from repro_torch.bridge import from_numpy_params
     from repro_torch.sharding.specs import shard_params
 
-    return shard_params(ctx, cfg, from_numpy_params(cfg, np_params, "cpu"))
+    return shard_params(ctx, cfg, from_numpy_params(cfg, np_params, "cpu"), zero1=zero1)
+
+
+def _shapes(tree):
+    """Every tensor leaf's shape by path (a cache's ``"span"`` is no leaf)."""
+    from repro_torch.sharding.specs import tree_paths
+
+    return {path: tuple(t.shape) for path, t in tree_paths(tree) if torch.is_tensor(t)}
 
 
 def forward_case(cfg, np_params, tokens, ctx):
@@ -45,25 +52,27 @@ def forward_case(cfg, np_params, tokens, ctx):
     return {"logits": _np(logits), "aux": float(aux)}
 
 
-def loss_case(cfg, np_params, tokens, labels, ctx):
+def loss_case(cfg, np_params, tokens, labels, zero1: bool, ctx):
     """``loss_fn`` (remat on) and every leaf's gradient, summed over the
-    batch axes and gathered whole (rank 0 returns them)."""
-    from repro_torch.distributed import collectives as C
+    batch axes and gathered whole (rank 0 returns them).  ``zero1``: the
+    parameters held as their slices over the batch axes (gathered where
+    each layer starts, their gradients reduce-scattered back)."""
     from repro_torch.models import model as M
     from repro_torch.sharding.specs import gather_params, tree_paths
-    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+    from repro_torch.train.optimizer import batch_summed, tree_leaves, tree_unflatten
 
-    params = _local(cfg, np_params, ctx)
+    params = _local(cfg, np_params, ctx, zero1)
     leaves = tree_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
     total, (nll, aux) = M.loss_fn(cfg, params, M.rows_of(ctx, torch.from_numpy(tokens).long()),
                                   M.rows_of(ctx, torch.from_numpy(labels).long()), ctx=ctx)
     grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    grads = [C.all_reduce_value(torch.zeros_like(p) if g is None else g, ctx.batch_group)
-             for p, g in zip(leaves, grads)]
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    grads = batch_summed(ctx, cfg, params, tree_unflatten(params, grads))
     full = gather_params(ctx, cfg, tree_unflatten(params, grads))
-    out = {"loss": float(total.detach()), "nll": float(nll.detach()), "aux": float(aux.detach())}
+    out = {"loss": float(total.detach()), "nll": float(nll.detach()), "aux": float(aux.detach()),
+           "held": _shapes(params)}
     if ctx.model_rank == ctx.batch_rank == 0:
         out["grads"] = {path: _np(g) for path, g in tree_paths(full)}
     return out
@@ -108,54 +117,93 @@ def moe_case(cfg, np_moe, x, dispatch: str, want_grads: bool, ctx):
 
 
 def zero1_case(cfg, np_params, np_grads, lr: float, ctx):
-    """One ZeRO-1 AdamW step: this rank's shares of the whole gradients,
-    each divided by the data-parallel degree (the sum over the batch axes is
-    the whole gradient again, exactly); the updated parameters gathered
-    whole (rank 0 returns them) and the norm."""
+    """One ZeRO-1 AdamW step on the parameters held as ``shard_params(...,
+    zero1=True)`` gives them: a leaf held as its slice over the batch axes
+    gets the whole gradient's slice (what the reduce-scatter of a real step
+    hands it), every other leaf the whole gradient divided by the
+    data-parallel degree (the optimizer's sum over the batch axes is the
+    whole gradient again, exactly); the updated parameters gathered whole
+    (rank 0 returns them), the norm and the shapes this rank holds."""
     from repro_torch.bridge import from_numpy_params
-    from repro_torch.sharding.specs import gather_params, shard_params, tree_paths
-    from repro_torch.train.optimizer import adamw_init, adamw_update, tree_leaves, tree_map
+    from repro_torch.sharding.specs import gather_params, held_batch_dim, shard_params, tree_paths
+    from repro_torch.train.optimizer import adamw_init, adamw_update, tree_leaves
 
-    params = _local(cfg, np_params, ctx)
-    grads = shard_params(ctx, cfg, from_numpy_params(cfg, np_grads, "cpu"))
-    grads = tree_map(lambda g: g / ctx.batch_size, grads)
-    opt = adamw_init(params, ctx, cfg)
+    params = _local(cfg, np_params, ctx, zero1=True)
+    grads = shard_params(ctx, cfg, from_numpy_params(cfg, np_grads, "cpu"), zero1=True)
+    for path, g in tree_paths(grads):
+        if held_batch_dim(ctx, cfg, path, g.shape) is None:
+            g /= ctx.batch_size
+    opt = adamw_init(params)
+    held = _shapes(params)
     params, opt, gnorm = adamw_update(params, grads, opt, lr=lr, ctx=ctx, cfg=cfg)
     full = gather_params(ctx, cfg, params)
-    out = {"gnorm": float(gnorm), "step": int(opt.step),
+    out = {"gnorm": float(gnorm), "step": int(opt.step), "held": held,
            "moment_elems": sum(t.numel() for t in tree_leaves(opt.mu))}
     if ctx.model_rank == ctx.batch_rank == 0:
         out["params"] = {path: _np(t) for path, t in tree_paths(full)}
     return out
 
 
-def decode_case(cfg, np_params, tokens, ctx):
-    """``decode_step`` from a zeroed cache (``init_cache(ctx)``: this rank's
-    share), one step per column of ``tokens``: each step's logits for this
-    rank's rows."""
+def decode_case(cfg, np_params, tokens, max_seq: int, ctx):
+    """``decode_step`` from a zeroed cache of ``max_seq`` (``init_cache(ctx)``:
+    this rank's share), one step per column of ``tokens``: each step's
+    logits for this rank's rows, and the cache leaves' shapes."""
     from repro_torch.models import model as M
 
     params = _local(cfg, np_params, ctx)
     toks = M.rows_of(ctx, torch.from_numpy(tokens).long())
-    cache = M.init_cache(cfg, toks.shape[0], toks.shape[1], device="cpu", ctx=ctx)
+    cache = M.init_cache(cfg, toks.shape[0], max_seq, device="cpu", ctx=ctx)
     out = []
     with torch.no_grad():
         for t in range(toks.shape[1]):
             logits, cache = M.decode_step(cfg, params, cache, toks[:, t], t, ctx=ctx)
             out.append(_np(logits))
-    return np.stack(out, axis=1)
+    return {"logits": np.stack(out, axis=1), "cache": _shapes(cache)}
 
 
 def generate_case(cfg, np_params, tokens, decode_len: int, ctx):
-    """``greedy_generate(ctx)`` on this rank's rows."""
+    """``greedy_generate(ctx)`` on this rank's rows: the tokens, and the
+    shapes of the decode cache it kept (``cache_from_prefill(ctx)``)."""
     from repro_torch.models import model as M
+    from repro_torch.serving import generate
     from repro_torch.serving.generate import greedy_generate
 
     params = _local(cfg, np_params, ctx)
-    with torch.no_grad():
-        out = greedy_generate(cfg, params, M.rows_of(ctx, torch.from_numpy(tokens).long()),
-                              decode_len, ctx=ctx)
-    return _np(out)
+    kept = {}
+    aligned = generate.cache_from_prefill
+
+    def keep(*a, **kw):
+        kept["cache"] = aligned(*a, **kw)
+        return kept["cache"]
+
+    generate.cache_from_prefill = keep
+    try:
+        with torch.no_grad():
+            out = greedy_generate(cfg, params, M.rows_of(ctx, torch.from_numpy(tokens).long()),
+                                  decode_len, ctx=ctx)
+    finally:
+        generate.cache_from_prefill = aligned
+    return {"tokens": _np(out), "cache": _shapes(kept["cache"])}
+
+
+def ckpt_case(cfg, np_params, path_out: str, path_in: str, ctx):
+    """Checkpoints across meshes: this rank's ZeRO-1 tensors written by
+    ``save_sharded`` to ``path_out`` (the file one device would write), and
+    ``path_in`` (written by one device) restored on this mesh
+    (``load_checkpoint`` into the full template, then ``shard_params``),
+    against this rank's own tensors."""
+    from repro_torch.bridge import from_numpy_params
+    from repro_torch.sharding.specs import shard_params
+    from repro_torch.train.checkpoint import load_checkpoint, save_sharded
+    from repro_torch.train.optimizer import tree_leaves
+
+    params = _local(cfg, np_params, ctx, zero1=True)
+    save_sharded(path_out, params, 3, ctx, cfg)
+    full, step = load_checkpoint(path_in, from_numpy_params(cfg, np_params, "cpu"))
+    got = shard_params(ctx, cfg, full, zero1=True)
+    return {"step": step, "held": _shapes(got),
+            "restored_equal": all(torch.equal(a, b) for a, b in
+                                  zip(tree_leaves(got), tree_leaves(params)))}
 
 
 def mesh_rank(rank: int, n: int, group, plan):
@@ -164,7 +212,8 @@ def mesh_rank(rank: int, n: int, group, plan):
     over all of them.  Returns {name: result}."""
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
     cases = {"forward": forward_case, "loss": loss_case, "moe": moe_case,
-             "zero1": zero1_case, "decode": decode_case, "generate": generate_case}
+             "zero1": zero1_case, "decode": decode_case, "generate": generate_case,
+             "ckpt": ckpt_case}
     out = {}
     for dims, seq_shard, items in plan:
         ctx = _ctx(dims, seq_shard)
