@@ -18,7 +18,21 @@ Phases, in order (any failure exits non-zero with its traceback):
                requests with online capacity re-planning (``replan_skew``,
                one tick a step): static, continuous and the per-module
                oracle re-plan alike and give the same tokens;
-5. serve_long -- the same server and weights on 32 long prompts (1024..3584
+   serve_online -- the launcher's traffic options on serve's weights
+               (requests from ``launch.serve.build_requests``, servers from
+               ``serve_config``): 128 requests of 64..256 tokens, decode
+               lengths cycled over 8..128, an EOS taken from a run without
+               one; closed loop, greedy then top-k sampled: static,
+               continuous and the per-module oracle give identical tokens;
+               then open-loop Poisson arrivals under the strict sanitizer
+               (every request served, EOS and decode lengths honoured,
+               arrivals respected, memory freed), its TTFT / TPOT printed;
+   (serve_omega, serve_long, serve_paged, serve_prefix, serve_streamed,
+   serve_faults and serve_ep run OLMoE at full width and its first
+   PATH_LAYERS = 4 layers, on seeded weights of their own, each against
+   references at that depth; serve_mixtral runs Mixtral at 16 of its 32
+   layers: so the default run's phases fit 900 s)
+5. serve_long -- the server on 32 long prompts (1024..3584
                tokens, decode 64, max_seq 3648): prefill through K4 at every
                layer, decode through K3 at spans up to 3648; its own launch
                counts;
@@ -32,7 +46,7 @@ Phases, in order (any failure exits non-zero with its traceback):
                per-module oracle give identical tokens, the host split and
                the planned reads are as reckoned;
    serve_paged -- serve_long's requests with the KV in 128-slot pages and
-               7.5 GB of device frames: 481 of 928 frames page-locked on the
+               DEVICE_KV_GB of device frames: 481 of 928 frames page-locked on the
                host, streamed a layer ahead and read in place by K3p; the
                tokens bit-identical to serve_long's contiguous ones under
                both schedulers, then Mode A (no cap) on the fused graph;
@@ -184,11 +198,21 @@ PATH_KERNELS = {
     "serve_replicas": ("expert_gate_up", "grouped_matmul", "decode_attention",
                        "flash_attention"),
     "serve_ep": ("expert_gate_up", "grouped_matmul", "decode_attention", "flash_attention"),
+    "serve_online": ("expert_gate_up", "grouped_matmul", "decode_attention",
+                     "flash_attention"),
 }
 # every launch of a served (bf16, full-size) path must take these designs
 NEW_DESIGNS = (("expert_gate_up", "wgmma"), ("grouped_matmul", "wgmma"),
                ("decode_attention", "split"), ("flash_attention", "wgmma"),
                ("ssd_scan", "mma"), ("decode_attention_paged", "split"))
+# OLMoE's paths past serve and serve_online (serve_omega, serve_long,
+# serve_paged, serve_prefix, serve_streamed, serve_faults, serve_ep) run at
+# full width and the first PATH_LAYERS of its 16 layers, on weights of their
+# own, so that the default run's phases fit 900 s; each holds its tokens to
+# references at that depth
+PATH_LAYERS = 4
+PATH_PHASES = {"serve_omega", "serve_long", "serve_paged", "serve_prefix", "serve_streamed",
+               "serve_faults", "serve_ep"}
 # the long-prompt path: 32 prompts even-spread over 1024..3584, decode 64
 # (max_seq 3648, within OLMoE's 4096 context), at the planner's b_a
 LONG_REQUESTS, LONG_MIN, LONG_MAX, LONG_DECODE = 32, 1024, 3584, 64
@@ -198,9 +222,10 @@ SSM_ARCH, SSM_REQUESTS, SSM_MIN, SSM_MAX, SSM_DECODE = "mamba2-370m", 128, 200, 
 # the host-attention path: serve's 64 requests at omega 0.5 (rows 0-31 attend
 # on the host CPU), b_a 32
 OMEGA, OMEGA_B_A = 0.5, 32
-# the paged path: serve_long's requests, KV in 128-slot pages, 7.5 GB of
-# device frames (447 of the 928 frames; the other 481 page-locked on the host)
-PAGE_TOKENS, DEVICE_KV_GB = 128, 7.5
+# the paged path: serve_long's requests, KV in 128-slot pages, device frames
+# of 7.5 GB at 16 layers, scaled to PATH_LAYERS (447 of the 928 frames; the
+# other 481 page-locked on the host)
+PAGE_TOKENS, DEVICE_KV_GB = 128, 7.5 * PATH_LAYERS / 16
 # the prefix-cache path: one seeded 1024-token shared instruction in front of
 # each request's own 16..128-token question (prompts 1040..1152, every key at
 # pspan 1024), decode 32, a wave of misses then a wave of hits
@@ -210,6 +235,13 @@ PREFIX_SUFFIXES = (16, 64, 128)
 # online capacity re-planning on serve's requests: the drift (absolute share
 # of the hottest expert between checks) above which b_e is re-planned
 REPLAN_SKEW = 1e-6
+# the online path (the launcher's traffic flags): 128 requests cycling
+# serve's prompt lengths and these decode lengths; the EOS run sampled at
+# ONLINE_SAMPLED; open-loop arrivals at ONLINE_LOAD of the closed-loop
+# continuous drain rate
+ONLINE_REQUESTS, ONLINE_DECODES = 128, (8, 16, 32, 64, 128)
+ONLINE_SAMPLED = ("--temperature", "0.8", "--top-k", "50")
+ONLINE_LOAD = 0.5
 # the oracles path: serve's weights, 16 requests of 64..256 tokens, decode 16,
 # B = b_e = 16; greedy_generate on 16 prompts of 256 tokens
 ORACLE_REQUESTS, ORACLE_DECODE, ORACLE_PROMPT = 16, 16, 256
@@ -1405,18 +1437,21 @@ def phase_kernels(dev, plan, span: int, prompt_len: int, long_b_a: int,
 # Phase 4: full-width serving through the port's Server
 # ---------------------------------------------------------------------------
 def serve_setup(lens, decode_len: int, arch: str = "olmoe-1b-7b", omega: float = 0.0,
-                batch=None):
-    """A served path on a full-size config: the planner's plan on the H100
-    profile for these prompts at ``batch`` slots (default: one per prompt),
-    with b_e raised to B (one expert can take every token of a step, so no
-    copy drops and both schedulers must give identical tokens) and
-    ``omega`` host-attention rows (0 unless a phase asks: the planner's own
-    omega at these shapes is 1)."""
+                batch=None, layers=None):
+    """A served path on a full-width config (its first ``layers`` layers
+    when given): the planner's plan on the H100 profile for these prompts
+    at ``batch`` slots (default: one per prompt), with b_e raised to B (one
+    expert can take every token of a step, so no copy drops and both
+    schedulers must give identical tokens) and ``omega`` host-attention
+    rows (0 unless a phase asks: the planner's own omega at these shapes is
+    1)."""
     from repro_torch.configs import get_config
     from repro_torch.core.hardware import H100_SXM_80GB
     from repro_torch.launch.serve import build_plan
 
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = replace(cfg, num_layers=layers)
     n = len(lens)
     B = batch or n
     args = argparse.Namespace(prompt_lens=lens, decode_len=decode_len,
@@ -1428,19 +1463,33 @@ def short_lengths(n: int = 64):
     return [64 + (192 * i) // (n - 1) for i in range(n)]
 
 
-def init_weights(dev, arch: str = "olmoe-1b-7b"):
-    """A full-size config in bf16, seeded, on the card (OLMoE's weights are
-    shared by both of its serve phases)."""
+def init_weights(dev, arch: str = "olmoe-1b-7b", layers=None):
+    """A full-width config in bf16 (its first ``layers`` layers when
+    given), seeded, on the card (each set of OLMoE's weights is shared by
+    the serve phases at its depth)."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.serving.weights import tree_bytes
 
     t0 = time.perf_counter()
-    params = M.init_params(get_config(arch), seed=0, device=dev)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = replace(cfg, num_layers=layers)
+    params = M.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    emit({"phase": "weights", "arch": arch, "init_s": time.perf_counter() - t0,
-          "weights_gb": tree_bytes(params) / 1e9})
+    emit({"phase": "weights", "arch": arch, "layers": cfg.num_layers,
+          "init_s": time.perf_counter() - t0, "weights_gb": tree_bytes(params) / 1e9})
     return params
+
+
+def resident_budget(cfg, streamed: int) -> float:
+    """The resident bytes at which ``workload.plan_residency`` keeps the base
+    weights, every mixer and all but the last ``streamed`` expert stacks on
+    the card (half a stack of slack)."""
+    from repro_torch.core import workload as W
+
+    return (W.base_weight_bytes(cfg) + cfg.num_layers * W.mixer_weight_bytes(cfg, "attn")
+            + (cfg.num_layers - streamed + 0.5) * W.ffn_module_weight_bytes(cfg, "moe"))
 
 
 def freed(phase: str, what: str, before: int) -> None:
@@ -1907,10 +1956,11 @@ def untap(obj) -> None:
         delattr(obj, name)
 
 
-def served(dev, cfg, params, plan, requests, serve_kw: dict, fused: bool = True,
+def served(dev, cfg, params, plan, requests, serve_kw, fused: bool = True,
            phase: str = "serve", taps=None):
-    """One ``Server`` run of ``requests`` with ``ServeConfig(**serve_kw)``
-    (``fused=False``: the per-module oracle, its engine's fused decode off),
+    """One ``Server`` run of ``requests`` with ``ServeConfig(**serve_kw)``, or
+    ``serve_kw`` itself when it is a ``ServeConfig`` (``fused=False``: the
+    per-module oracle, its engine's fused decode off),
     the launch counts set to 0 just before and read just after, the host
     syncs inside its decode chunks and re-plan checks recorded
     (``watch_decode_syncs``).  ``taps(server)``, when given, wraps what it wants
@@ -1920,8 +1970,9 @@ def served(dev, cfg, params, plan, requests, serve_kw: dict, fused: bool = True,
     from repro_torch.serving import weights as wmod
     from repro_torch.serving.server import ServeConfig, Server
 
+    serve = serve_kw if isinstance(serve_kw, ServeConfig) else ServeConfig(**serve_kw)
     before, pinned = torch.cuda.memory_allocated(), wmod.pinned_bytes()
-    server = Server(cfg, params, plan, serve=ServeConfig(**serve_kw), device=dev)
+    server = Server(cfg, params, plan, serve=serve, device=dev)
     for r in requests:
         server.submit(r)
     server._ensure_engine()
@@ -1945,7 +1996,7 @@ def served(dev, cfg, params, plan, requests, serve_kw: dict, fused: bool = True,
            "seen": seen,
            "table": None if eng.pages is None else eng.pages.describe()}
     del server, eng
-    freed(phase, f"{serve_kw.get('scheduler', 'static')} server", before)
+    freed(phase, f"{serve.scheduler} server", before)
     if wmod.pinned_bytes() != pinned:
         raise AssertionError(f"{phase}: the deleted server left "
                              f"{wmod.pinned_bytes() - pinned} page-locked bytes")
@@ -2025,6 +2076,224 @@ def phase_replan(dev, params):
         if runs[name]["seen"]["pushed"] != runs["static"]["seen"]["pushed"]:
             raise AssertionError(f"serve_replan: {name} pushed {runs[name]['seen']['pushed']}"
                                  f", static {runs['static']['seen']['pushed']}")
+
+
+def online_args(*flags):
+    """The launcher's flags (``launch.serve.parse_args``) of the serve_online
+    traffic, ``flags`` added: ONLINE_REQUESTS requests cycling serve's 64
+    prompt lengths (64..256) and the decode lengths ONLINE_DECODES, B = b_e
+    = 64, omega 0."""
+    from repro_torch.launch import serve as launch
+
+    return launch.parse_args([
+        "--requests", str(ONLINE_REQUESTS),
+        "--prompt-lens", ",".join(map(str, short_lengths())),
+        "--decode-lens", ",".join(map(str, ONLINE_DECODES)),
+        "--batch", "64", "--b-e", "64", "--omega", "0", *flags])
+
+
+def by_index(report) -> list:
+    """A report's per-request tokens in request order."""
+    return [r.tokens for r in sorted(report.request_results, key=lambda r: r.index)]
+
+
+def eos_share(phase: str, report, requests, eos: int, early_stop: bool = True) -> float:
+    """Every request served, none with a token after an EOS or past its
+    decode length, every one that stops without an EOS stopped at its
+    decode length, and (``early_stop``) at least one stopped early on the
+    EOS; returns the share that stopped on an EOS."""
+    results = report.request_results
+    if sorted(r.index for r in results) != list(range(len(requests))):
+        raise AssertionError(f"{phase}: {len(results)} of {len(requests)} requests served")
+    on_eos = early = 0
+    for r in results:
+        t, want = r.tokens, requests[r.index].decode_len
+        if (t[:-1] == eos).any() or t.size > want or (t[-1] != eos and t.size != want):
+            where = int((t == eos).argmax()) if (t == eos).any() else None
+            raise AssertionError(f"{phase}: request {r.index} stopped after {t.size} of "
+                                 f"{want} tokens, EOS {eos} first at {where}")
+        on_eos += int(t[-1] == eos)
+        early += int(t[-1] == eos and t.size < want)
+    if early_stop and not early:
+        raise AssertionError(f"{phase}: no request stopped early on EOS {eos}")
+    return on_eos / len(results)
+
+
+def phase_serve_online(dev, params):
+    """The launcher's traffic options on serve's weights, every request built
+    by ``launch.serve.build_requests`` and every server configured by
+    ``launch.serve.serve_config`` (EOS, and under the continuous scheduler
+    the Eq. 2 gate): 128 requests of 64..256 tokens, decode lengths cycled
+    over 8..128, B = b_e = 64.  First the requests without EOS (static,
+    chunked T): the token the most requests produce before their last one
+    becomes the EOS.
+    (a) Closed loop with that EOS, greedy then sampled (temperature 0.8,
+    top-k 50): static and continuous (fused) and the per-module oracle
+    (continuous, ``fused_decode=False``, the same launch counts as the
+    fused continuous run) give bit-identical tokens.  (b) Open
+    loop: continuous, Poisson arrivals at ONLINE_LOAD of the rate at which
+    (a)'s greedy continuous run drained, under the strict sanitizer.  Every
+    run serves every request and honours EOS and the decode lengths, some
+    request of each greedy run stopping early on the EOS (with seeded
+    random weights no token is produced by more than a few of the 128
+    requests, so the EOS stops few of them); (b) admits no request before it arrived, makes no
+    unplanned host read and frees the server's memory.  Returns the launch
+    counts of (b) and of (a)'s greedy static run."""
+    import numpy as np
+
+    from repro_torch import analysis
+    from repro_torch.configs import get_config
+    from repro_torch.core.hardware import PROFILES
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+    from repro_torch.serving import weights as wmod
+    from repro_torch.serving.server import Server
+
+    cfg = get_config("olmoe-1b-7b")
+    base = online_args()
+    plan = launch.build_plan(cfg, PROFILES[base.profile], base)
+    cuda = dev.type == "cuda"
+
+    def run(name, args, fused=True):
+        requests = launch.build_requests(args, cfg)
+        rec = served(dev, cfg, params, plan, requests, launch.serve_config(args), fused,
+                     "serve_online")
+        rep, c = rec["report"], rec["counts"]
+        emit({"phase": "serve_online", "run": name, "scheduler": args.scheduler,
+              "eos_id": args.eos_id, "temperature": args.temperature, "top_k": args.top_k,
+              "wall_s": rec["wall_s"], "prefill_tok_s": rep.prefill_throughput,
+              "decode_tok_s": rep.decode_throughput, "decode_tokens": rep.decode_tokens,
+              "decode_ticks": rec["ticks"], "fused_ticks": rec["fused_ticks"],
+              "server_ms_per_tick": rep.decode_s * 1e3 / max(rec["ticks"], 1),
+              "prefill_waves": len(rep.admission_waves),
+              "admission_deferrals": rep.admission_deferrals, "sync_sites": rec["syncs"],
+              "dropped": rep.expert_tokens_dropped, "launches": c})
+        if cuda and not all(c[k] > 0 for k in PATH_KERNELS["serve_online"]):
+            raise AssertionError(f"serve_online {name}: a kernel of the path was never "
+                                 f"launched: {c}")
+        if cuda and any(c[k] != c[f"{k}_{d}"] for k, d in NEW_DESIGNS):
+            raise AssertionError(f"serve_online {name}: a launch did not take its new "
+                                 f"design: {c}")
+        if rec["syncs"] or rep.expert_tokens_dropped:
+            raise AssertionError(f"serve_online {name}: sync sites {rec['syncs']}, "
+                                 f"{rep.expert_tokens_dropped} copies dropped")
+        if fused and cuda and rec["fused_ticks"] != rec["ticks"]:
+            raise AssertionError(f"serve_online {name}: {rec['fused_ticks']} of "
+                                 f"{rec['ticks']} ticks replayed")
+        rec["requests"] = requests
+        return rec
+
+    # a warm-up server (allocator, cuBLAS handles) so the timed runs start warm
+    before = torch.cuda.memory_allocated()
+    warm = Server(cfg, params, plan, serve=launch.serve_config(base), device=dev)
+    for r in launch.build_requests(base, cfg)[:2]:
+        warm.submit(replace(r, decode_len=2))
+    warm.run()
+    del warm
+    freed("serve_online", "warm-up server", before)
+    plain = run("no_eos", base)
+    # the token most requests produce before their last token (counted once
+    # a request): each of them stops early on it
+    produced = np.bincount(np.concatenate([np.unique(t[:-1]) for t in plain["tokens"]]))
+    eos = int(produced.argmax())
+    top = np.argsort(-produced, kind="stable")[:5]
+    emit({"phase": "serve_online", "what": "eos pick", "eos_id": eos,
+          "top_tokens_by_requests": [[int(t), int(produced[t])] for t in top],
+          "requests": len(plain["tokens"])})
+    closed = {}
+    for mode, flags in (("greedy", ()), ("sampled", ONLINE_SAMPLED)):
+        runs = {}
+        for name, sched, fused in (("static", "static", True),
+                                   ("continuous", "continuous", True),
+                                   ("per-module", "continuous", False)):
+            args = online_args("--eos-id", str(eos), "--scheduler", sched, *flags)
+            runs[name] = run(f"{mode}_{name}", args, fused)
+            runs[name]["eos_share"] = eos_share(f"serve_online {mode} {name}",
+                                                runs[name]["report"], runs[name]["requests"],
+                                                eos, early_stop=mode == "greedy")
+        want = by_index(runs["static"]["report"])
+        for name in ("continuous", "per-module"):
+            got = by_index(runs[name]["report"])
+            differ = [i for i, (a, b) in enumerate(zip(want, got)) if not np.array_equal(a, b)]
+            if differ:
+                raise AssertionError(f"serve_online {mode}: static and {name} tokens differ "
+                                     f"for requests {differ}")
+        if runs["continuous"]["counts"] != runs["per-module"]["counts"]:
+            raise AssertionError(f"serve_online {mode}: launch counts "
+                                 f"{runs['continuous']['counts']} differ from the "
+                                 f"per-module oracle's {runs['per-module']['counts']}")
+        closed[mode] = runs
+    g, p = closed["greedy"]["static"]["report"], plain["report"]
+    emit({"phase": "serve_online", "what": "closed loop", "eos_id": eos,
+          "eos_share": {m: {n: r["eos_share"] for n, r in runs.items()}
+                        for m, runs in closed.items()},
+          "tokens_identical": True, "nvidia_smi": gpu_line(),
+          "eos_static": {"decode_tok_s": g.decode_throughput,
+                         "prefill_tok_s": g.prefill_throughput,
+                         "decode_tokens": g.decode_tokens,
+                         "server_ms_per_tick": g.decode_s * 1e3 / closed["greedy"]["static"]["ticks"]},
+          "no_eos_static_chunked": {"decode_tok_s": p.decode_throughput,
+                                    "prefill_tok_s": p.prefill_throughput,
+                                    "decode_tokens": p.decode_tokens,
+                                    "decode_chunk": plan.decode_chunk,
+                                    "server_ms_per_tick": p.decode_s * 1e3 / plain["ticks"]},
+          "eos_one_tick_cost_ms_per_tick": (g.decode_s * 1e3 / closed["greedy"]["static"]["ticks"]
+                                            - p.decode_s * 1e3 / plain["ticks"])})
+
+    drain = ONLINE_REQUESTS / closed["greedy"]["continuous"]["wall_s"]
+    rate = ONLINE_LOAD * drain
+    args = online_args("--eos-id", str(eos), "--scheduler", "continuous",
+                       "--arrival-rate", repr(rate))
+    requests = launch.build_requests(args, cfg)
+    before, pinned = torch.cuda.memory_allocated(), wmod.pinned_bytes()
+    server = Server(cfg, params, plan, serve=launch.serve_config(args), device=dev)
+    handles = [server.submit(r) for r in requests]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with analysis.sanitize(strict=True, pointers=True) as san:
+        rep = server.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    st, ticks = server._engine.stats, rep.decode_slot_steps // server._b
+    report = san.report()
+    late = [h.index for h in handles if not h.admit_s >= h.arrival_s]
+    early = [r.index for r in rep.request_results if not r.ttft_s >= r.queue_wait_s]
+    share = eos_share("serve_online open loop", rep, requests, eos)
+    want = by_index(closed["greedy"]["static"]["report"])
+    same = [bool(np.array_equal(a, b)) for a, b in zip(want, by_index(rep))]
+    emit({"phase": "serve_online", "what": "open loop", "arrival_rate": rate,
+          "closed_loop_drain_rate": drain, "last_arrival_s": float(requests[-1].arrival_s),
+          "wall_s": wall, "last_arrival_share_of_wall": requests[-1].arrival_s / wall,
+          "ttft_s": {"mean": rep.mean_ttft_s, "p50": rep.ttft_percentile(50),
+                     "p95": rep.ttft_percentile(95)},
+          "tpot_ms": {"mean": rep.mean_tpot_s * 1e3, "p50": rep.tpot_percentile(50) * 1e3,
+                      "p95": rep.tpot_percentile(95) * 1e3},
+          "mean_queue_wait_s": rep.mean_queue_wait_s, "mean_latency_s": rep.mean_latency_s,
+          "decode_tok_s": rep.decode_throughput, "prefill_tok_s": rep.prefill_throughput,
+          "prefill_waves": len(rep.admission_waves), "decode_ticks": ticks,
+          "fused_ticks": st.fused_ticks, "eos_share": share,
+          "admission_deferrals": rep.admission_deferrals,
+          "tokens_equal_to_closed_loop_share": sum(same) / len(same),
+          "sanitizer": {k: report[k] for k in ("mode", "host_reads", "pointer_violations",
+                                               "planned_transfers")},
+          "launches": counts, "nvidia_smi": gpu_line()})
+    if late or early:
+        raise AssertionError(f"serve_online open loop: admitted before arrival {late}, "
+                             f"first token before admission {early}")
+    if report["host_reads"] or report["pointer_violations"]:
+        raise AssertionError(f"serve_online open loop: sanitizer findings {report}")
+    if cuda and not (all(counts[k] > 0 for k in PATH_KERNELS["serve_online"])
+                     and st.fused_ticks == ticks):
+        raise AssertionError(f"serve_online open loop: launches {counts}, {st.fused_ticks} "
+                             f"of {ticks} ticks replayed")
+    del server, st, handles
+    freed("serve_online", "open-loop server", before)
+    if wmod.pinned_bytes() != pinned:
+        raise AssertionError(f"serve_online: the deleted server left "
+                             f"{wmod.pinned_bytes() - pinned} page-locked bytes")
+    return counts, closed["greedy"]["static"]["counts"]
 
 
 def prefix_requests(cfg):
@@ -2142,7 +2411,7 @@ def cold_alone(dev, cfg, params, plan, prompts):
 
 
 def phase_serve_prefix(dev, params, profile=False):
-    """Full-width, full-depth OLMoE-1B-7B, 64 requests of one 1024-token
+    """Full-width OLMoE-1B-7B at PATH_LAYERS, 64 requests of one 1024-token
     shared instruction plus a 16..128-token question each, decode 32, B 32,
     the planner's b_a, b_e = B, 128-token pages (Mode A), max_seq 1280: a
     static wave of 32 misses, then a wave of 32 hits.  Cold (prefix cache
@@ -2157,10 +2426,11 @@ def phase_serve_prefix(dev, params, profile=False):
     the frames on the host, K3p): tokens bit-identical to Mode A's."""
     import numpy as np
 
-    cfg, _, _, _ = serve_setup([PREFIX_LEN + 16], PREFIX_DECODE)
+    cfg, _, _, _ = serve_setup([PREFIX_LEN + 16], PREFIX_DECODE, layers=PATH_LAYERS)
     requests = prefix_requests(cfg)
     lens = [len(r.prompt) for r in requests]
-    _, plan, _, _ = serve_setup(lens, PREFIX_DECODE, batch=PREFIX_REQUESTS // 2)
+    _, plan, _, _ = serve_setup(lens, PREFIX_DECODE, batch=PREFIX_REQUESTS // 2,
+                               layers=PATH_LAYERS)
     B = plan.B
     frame = cfg.num_layers * 2 * PAGE_TOKENS * cfg.num_kv_heads * cfg.head_dim * 2
     frames = B * -(-PREFIX_MAX_SEQ // PAGE_TOKENS)
@@ -2288,7 +2558,7 @@ def phase_serve_long(dev, params, profile=False):
     from repro_torch.data.datasets import DatasetSpec, synthetic_requests
     from repro_torch.serving.weights import tree_bytes
 
-    cfg, plan, lens, decode_len = serve_setup(long_lengths(), LONG_DECODE)
+    cfg, plan, lens, decode_len = serve_setup(long_lengths(), LONG_DECODE, layers=PATH_LAYERS)
     n = len(lens)
     max_seq = LONG_MAX + LONG_DECODE
     kv_bytes = (n * max_seq * cfg.num_layers * 2 * cfg.num_kv_heads
@@ -2339,7 +2609,7 @@ def phase_serve_omega(dev, params, resident=None):
     planned read a layer, the §B mechanism on the CPU, the output up from
     page-locked memory), rows 32-63 replay the fused graph.  Static,
     continuous and the per-module oracle give identical tokens; the host
-    split is 32 rows x 16 layers a tick, with one planned read per attention
+    split is 32 rows x PATH_LAYERS layers a tick, one planned read per attention
     layer and host tick and no other host wait in a chunk.  Reports the
     CPU's ms per host-attention layer and its share of a tick, and the share
     of requests whose tokens equal ``serve``'s omega-0 tokens (``resident``:
@@ -2351,7 +2621,7 @@ def phase_serve_omega(dev, params, resident=None):
     from repro_torch.data.datasets import DatasetSpec, synthetic_requests
     from repro_torch.serving.sampling import BatchSampler
 
-    cfg, plan, lens, decode_len = serve_setup(short_lengths(), 32, omega=OMEGA)
+    cfg, plan, lens, decode_len = serve_setup(short_lengths(), 32, omega=OMEGA, layers=PATH_LAYERS)
     plan = replace(plan, b_a=OMEGA_B_A)
     n = len(lens)
     n_host = int(round(plan.omega * plan.B))
@@ -2451,7 +2721,7 @@ def paged_run(dev, cfg, params, plan, requests, decode_len: int, sched: str,
 
 def phase_serve_paged(dev, params, long_reports=None):
     """serve_long's 32 prompts (1024..3584 tokens, decode 64, B 32) with
-    the KV in 128-slot pages and 7.5 GB of device frames (Mode B): 447 of
+    the KV in 128-slot pages and DEVICE_KV_GB of device frames (Mode B): 447 of
     the 928 frames on the card, 481 page-locked on the host, streamed a
     layer ahead on the copy stream and read in place by K3p.  Static and
     continuous in Mode B, then Mode A (the same pages, no cap).  Gates: the
@@ -2470,7 +2740,7 @@ def phase_serve_paged(dev, params, long_reports=None):
     from repro_torch.serving.cache import CacheConfig
     from repro_torch.serving.sampling import BatchSampler
 
-    cfg, plan, lens, decode_len = serve_setup(long_lengths(), LONG_DECODE)
+    cfg, plan, lens, decode_len = serve_setup(long_lengths(), LONG_DECODE, layers=PATH_LAYERS)
     n = len(lens)
     max_seq = LONG_MAX + LONG_DECODE
     requests = synthetic_requests(DatasetSpec("long", n, LONG_MAX, decode_len),
@@ -2640,10 +2910,15 @@ def phase_serve_ssm(dev, profile=False):
 # ---------------------------------------------------------------------------
 # Phase 7: weight streaming, OLMoE against its resident tokens
 # ---------------------------------------------------------------------------
-STREAMED_BUDGET = 7e9          # OLMoE-1B-7B: the expert stacks of layers 7-15 stream
-# Mixtral-8x7B: 60 GB resident (base, all 32 mixers, the stacks of layers
-# 0-19); the stacks of layers 20-31 stream.  64 prompts of 128..512, decode 16
-MIXTRAL_ARCH, MIXTRAL_BUDGET = "mixtral-8x7b", 60e9
+# OLMoE at PATH_LAYERS: the last STREAMED_STACKS expert stacks stream
+# (serve_streamed); serve_faults streams FAULTS_STREAMED_STACKS (every stack
+# at 4 layers: FAULTS_STREAMED's seeded plan first stalls the window's
+# 114th prefetch, and 4 stacks make 128 prefetches in its 32 passes)
+STREAMED_STACKS, FAULTS_STREAMED_STACKS = 2, 4
+# Mixtral-8x7B at full width and its first MIXTRAL_LAYERS of 32 layers: the
+# base, every mixer and the stacks of layers 0-9 resident (31.5 GB), the
+# stacks of layers 10-15 (16.9 GB) streamed.  64 prompts of 128..512, decode 16
+MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_STREAMED = "mixtral-8x7b", 16, 6
 MIXTRAL_REQUESTS, MIXTRAL_MIN, MIXTRAL_MAX, MIXTRAL_DECODE = 64, 128, 512, 16
 K1K2_KERNELS = ("gate_up_wgmma_kernel", "gemm_wgmma_kernel")
 
@@ -2892,8 +3167,8 @@ def streamed_profile(dev, phase: str, cfg, params, plan, requests, max_seq: int,
 
 
 def phase_serve_streamed(dev, params, resident=None):
-    """OLMoE-1B-7B on the serve phase's 64 requests and weights, with
-    ``resident_bytes`` 7 GB: the expert stacks of layers 7-15 in page-locked
+    """OLMoE-1B-7B at PATH_LAYERS on the serve phase's 64 requests, the last
+    STREAMED_STACKS expert stacks (layers 2-3 at 4 layers) in page-locked
     host memory.  Whole-stack streaming, then predictive streaming at
     ``predict_topk`` 8, each under both schedulers: tokens equal to the
     resident ``serve`` tokens bit for bit (``resident``: that phase's
@@ -2908,7 +3183,7 @@ def phase_serve_streamed(dev, params, resident=None):
     from repro_torch.data.datasets import DatasetSpec, synthetic_requests
     from repro_torch.serving.server import StreamConfig
 
-    cfg, plan, lens, decode_len = serve_setup(short_lengths(), 32)
+    cfg, plan, lens, decode_len = serve_setup(short_lengths(), 32, layers=PATH_LAYERS)
     n = len(lens)
     requests = synthetic_requests(DatasetSpec("smoke", n, max(lens), decode_len),
                                   cfg.vocab_size, seed=0, prompt_lens=lens)
@@ -2920,15 +3195,16 @@ def phase_serve_streamed(dev, params, resident=None):
             counts[sched], reports[sched] = rec["counts"], rec["report"]
         resident = (counts, reports)
     want = [r.tokens for r in resident[1]["static"].request_results]
-    rp = W.plan_residency(cfg, STREAMED_BUDGET)
+    budget = resident_budget(cfg, STREAMED_STACKS)
+    rp = W.plan_residency(cfg, budget)
     layers = [i for i, r in enumerate(rp.ffn_resident) if not r]
-    emit({"phase": "serve_streamed", "resident_bytes": STREAMED_BUDGET,
+    emit({"phase": "serve_streamed", "resident_bytes": budget,
           "resident_gb": rp.resident_bytes / 1e9, "streamed_stack_layers": layers,
           "streamed_gb": len(layers) * W.ffn_module_weight_bytes(cfg, "moe") / 1e9,
           "host": host_meminfo()})
     first = None
     for khat in (0, 8):
-        stream = StreamConfig(stream_weights=True, resident_bytes=STREAMED_BUDGET,
+        stream = StreamConfig(stream_weights=True, resident_bytes=budget,
                               predict_topk=khat)
         for sched in ("static", "continuous"):
             rec = streamed_run(dev, cfg, params, plan, requests, decode_len,
@@ -2943,7 +3219,7 @@ def phase_serve_streamed(dev, params, resident=None):
     for khat in (0, 8):
         before = torch.cuda.memory_allocated()
         store = ParamStore.build(cfg, params, plan, stream_weights=True,
-                                 resident_bytes=STREAMED_BUDGET, predict_topk=khat,
+                                 resident_bytes=budget, predict_topk=khat,
                                  device=dev)
         calls, _ = streamed_profile(dev, "serve_streamed", cfg, None, plan, requests,
                                     max(lens) + decode_len, store)
@@ -3187,17 +3463,18 @@ def wave_prefill_logits(dev, cfg, params, plan, requests, waves) -> tuple:
 
 
 def phase_serve_faults(dev, params, resident=None, long_reports=None):
-    """The faults slice on the card at full width and depth (OLMoE-1B-7B,
-    bf16), the fault runs under the strict sanitizer with the pointer check
-    and a steady region over the second half of each decode:
+    """The faults slice on the card at full width and PATH_LAYERS
+    (OLMoE-1B-7B, bf16), the fault runs under the strict sanitizer with the
+    pointer check and a steady region over the second half of each decode:
 
-    1. serve_streamed's 64 requests and residency (the expert stacks of
-       layers 7-15 page-locked), whole stacks, static, with transient copy
-       failures and stalls injected (``FAULTS_STREAMED``): held to the
-       resident tokens serve_streamed is held to (``resident``: serve's
-       (counts, reports); run here when absent);
-    2. serve_paged's Mode B requests (serve_long's 32 prompts, 7.5 GB of
-       device frames), continuous: (2a) with page-frame OOMs injected
+    1. serve_streamed's 64 requests with FAULTS_STREAMED_STACKS expert
+       stacks page-locked (every one at 4 layers), whole stacks, static,
+       with transient copy failures and stalls injected
+       (``FAULTS_STREAMED``): held to the resident tokens at that depth
+       (``resident``: (counts, reports) of a resident run; run here when
+       absent);
+    2. serve_paged's Mode B requests (serve_long's 32 prompts, DEVICE_KV_GB
+       of device frames), continuous: (2a) with page-frame OOMs injected
        (``FAULTS_PAGED_OOM``), then (2b) with the same OOMs, a preemption
        every 8 decode ticks (``FAULTS_PAGED``) and once, midway, a public
        ``preempt`` of the highest slot followed by a demotion of live
@@ -3230,7 +3507,7 @@ def phase_serve_faults(dev, params, resident=None, long_reports=None):
     from repro_torch.serving.server import ServeConfig, Server, StreamConfig
 
     # -- run 1: streamed weights, transfer failures and stalls -------------
-    cfg, plan, lens, decode_len = serve_setup(short_lengths(), 32)
+    cfg, plan, lens, decode_len = serve_setup(short_lengths(), 32, layers=PATH_LAYERS)
     n = len(lens)
     requests = synthetic_requests(DatasetSpec("smoke", n, max(lens), decode_len),
                                   cfg.vocab_size, seed=0, prompt_lens=lens)
@@ -3245,7 +3522,8 @@ def phase_serve_faults(dev, params, resident=None, long_reports=None):
     server = Server(cfg, params, plan, serve=ServeConfig(scheduler="static",
                                                          decode_len=decode_len,
                                                          faults=plan_1),
-                    stream=StreamConfig(stream_weights=True, resident_bytes=STREAMED_BUDGET,
+                    stream=StreamConfig(stream_weights=True,
+                                        resident_bytes=resident_budget(cfg, FAULTS_STREAMED_STACKS),
                                         predict_topk=0), device=dev)
     for r in requests:
         server.submit(r)
@@ -3264,7 +3542,7 @@ def phase_serve_faults(dev, params, resident=None, long_reports=None):
           "planned_reads_by_tag": rec["sanitizer"]["planned_transfers"],
           "pointer_checks": rec["sanitizer"]["pointer_checks"],
           "copied_gb": store.copied_bytes / 1e9, "recopied_gb": recopied / 1e9,
-          "recopied_stacks": recopied / max(1, padded // 9), "launches": rec["counts"],
+          "recopied_stacks": recopied / max(1, padded // FAULTS_STREAMED_STACKS), "launches": rec["counts"],
           "card": gpu_line()})
     check_faults_run("serve_faults", "streamed", rec, want, plan_1.report()["events"],
                      (("injected:transfer", "recovered:transfer-retry"),
@@ -3280,7 +3558,7 @@ def phase_serve_faults(dev, params, resident=None, long_reports=None):
         raise AssertionError("serve_faults: the streamed server left page-locked bytes")
 
     # -- runs 2a and 2b: Mode B pages, page OOMs, then preemptions too -----
-    cfg, plan, lens, decode_len = serve_setup(long_lengths(), LONG_DECODE)
+    cfg, plan, lens, decode_len = serve_setup(long_lengths(), LONG_DECODE, layers=PATH_LAYERS)
     n = len(lens)
     requests = synthetic_requests(DatasetSpec("long", n, LONG_MAX, decode_len),
                                   cfg.vocab_size, seed=0, prompt_lens=lens)
@@ -3361,7 +3639,7 @@ def phase_serve_faults(dev, params, resident=None, long_reports=None):
     del a, b, w1, w2, rep
 
     # -- the sanitizer's cost per tick ---------------------------------------
-    cfg, plan, lens, decode_len = serve_setup(short_lengths(), 32)
+    cfg, plan, lens, decode_len = serve_setup(short_lengths(), 32, layers=PATH_LAYERS)
     requests = synthetic_requests(DatasetSpec("smoke", len(lens), max(lens), decode_len),
                                   cfg.vocab_size, seed=0, prompt_lens=lens)
     emit({"phase": "serve_faults", "sanitizer_cost": sanitizer_cost(
@@ -3370,7 +3648,7 @@ def phase_serve_faults(dev, params, resident=None, long_reports=None):
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: full-width, full-depth Mixtral-8x7B with 12 expert stacks streamed
+# Phase 8: full-width Mixtral-8x7B at MIXTRAL_LAYERS, 6 expert stacks streamed
 # ---------------------------------------------------------------------------
 def mixtral_parity(dev):
     """Mixtral at full width but 2 layers, f32, the stack of layer 1
@@ -3440,9 +3718,10 @@ def mixtral_parity(dev):
 
 
 def phase_serve_mixtral(dev):
-    """Full-width, full-depth Mixtral-8x7B (bf16, seeded) built by
-    ``ParamStore.seeded`` with 60 GB resident: the stacks of layers 20-31
-    (33.8 GB) in page-locked host memory.  64 requests of 128..512 tokens,
+    """Full-width Mixtral-8x7B at MIXTRAL_LAYERS of its 32 layers (bf16,
+    seeded) built by ``ParamStore.seeded`` with the base, every mixer and
+    all but the last MIXTRAL_STREAMED stacks resident: the stacks of layers
+    10-15 (16.9 GB) in page-locked host memory.  64 requests of 128..512 tokens,
     decode 16, B 64, the planner's b_a, b_e = B: whole-stack streaming
     under both schedulers, the streamed tick's profile with K1-K4 captured
     (K1/K2 on weights that came through the window) and held to their plain
@@ -3461,9 +3740,11 @@ def phase_serve_mixtral(dev):
     from repro_torch.serving.weights import ParamStore
 
     t_phase = time.perf_counter()
-    cfg, plan, lens, decode_len = serve_setup(mixtral_lengths(), MIXTRAL_DECODE, MIXTRAL_ARCH)
+    cfg, plan, lens, decode_len = serve_setup(mixtral_lengths(), MIXTRAL_DECODE, MIXTRAL_ARCH,
+                                              layers=MIXTRAL_LAYERS)
     n, max_seq = len(lens), MIXTRAL_MAX + MIXTRAL_DECODE
-    rp = W.plan_residency(cfg, MIXTRAL_BUDGET)
+    budget = resident_budget(cfg, MIXTRAL_STREAMED)
+    rp = W.plan_residency(cfg, budget)
     stack = W.ffn_module_weight_bytes(cfg, "moe")
     layers = [i for i, r in enumerate(rp.ffn_resident) if not r]
     kv = n * max_seq * cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * 2
@@ -3485,7 +3766,7 @@ def phase_serve_mixtral(dev):
           "prompt_lens": [min(lens), max(lens)], "prompt_tokens": sum(lens),
           "decode_len": decode_len, "max_seq": max_seq,
           "plan": {"B": plan.B, "b_a": plan.b_a, "b_e": plan.b_e, "predict_topk": khat},
-          "resident_bytes": MIXTRAL_BUDGET, "streamed_stack_layers": layers,
+          "resident_bytes": budget, "streamed_stack_layers": layers,
           "streamed_gb": len(layers) * stack / 1e9, "memory_reckoning": reckoning,
           "host": host_meminfo(), "card_total_gb": (
               torch.cuda.get_device_properties(dev).total_memory / 1e9
@@ -3497,7 +3778,7 @@ def phase_serve_mixtral(dev):
 
     def build(k):
         t0 = time.perf_counter()
-        store = ParamStore.seeded(cfg, 0, resident_bytes=MIXTRAL_BUDGET, predict_topk=k,
+        store = ParamStore.seeded(cfg, 0, resident_bytes=budget, predict_topk=k,
                                   device=dev)
         torch.cuda.synchronize()
         emit({"phase": "serve_mixtral", "store": store.describe(),
@@ -4239,7 +4520,7 @@ def phase_serve_ep(dev, params, oracle=None):
     from repro_torch.distributed import ep_engine
     from repro_torch.launch import mesh
 
-    cfg, plan, lens, decode_len = serve_setup(short_lengths(), 32)
+    cfg, plan, lens, decode_len = serve_setup(short_lengths(), 32, layers=PATH_LAYERS)
     requests = serve_requests(cfg, lens, decode_len)
     if oracle is None:
         oracle = list(per_module_oracle(dev, cfg, params, plan, requests, decode_len,
@@ -4844,11 +5125,11 @@ SHARDED_NOTE = ("two rank processes sharing one card on a (data 1, model 2) mesh
 # one process's own bf16 run (the witness of what bf16 rounding does there).
 # Training: OLMoE at 4 layers, 4 x 512, remat full, 6 steps at 1e-4, capacity
 # factor 1.25, on (data 1, model 2); and with the parameters held as ZeRO-1
-# slices (the dry run's weights="fsdp") on (data 2, model 1) at 1 layer and 3
-# steps (its gathers and f32 gradient sums stage ~6 GB a step at 2 layers
-# through the host, 12-16 s a step).
+# slices (the dry run's weights="fsdp") on (data 2, model 1) at 1 layer and 2
+# steps (its gathers and f32 gradient sums stage ~3.4 GB a step at 1 layer
+# through the host, 7-10 s a step).
 # The span-split decode (SPAN_RANKS = 3 ranks, (data 1, model 3)):
-# Qwen1.5-4B at full width and 4 layers, whose 20 KV heads 3 does not
+# Qwen1.5-4B at full width and 2 layers, whose 20 KV heads 3 does not
 # divide, so each rank holds a third of the cache's span: 8 prompts of
 # 256..1011 tokens right-padded to 1011, 15 tokens (span 1026 = 3 x 342),
 # greedy_generate(ctx) in f32 (every step's logits against one process) and
@@ -4857,7 +5138,7 @@ SHARDED = {"parity_layers": 2, "parity_B": 2, "parity_S": 512, "serve_layers": 4
            "serve_prompts": 16, "serve_min": 64, "serve_max": 256, "serve_decode": 16,
            "serve_f32_layers": 2, "ssm_B": 8, "ssm_S": 1024, "ssm_layers": 2,
            "train_layers": 4, "train_B": 4, "train_S": 512, "train_steps": 6,
-           "train_lr": 1e-4, "fsdp_layers": 1, "fsdp_steps": 3, "span_layers": 4, "span_prompts": 8, "span_min": 256,
+           "train_lr": 1e-4, "fsdp_layers": 1, "fsdp_steps": 2, "span_layers": 2, "span_prompts": 8, "span_min": 256,
            "span_max": 1011, "span_decode": 15}
 SPAN_RANKS = 3
 SPAN_ARCH = "qwen1.5-4b"
@@ -5924,7 +6205,8 @@ def prime(dev) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="kernels,serve,serve_omega,serve_long,serve_paged,"
+    ap.add_argument("--phases", default="kernels,serve,serve_online,serve_omega,serve_long,"
+                                        "serve_paged,"
                                         "serve_prefix,serve_streamed,serve_faults,"
                                         "serve_replicas,serve_ep,oracles,train,sharded,"
                                         "serve_ssm,serve_mixtral,parity,profile,dryrun,"
@@ -5969,18 +6251,33 @@ def main() -> int:
         lap("kernels")
     launches = {}                           # per path: counts from its static run
     path_rows = {}                          # per streamed path: its kernel rows
-    if phases & {"serve", "serve_long", "serve_streamed", "serve_omega", "serve_paged",
-                  "serve_prefix", "serve_faults", "serve_replicas", "serve_ep", "oracles",
-                  "dryrun"}:
+    if phases & {"serve", "serve_online", "serve_replicas", "oracles", "dryrun"}:
         params = init_weights(dev)
         lap("weights")
-        resident = long_reports = None
         if "serve" in phases:
-            resident = phase_serve(dev, params, profile="profile" in phases)
-            launches["serve"] = resident[0]["static"]
+            launches["serve"] = phase_serve(dev, params, profile="profile" in phases)[0]["static"]
             lap("serve")
+        if "serve_online" in phases:
+            launches["serve_online"], launches["serve_online_closed"] = phase_serve_online(
+                dev, params)
+            lap("serve_online")
+        if "serve_replicas" in phases:
+            launches["serve_replicas"] = phase_serve_replicas(dev, params)
+            lap("serve_replicas")
+        if "oracles" in phases:
+            launches.update(phase_oracles(dev, params))
+            lap("oracles")
+        if "dryrun" in phases:
+            one_rank_reading(dev, params)
+            lap("dryrun_one_rank")
+        del params
+        torch.cuda.empty_cache()
+    if phases & PATH_PHASES:                # OLMoE at PATH_LAYERS, its own weights
+        params = init_weights(dev, layers=PATH_LAYERS)
+        lap("weights_path")
+        long_reports = None
         if "serve_omega" in phases:
-            launches["serve_omega"], _ = phase_serve_omega(dev, params, resident)
+            launches["serve_omega"], _ = phase_serve_omega(dev, params)
             lap("serve_omega")
         if "serve_long" in phases:
             launches["serve_long"], long_reports = phase_serve_long(
@@ -5996,28 +6293,16 @@ def main() -> int:
             lap("serve_prefix")
         if "serve_streamed" in phases:
             launches["serve_streamed"], path_rows["serve_streamed"] = phase_serve_streamed(
-                dev, params, resident)
+                dev, params)
             lap("serve_streamed")
         if "serve_faults" in phases:
-            for run, counts in phase_serve_faults(dev, params, resident,
-                                                  long_reports).items():
+            for run, counts in phase_serve_faults(dev, params, None, long_reports).items():
                 launches[f"serve_faults_{run}"] = counts
             lap("serve_faults")
-        if "serve_replicas" in phases:
-            launches["serve_replicas"] = phase_serve_replicas(dev, params)
-            lap("serve_replicas")
         if "serve_ep" in phases:
-            oracle = (None if resident is None else
-                      [r.tokens for r in resident[1]["static"].request_results])
-            launches["serve_ep"], path_rows["serve_ep"] = phase_serve_ep(dev, params, oracle)
+            launches["serve_ep"], path_rows["serve_ep"] = phase_serve_ep(dev, params)
             lap("serve_ep")
-        if "oracles" in phases:
-            launches.update(phase_oracles(dev, params))
-            lap("oracles")
-        if "dryrun" in phases:
-            one_rank_reading(dev, params)
-            lap("dryrun_one_rank")
-        del params, resident, long_reports
+        del params, long_reports
         torch.cuda.empty_cache()
     if "train" in phases:
         phase_train(dev)

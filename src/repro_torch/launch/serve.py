@@ -8,6 +8,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
         --requests 32 --batch 32 --decode-len 64 --prompt-lens 1024,2048,3584 \
         --omega 0 --kv-page-tokens 128 --device-kv-gb 7.5
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --requests 128 --prompt-lens 64,128,256 --decode-lens 8,32,128 \
+        --eos-id 7 --scheduler continuous --arrival-rate 20 --omega 0
 
 Runs the FULL-size model on seeded random weights.  The planner searches
 the plan on the full config with the ``H100-SXM-80GB`` profile and the
@@ -23,7 +26,14 @@ Every weight is resident unless
 ``--resident-gb`` / ``--predict-topk``): then the store keeps the greedy
 resident set on the card and the rest in page-locked host memory, built
 layer by layer (``ParamStore.seeded``) so that a model larger than the
-card never has to fit on it.  ``--faults SPEC`` arms deterministic fault
+card never has to fit on it.  The traffic is the reference launcher's
+(``build_requests``): ``--prompt-len`` or the cycled ``--prompt-lens``,
+``--decode-len`` or the cycled ``--decode-lens``, ``--eos-id`` finishing a
+sequence early, open-loop arrivals from ``--arrival-rate`` (Poisson) or
+``--arrival-trace`` (offsets), and ``--temperature`` / ``--top-k``
+sampling; ``--seed`` seeds the weights, the arrivals and the sampling.
+Under ``--scheduler continuous`` admission is gated by Eq. 2's host KV
+budget of ``--profile``.  ``--faults SPEC`` arms deterministic fault
 injection (``repro_torch.faults`` grammar, e.g.
 ``seed=7,transfer=0.05,stall=0.02,oom=0.05,preempt=8``) and prints the
 recovery counters; the tokens are those of the unarmed run.
@@ -57,13 +67,15 @@ from repro_torch.core import workload as W
 from repro_torch.core.dag_builder import Plan
 from repro_torch.core.hardware import PROFILES
 from repro_torch.data.datasets import DatasetSpec, synthetic_requests
+from repro_torch.serving import arrivals
+from repro_torch.serving.sampling import SamplingParams
 
 
 def build_plan(cfg, hw, args) -> Plan:
     """Search the decode plan on ``cfg`` and realise it for this slice (with
     ``args.mesh`` DP,EP, one expert-parallel replica's plan, whose pipeline
     chunk count ``--ep-chunks`` overrides)."""
-    ctx = max(args.prompt_lens) + args.decode_len
+    ctx = max(getattr(args, "prompt_lens", None) or [args.prompt_len]) + args.decode_len
     dp, ep = mesh_axes(args)
     res = planner.search_decode(cfg, hw, ctx=ctx, decode_len=args.decode_len,
                                 scheduler=args.scheduler,
@@ -98,6 +110,48 @@ def build_plan(cfg, hw, args) -> Plan:
     return plan
 
 
+def build_requests(args, cfg) -> list:
+    """The requests the reference launcher builds from the same flags
+    (``src/repro/launch/serve.py``): ``synthetic_requests`` at its fixed
+    prompt seed 0, ``--prompt-lens`` over ``--prompt-len``, ``--decode-lens``
+    over ``--decode-len``, arrival offsets from ``--arrival-trace``, else a
+    Poisson process at ``--arrival-rate`` seeded by ``--seed`` (neither: all
+    due at 0), and one ``SamplingParams(--temperature, --top-k, --seed)``
+    on every request unless it is greedy.  Only the weights differ: the
+    port serves the full-size model seeded by ``--seed`` (``init_params``),
+    the reference its smoke model from ``PRNGKey(0)``."""
+    spec = DatasetSpec("serve", args.requests, args.prompt_len, args.decode_len)
+    times = None
+    if args.arrival_trace:
+        times = arrivals.trace([float(x) for x in args.arrival_trace.split(",")])
+    elif args.arrival_rate is not None:
+        times = arrivals.poisson(args.requests, args.arrival_rate, seed=args.seed)
+    sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k, seed=args.seed)
+    return synthetic_requests(spec, cfg.vocab_size, prompt_lens=args.prompt_lens,
+                              decode_lens=args.decode_lens, arrivals=times,
+                              sampling=None if sampling.is_greedy else sampling)
+
+
+def serve_config(args, **kw):
+    """The ``ServeConfig`` of the launcher's flags (``kw`` adds fields):
+    ``--eos-id``, and under the continuous scheduler the Eq. 2 host KV
+    gate of ``--profile`` (``hw``), as the reference launcher passes them."""
+    from repro_torch.serving.server import ServeConfig
+
+    continuous = args.scheduler == "continuous"
+    return ServeConfig(scheduler=args.scheduler, decode_len=args.decode_len,
+                       eos_id=getattr(args, "eos_id", None),
+                       hw=PROFILES[getattr(args, "profile", "H100-SXM-80GB")] if continuous
+                       else None,
+                       expert_path=args.expert_path, kv_page_tokens=args.kv_page_tokens,
+                       device_kv_gb=args.device_kv_gb, prefix_cache=args.prefix_cache, **kw)
+
+
+def _ints(text):
+    """A comma-separated list of ints (None stays None)."""
+    return [int(x) for x in text.split(",")] if text else None
+
+
 def mesh_axes(args) -> tuple:
     """``--mesh DP,EP`` as (dp, ep); (1, 1) without it."""
     text = getattr(args, "mesh", None)
@@ -120,14 +174,32 @@ def streams(args) -> bool:
             or getattr(args, "predict_topk", None) is not None)
 
 
-def main(argv=None) -> None:
+def parse_args(argv=None) -> argparse.Namespace:
+    """The launcher's flags, the length lists parsed to lists of ints."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmoe-1b-7b")
     ap.add_argument("--profile", default="H100-SXM-80GB", choices=PROFILES)
     ap.add_argument("--requests", type=int, default=64)
-    ap.add_argument("--prompt-lens", default="64,96,128,160,192,224,256",
-                    help="comma-separated prompt lengths cycled over requests")
+    ap.add_argument("--prompt-len", type=int, default=256)
+    ap.add_argument("--prompt-lens", default=None,
+                    help="comma-separated prompt lengths cycled over requests "
+                         "(overrides --prompt-len), e.g. 64,128,256")
     ap.add_argument("--decode-len", type=int, default=32)
+    ap.add_argument("--decode-lens", default=None,
+                    help="comma-separated per-request decode lengths cycled over "
+                         "requests (overrides --decode-len), e.g. 8,32,128")
+    ap.add_argument("--eos-id", type=int, default=None,
+                    help="token id that finishes a sequence early")
+    ap.add_argument("--arrival-rate", type=float, default=None,
+                    help="open-loop Poisson arrivals, requests/s (default: every "
+                         "request due at 0, the closed-loop drain)")
+    ap.add_argument("--arrival-trace", default=None,
+                    help="comma-separated arrival offsets in seconds, e.g. "
+                         "0,0.5,1.2 (overrides --arrival-rate)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0: greedy, the default)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="sample among the k highest logits (0: off)")
     ap.add_argument("--batch", type=int, default=64,
                     help="accumulated batch B (engine slots)")
     ap.add_argument("--b-e", type=int, default=None,
@@ -137,7 +209,8 @@ def main(argv=None) -> None:
                          "oracle: a host read of the routing per MoE layer and tick)")
     ap.add_argument("--scheduler", default="static",
                     choices=("static", "continuous"))
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the weights, the Poisson arrivals and the sampling")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--smoke", action="store_true",
                     help="serve the smoke config of --arch (plan on the full one)")
@@ -157,7 +230,7 @@ def main(argv=None) -> None:
                          "the k-hat experts predicted from the previous "
                          "layer (default: the plan's; 0 streams whole "
                          "stacks; implies --stream-weights)")
-    ap.add_argument("--lru-gb", type=float, default=None,
+    ap.add_argument("--expert-lru-gb", type=float, default=None,
                     help="hot-expert device LRU of predictive streaming, GB "
                          "(default: the residency plan's spare bytes)")
     ap.add_argument("--omega", type=float, default=None,
@@ -194,7 +267,12 @@ def main(argv=None) -> None:
                     help="pipeline chunks of the expert-parallel a2a stage (chunk k+1's "
                          "exchange posted before chunk k's FFN; default: the planner's)")
     args = ap.parse_args(argv)
-    args.prompt_lens = [int(x) for x in args.prompt_lens.split(",")]
+    args.prompt_lens, args.decode_lens = _ints(args.prompt_lens), _ints(args.decode_lens)
+    return args
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
     dp, ep = mesh_axes(args)
     if (dp > 1 or ep > 1) and streams(args):
         raise SystemExit("--mesh serves fully resident replicas; it composes with "
@@ -205,17 +283,14 @@ def main(argv=None) -> None:
     from repro_torch import analysis, faults
     from repro_torch.models import model as M
     from repro_torch.serving import weights as wmod
-    from repro_torch.serving.server import ServeConfig, Server
+    from repro_torch.serving.server import Server
     from repro_torch.serving.weights import ParamStore
 
     cfg = get_config(args.arch)
     plan = build_plan(cfg, PROFILES[args.profile], args)
     if args.smoke:
         cfg = get_config(args.arch, smoke=True)
-    spec = DatasetSpec("serve", args.requests, max(args.prompt_lens),
-                       args.decode_len)
-    requests = synthetic_requests(spec, cfg.vocab_size, seed=args.seed,
-                                  prompt_lens=args.prompt_lens)
+    requests = build_requests(args, cfg)
     if dp > 1 or ep > 1:
         serve_mesh(args, cfg, plan, requests, dp, ep)
         return
@@ -229,7 +304,7 @@ def main(argv=None) -> None:
             prefetch=not args.no_prefetch,
             predict_topk=(plan.predict_topk if args.predict_topk is None
                           else args.predict_topk),
-            lru_bytes=None if args.lru_gb is None else args.lru_gb * 1e9,
+            lru_bytes=None if args.expert_lru_gb is None else args.expert_lru_gb * 1e9,
             device=args.device)
         rp = store.residency
         streamed = [i for i in range(cfg.num_layers)
@@ -243,13 +318,7 @@ def main(argv=None) -> None:
     print(f"initialised {cfg.name} ({cfg.num_layers} layers, {cfg.dtype}) on "
           f"{args.device} in {time.perf_counter() - t0:.1f}s")
     fault_plan = faults.resolve(args.faults)
-    server = Server(cfg, params, plan,
-                    serve=ServeConfig(scheduler=args.scheduler, decode_len=args.decode_len,
-                                      expert_path=args.expert_path,
-                                      kv_page_tokens=args.kv_page_tokens,
-                                      device_kv_gb=args.device_kv_gb,
-                                      prefix_cache=args.prefix_cache,
-                                      faults=fault_plan),
+    server = Server(cfg, params, plan, serve=serve_config(args, faults=fault_plan),
                     store=store, device=args.device)
     for r in requests:
         server.submit(r)
@@ -271,9 +340,9 @@ def main(argv=None) -> None:
             print(f"predictive: hit rate {report.pred_hit_rate:.0%} "
                   f"({report.expert_pred_hits} hits, {report.expert_pred_misses} "
                   f"misses), LRU hit rate {report.lru_hit_rate:.0%}")
-    if report.kv_htod_bytes or report.host_attn_tokens:
+    if report.kv_htod_bytes or report.kv_dtoh_bytes or report.host_attn_tokens:
         print(f"KV pages: {report.kv_htod_gb:.3f} GB host-to-device, "
-              f"{report.kv_dtoh_bytes / 1e9:.3f} GB to the host tier; host "
+              f"{report.kv_dtoh_gb:.3f} GB device-to-host (the host tier); host "
               f"attention {report.host_attn_tokens} row-layers, "
               f"{engine.stats.host_attn_s:.3f}s of host CPU")
     if fault_plan is not None:
@@ -293,12 +362,21 @@ def print_report(report, args) -> None:
           f"{report.expert_tokens_dropped} routed copies dropped")
     print(f"decode slot-steps {report.decode_slot_steps} (wasted "
           f"{report.wasted_slot_steps}, occupancy {report.occupancy:.0%}); "
-          f"TTFT p50 {report.ttft_percentile(50):.3f}s, TPOT p50 "
-          f"{report.tpot_percentile(50) * 1e3:.1f}ms")
+          f"mean request latency {report.mean_latency_s:.3f}s")
+    print(f"TTFT p50/p95 {report.ttft_percentile(50):.3f}/{report.ttft_percentile(95):.3f}s, "
+          f"mean {report.mean_ttft_s:.3f}s; TPOT p50/p95 "
+          f"{report.tpot_percentile(50) * 1e3:.1f}/{report.tpot_percentile(95) * 1e3:.1f}ms, "
+          f"mean {report.mean_tpot_s * 1e3:.1f}ms; mean queue wait "
+          f"{report.mean_queue_wait_s:.3f}s")
     if report.expert_load is not None:
         drops = "/".join(str(int(d)) for d in report.expert_dropped_by_layer)
-        print(f"routing skew {report.routing_skew:.2f}x balanced; per-MoE-layer drops "
-              f"{drops} ({report.capacity_replans} online capacity re-plans)")
+        hist = "/".join(str(int(c)) for c in report.expert_load.sum(axis=0))
+        print(f"routing skew {report.routing_skew:.2f}x balanced (per-expert routed "
+              f"copies {hist}); per-MoE-layer drops {drops} "
+              f"({report.capacity_replans} online capacity re-plans)")
+    if report.admission_deferrals:
+        print(f"admissions deferred by the Eq. 2 host KV budget: "
+              f"{report.admission_deferrals}")
     if args.prefix_cache:
         print(f"prefix cache: {report.prefix_hits} hits / "
               f"{report.prefix_hits + report.prefix_misses} lookups (hit rate "
@@ -327,19 +405,16 @@ def mesh_rank(rank: int, n: int, group, args, cfg, plan, requests):
 
     from repro_torch.distributed import ReplicaServer
     from repro_torch.models import model as M
-    from repro_torch.serving.server import ServeConfig, Server
+    from repro_torch.serving.server import Server
     from repro_torch.sharding.specs import ShardCtx
 
     dp, _ = mesh_axes(args)
     if n > 1:                         # the host's cores, shared by the ranks
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
     params = M.init_params(cfg, seed=args.seed, device=args.device)
-    serve = ServeConfig(scheduler=args.scheduler, decode_len=args.decode_len,
-                        expert_path=args.expert_path,
-                        kv_page_tokens=args.kv_page_tokens, device_kv_gb=args.device_kv_gb,
-                        prefix_cache=args.prefix_cache, faults=args.faults,
-                        sctx=None if group is None else ShardCtx(group=group),
-                        ep_chunks=plan.ep_chunks)
+    serve = serve_config(args, faults=args.faults,
+                         sctx=None if group is None else ShardCtx(group=group),
+                         ep_chunks=plan.ep_chunks)
     if dp > 1:
         server = ReplicaServer(cfg, params, dp, plan=plan, serve=serve, device=args.device)
     else:

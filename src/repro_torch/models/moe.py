@@ -293,6 +293,21 @@ def _dispatch_combine(cfg: ModelConfig, xt: torch.Tensor, gates: torch.Tensor,
     return _combine(back.to(xt.dtype), T, k), keep.to(torch.int32).sum(dtype=torch.int32)
 
 
+def moe_apply_capacity_local(
+    cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-dispatch MoE on one device (the oracle of the sharded
+    capacity path): every expert's copies in arrival order, those past
+    ``moe_capacity(cfg, T)`` dropped.  x: (B, S, D) -> (y, aux loss)."""
+    B, S, D = x.shape
+    xt = x.reshape(-1, D)
+    gates, idx, probs = route(cfg, p["router"], xt)
+    y, _ = _dispatch_combine(cfg, xt, gates, idx, p["experts_w_gate"], p["experts_w_up"],
+                             p["experts_w_down"], 0, moe_capacity(cfg, xt.shape[0]),
+                             differentiable=False)
+    return y.reshape(B, S, D), load_balance_loss(cfg, probs, idx)
+
+
 def _dense_share(cfg: ModelConfig, xt: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor,
                  wg, wu, wd, e_lo: int) -> torch.Tensor:
     """``moe_apply_local``'s dense combine over the experts this rank holds

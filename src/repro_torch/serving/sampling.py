@@ -51,6 +51,38 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1)
 
 
+def _categorical(key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)``: the argmax of
+    ``logits`` plus Gumbel noise drawn over their whole (B, n) shape from
+    the one threefry ``key`` (a ``prng.key_from_seed`` pair), element
+    (b, j) taking counter ``b * n + j``."""
+    B, n = logits.shape
+    gum = prng.gumbel(_upload(np.asarray(key, np.int64).reshape(1, 2), logits.device),
+                      B * n).reshape(B, n)
+    return torch.argmax(gum + logits.float(), dim=-1)
+
+
+def temperature_sample(key, logits: torch.Tensor,
+                       temperature: float = 1.0) -> torch.Tensor:
+    """(B, V) logits -> (B,) tokens: Gumbel-max over ``logits /
+    temperature`` under ``key`` (the JAX function's tokens for the same
+    key); greedy when ``temperature <= 0``."""
+    if temperature <= 0:
+        return greedy(logits)
+    return _categorical(key, logits / temperature)
+
+
+def top_k_sample(key, logits: torch.Tensor, k: int,
+                 temperature: float = 1.0) -> torch.Tensor:
+    """(B, V) logits -> (B,) tokens drawn among each row's ``k`` highest
+    logits (ties to the lower index, as ``jax.lax.top_k``), scaled by
+    ``max(temperature, 1e-6)``; the noise covers the (B, k) candidates."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :k], idx[:, :k]
+    choice = _categorical(key, vals / max(temperature, 1e-6))
+    return torch.gather(idx, 1, choice[:, None])[:, 0]
+
+
 def sample_tokens(logits: torch.Tensor, keys: torch.Tensor, steps: torch.Tensor,
                   temps: torch.Tensor, topks: torch.Tensor,
                   use_topk: bool) -> torch.Tensor:

@@ -259,6 +259,11 @@ class ServeReport:
         return self.kv_htod_bytes / 1e9
 
     @property
+    def kv_dtoh_gb(self) -> float:
+        """KV-page traffic to the host tier in GB (0 without one)."""
+        return self.kv_dtoh_bytes / 1e9
+
+    @property
     def prefix_hit_rate(self) -> float:
         n = self.prefix_hits + self.prefix_misses
         return self.prefix_hits / n if n else 0.0
@@ -323,6 +328,16 @@ class ServeReport:
     def mean_queue_wait_s(self) -> float:
         rr = self.request_results
         return sum(r.queue_wait_s for r in rr) / len(rr) if rr else 0.0
+
+    @property
+    def mean_ttft_s(self) -> float:
+        rr = self.request_results
+        return sum(r.ttft_s for r in rr) / len(rr) if rr else 0.0
+
+    @property
+    def mean_tpot_s(self) -> float:
+        rr = self.request_results
+        return sum(r.tpot_s for r in rr) / len(rr) if rr else 0.0
 
     def ttft_percentile(self, q: float) -> float:
         rr = self.request_results

@@ -589,6 +589,20 @@ def _prefix_replan_server(device, n=8, B=4, decode_len=26):
     return server
 
 
+def _under_sync_mode(m, fn):
+    """``fn`` run under ``torch.cuda.set_sync_debug_mode(m)`` (the device
+    synchronised first, the old mode restored after)."""
+    def call(*a, **kw):
+        old = torch.cuda.get_sync_debug_mode()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode(m)
+        try:
+            return fn(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(old)
+    return call
+
+
 @pytest.mark.cuda
 def test_cuda_prefix_hit_and_replan_make_only_planned_syncs(cuda):
     """Two static waves (misses, then prefix hits) with re-planning on: every
@@ -596,27 +610,8 @@ def test_cuda_prefix_hit_and_replan_make_only_planned_syncs(cuda):
     ``set_sync_debug_mode("error")`` (a graph capture, once per key, is
     set-up and runs with the mode off), and the planned reads are the one
     prefix capture plus one per re-plan check (every 8 decode steps)."""
-    import contextlib
-
     server = _prefix_replan_server(cuda)
     eng = server._engine
-
-    @contextlib.contextmanager
-    def mode(m):
-        old = torch.cuda.get_sync_debug_mode()
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode(m)
-        try:
-            yield
-        finally:
-            torch.cuda.set_sync_debug_mode(old)
-
-    def under(m, fn):
-        def call(*a, **kw):
-            with mode(m):
-                return fn(*a, **kw)
-        return call
-
     pushed = []
     set_capacity = eng.set_expert_capacity
 
@@ -625,9 +620,9 @@ def test_cuda_prefix_hit_and_replan_make_only_planned_syncs(cuda):
         set_capacity(b_e)
 
     eng.set_expert_capacity = record
-    eng.decode_chunk = under("error", eng.decode_chunk)
-    eng._graph = under(0, eng._graph)
-    server._maybe_replan = under("error", server._maybe_replan)
+    eng.decode_chunk = _under_sync_mode("error", eng.decode_chunk)
+    eng._graph = _under_sync_mode(0, eng._graph)
+    server._maybe_replan = _under_sync_mode("error", server._maybe_replan)
     rep = server.run()
     steps = rep.decode_slot_steps // server._b
     assert (rep.prefix_misses, rep.prefix_hits) == (4, 4)
@@ -637,6 +632,54 @@ def test_cuda_prefix_hit_and_replan_make_only_planned_syncs(cuda):
     capacities = [c["key"]["capacity"] for c in eng.graph_captures]
     assert len(capacities) == len(set(capacities))
     assert set(capacities) == {server._b} | set(pushed)
+
+
+@pytest.mark.cuda
+def test_cuda_eos_and_ragged_decode_make_only_planned_syncs(cuda):
+    """Continuous serving with an ``eos_id`` (the most frequent token of a
+    run without it) and ragged per-request decode lengths: every decode
+    chunk (one tick each under EOS) runs under ``set_sync_debug_mode
+    ("error")``, the token read after it being the planned one; some
+    request finishes early, and the tokens equal the per-module oracle's
+    (``fused_decode=False``) on the same requests."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.dag_builder import Plan
+    from repro_torch.models import model as M
+    from repro_torch.serving.server import Request, ServeConfig, Server
+
+    cfg = get_config("olmoe-1b-7b", smoke=True)
+    params = M.init_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (12, 5, 9, 3, 7, 12, 4, 10)]
+    decs = [3, 9, 6, 12, 5, 8, 2, 11]
+
+    def serve(eos, fused, watch=False):
+        server = Server(cfg, params, Plan(B=4, b_a=2, b_e=4, omega=0.0, decode_chunk=8),
+                        serve=ServeConfig(scheduler="continuous", decode_len=4, eos_id=eos),
+                        device=cuda)
+        for p, d in zip(prompts, decs):
+            server.submit(Request(p, d))
+        server._ensure_engine()
+        eng = server._engine
+        eng.fused_decode = fused
+        if watch:
+            eng.decode_chunk = _under_sync_mode("error", eng.decode_chunk)
+            eng._graph = _under_sync_mode(0, eng._graph)
+        rep = server.run()
+        toks = [r.tokens.tolist() for r in sorted(rep.request_results, key=lambda r: r.index)]
+        return toks, eng.stats.fused_ticks, rep.decode_slot_steps // server._b
+
+    plain, _, _ = serve(None, True)
+    eos = int(np.bincount(np.concatenate([t[:-1] for t in plain])).argmax())
+    got, fused_ticks, ticks = serve(eos, True, watch=True)
+    want, oracle_fused, _ = serve(eos, False)
+    assert got == want and oracle_fused == 0
+    assert fused_ticks == ticks > 0
+    assert any(len(t) < d for t, d in zip(got, decs))
+    assert all(t[-1] == eos for t, d in zip(got, decs) if len(t) < d)
 
 
 @pytest.mark.cuda
