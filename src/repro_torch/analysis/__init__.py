@@ -8,6 +8,9 @@ as rules (the counterpart of the JAX package's ``repro.analysis``).
 * cache ownership -- ``sanitize(pointers=True)`` holds the cache, page
   pools and graph carries to fixed addresses, ``poison=True`` fills dropped
   caches with NaN (``donation``);
+* profiler ranges -- ``spans.span(name)`` writes a ``torch.profiler``
+  range only while a profiling session is active (the module lists the
+  ranges the server writes; ``allowed(tag)`` opens ``sync.<tag>``);
 * AST lint -- ``python -m repro_torch.analysis.lint src/repro_torch``
   (rules MG101-MG107).
 """

@@ -51,6 +51,7 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from repro_torch.analysis import registry
+from repro_torch.analysis.spans import span
 
 
 class SanitizerError(AssertionError):
@@ -258,8 +259,9 @@ def count(tag: str) -> None:
 @contextlib.contextmanager
 def allowed(tag: str) -> Iterator[None]:
     """A planned host read (or host wait): suspends the decode region's
-    guard and the CUDA sync debug mode, and counts one occurrence of
-    ``tag`` in the active sanitizer's report."""
+    guard and the CUDA sync debug mode, counts one occurrence of ``tag`` in
+    the active sanitizer's report, and runs the body in the profiler range
+    ``sync.<tag>`` (``analysis.spans``)."""
     count(tag)
     guard = _GUARDS[-1] if _GUARDS else None
     if guard is not None:
@@ -268,7 +270,8 @@ def allowed(tag: str) -> Iterator[None]:
     if torch.cuda.is_initialized() and torch.cuda.get_sync_debug_mode() != 0:
         prev = _set_sync_mode(0)
     try:
-        yield
+        with span("sync." + tag):
+            yield
     finally:
         if prev is not None:
             torch.cuda.set_sync_debug_mode(prev)

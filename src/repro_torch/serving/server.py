@@ -66,6 +66,7 @@ import numpy as np
 from repro_torch import faults
 from repro_torch.analysis import runtime as sanitizer
 from repro_torch.analysis.markers import hot_path
+from repro_torch.analysis.spans import span
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import workload as W
 from repro_torch.core.dag_builder import Plan
@@ -976,37 +977,38 @@ class Server:
         the batched prefill and then store their prefix rows (one capture
         per prefix not yet stored).  Tokens are the same either way."""
         engine, sampler, prefix = self._engine, self._sampler, self._prefix
-        t0 = self._now()
-        self.report.admission_waves.append((self._ticks, [h.index for h in handles]))
-        hits, misses, miss_slots = [], list(handles), list(slots)
-        if prefix is not None:
-            misses, miss_slots = [], []
-            for h, s in zip(handles, slots):
-                kp = prefix.key(h.prompt)
-                kvs = None if kp is None else prefix.get(kp[0])
-                if kvs is not None:
-                    hits.append((h, s, kp[1], kvs))
-                else:
-                    misses.append(h)
-                    miss_slots.append(s)
-        for h, s in zip(handles, slots):
-            sampler.set_slot(s, h.sampling)
-        tok0: Dict[int, int] = {}
-        if misses:
-            self.report.prefill_tokens += sum(len(h.prompt) for h in misses)
-            ptoks, lens = pad_requests(misses, self.serve.pad_id)
-            lg = engine.prefill_slots(ptoks, miss_slots, lengths=lens)
-            tok0.update(zip(miss_slots, sampler.sample(lg, miss_slots).cpu().tolist()))
+        with span("serve.prefill"):
+            t0 = self._now()
+            self.report.admission_waves.append((self._ticks, [h.index for h in handles]))
+            hits, misses, miss_slots = [], list(handles), list(slots)
             if prefix is not None:
-                for h, s in zip(misses, miss_slots):
+                misses, miss_slots = [], []
+                for h, s in zip(handles, slots):
                     kp = prefix.key(h.prompt)
-                    if kp is not None and not prefix.touch(kp[0]):
-                        prefix.put(kp[0], engine.read_prefix_rows(s, kp[1]))
-        for h, s, pspan, kvs in hits:
-            self.report.prefill_tokens += len(h.prompt) - pspan
-            lg = engine.prefill_prefix_hit(s, h.prompt, kvs, pspan)
-            tok0[s] = int(sampler.sample(lg, [s]).cpu()[0])
-        now = self._now()
+                    kvs = None if kp is None else prefix.get(kp[0])
+                    if kvs is not None:
+                        hits.append((h, s, kp[1], kvs))
+                    else:
+                        misses.append(h)
+                        miss_slots.append(s)
+            for h, s in zip(handles, slots):
+                sampler.set_slot(s, h.sampling)
+            tok0: Dict[int, int] = {}
+            if misses:
+                self.report.prefill_tokens += sum(len(h.prompt) for h in misses)
+                ptoks, lens = pad_requests(misses, self.serve.pad_id)
+                lg = engine.prefill_slots(ptoks, miss_slots, lengths=lens)
+                tok0.update(zip(miss_slots, sampler.sample(lg, miss_slots).cpu().tolist()))
+                if prefix is not None:
+                    for h, s in zip(misses, miss_slots):
+                        kp = prefix.key(h.prompt)
+                        if kp is not None and not prefix.touch(kp[0]):
+                            prefix.put(kp[0], engine.read_prefix_rows(s, kp[1]))
+            for h, s, pspan, kvs in hits:
+                self.report.prefill_tokens += len(h.prompt) - pspan
+                lg = engine.prefill_prefix_hit(s, h.prompt, kvs, pspan)
+                tok0[s] = int(sampler.sample(lg, [s]).cpu()[0])
+            now = self._now()
         self.report.prefill_s += now - t0
         if self._wave is not None:
             self._wave["prefill_s"] += now - t0
@@ -1090,11 +1092,12 @@ class Server:
         else:
             live[[s for s in range(self._b)
                   if self._slot_handle[s] is not None]] = True
-        t0 = self._now()
-        toks = engine.decode_chunk(self._cur, self._pos, sampler, T, live=live)
-        with sanitizer.allowed("token-readback"):
-            mat = toks.cpu().numpy()  # lint: allow[MG101] the one planned token read a chunk
-        now = self._now()
+        with span("serve.decode"):
+            t0 = self._now()
+            toks = engine.decode_chunk(self._cur, self._pos, sampler, T, live=live)
+            with sanitizer.allowed("token-readback"):
+                mat = toks.cpu().numpy()  # lint: allow[MG101] the one planned token read a chunk
+            now = self._now()
         self._ticks += T
         self.report.decode_s += now - t0
         if wave is not None:
